@@ -10,8 +10,9 @@ result line):
 
 1. device: require CUDA, print the card's name and power limit
    (``nvidia-smi``), set and print the TF32 switches;
-2. build: compile every kernel of the path from ``object_detection_cib_torch``
-   (``nvcc``, printed as set-up time, with ptxas' register report);
+2. build: compile every kernel source of ``object_detection_cib_torch/ops/
+   csrc`` (one ``nvcc`` per source, all at once; printed as set-up time,
+   with ptxas' register report);
 3. kernels: hold each kernel BITWISE against its plain PyTorch version on
    the card (greedy-NMS keep mask: the chain case, K=256 random, K=2048 with
    900 live, a ragged K=1000, and the batch of 32 at K=2048 from a real
@@ -29,7 +30,26 @@ result line):
 5. validation: a fake 320-image val set at 416 (``build_fake_manifest``,
    coco-zipf top-10 shape), ``ValDeviceCache`` on the card, batch 64,
    ``Evaluator.validate``; the mAP dict must be finite;
-6. the ``kernels`` JSON line, the card line, and the result line last.
+6. training set-up: the repo's training recipe (yolov5s, nc=10, 416x416,
+   batch 64, bf16 over f32 parameters, mosaic, translate 0.1, scale 0.5,
+   HSV 0.015/0.7/0.4, flip 0.5, max_targets 120) as a ``Trainer`` over the
+   fake 4,992-image corpus of ``bench.py:bench_sustained``, held on the card
+   as planar uint8 (2.59 GB), with the phase-5 val set;
+7. training kernels: the corpus gather (K2 planar, K3 flat view), HSV (K4,
+   bf16 and f32, integral and non-integral, extreme gains) and the mosaic
+   warp (K5: taps of a real draw at 416, random windowed taps at 416 and
+   640, a quadrant wholly outside its window) held BITWISE against their
+   plain versions on the card, then timed in turns against them (and the
+   gather against ``torch.index_select``), with bounds from this run's
+   inputs;
+8. training: ``Trainer.fit(max_epochs=1, limit_train_batches=40)`` with the
+   launch counts zeroed just before and read just after (K2, K4, K5 once
+   per step; K1 five times in the epoch-end validation); finite losses,
+   every parameter moved, a finite mAP; img/s over the last 30 steps, ms
+   per stage and the host's time to enqueue one step; then two f32 steps
+   of yolov5n at 64 px from the same weights and draws on the CPU and the
+   card, losses within 1e-3 relative;
+9. the ``kernels`` JSON line, the card line, and the result line last.
 """
 
 from __future__ import annotations
@@ -47,11 +67,15 @@ import torch
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 NMS_OPS_PER_PAIR = 14  # 4 min/max, 2 sub, 2 clamp, 1 mul, 2 add/sub, +eps, div, cmp
+HSV_OPS_PER_PIXEL = 75  # per pixel position, 3 channels: csrc/hsv.cu counted op by op
+WARP_OPS_PER_TAP_ROW = 12  # per live (quadrant, row), output pixel and channel
 
 SERVE_B, SERVE_S, NC = 32, 640, 10
 SERVE_STEPS = 200  # a window of seconds, so host jitter averages out of img/s
 VAL_B, VAL_S, VAL_N = 64, 416, 320
 CONF, IOU, MAX_NMS, MAX_DET = 0.001, 0.6, 2048, 300
+TRAIN_N, TRAIN_B, TRAIN_S, MAX_TARGETS = 4992, 64, 416, 120  # bench.py:237 corpus
+TRAIN_STEPS, TIMED_STEPS = 40, 30
 
 
 def log(msg: str) -> None:
@@ -83,6 +107,46 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def in_turns(kernel, plain, reps_kernel: int, reps_plain: int):
+    """Median ms of kernel and plain, timed in turns (plain, kernel, kernel, plain)."""
+    for _ in range(3):
+        kernel()
+    plain()
+    turns = {"plain": [], "kernel": []}
+    for who in ("plain", "kernel", "kernel", "plain"):
+        fn, reps = (kernel, reps_kernel) if who == "kernel" else (plain, reps_plain)
+        turns[who].append(cuda_ms(fn, reps))
+    return statistics.median(turns["kernel"]), statistics.median(turns["plain"]), turns
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(bound ms, what sets it) from bytes at 3.35 TB/s and f32 ops at 67 TFLOP/s."""
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = n_ops / H100_F32_FLOP_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def check_equal(name: str, got, want) -> float:
+    """Fail unless bitwise equal; returns the max abs difference (0)."""
+    eq = torch.equal(got, want)
+    err = (got.float() - want.float()).abs().max().item() if got.numel() else 0.0
+    log(f"[kernels] {name}: bitwise_equal={eq} max_abs_err={err}")
+    if not eq:
+        fail(f"{name}: kernel disagrees with its plain version (max abs err {err})")
+    return err
+
+
+def used_lines(j, w0, w1, S):
+    """Per (group, quadrant): source rows (or columns) that carry a non-zero tap."""
+    G, Q, _ = j.shape
+    used = torch.zeros(G, Q, S, dtype=torch.int8, device=j.device)
+    for k, w in enumerate((w0, w1)):
+        jj = j.long() + k
+        ok = ((w != 0) & (jj >= 0) & (jj < S)).to(torch.int8)
+        used.scatter_reduce_(2, jj.clamp(0, S - 1), ok, "amax")
+    return used.sum(-1).double()
+
+
 def nms_pairs_needed(keep, live) -> int:
     """Pair tests any exact greedy NMS must make on these inputs.
 
@@ -104,15 +168,25 @@ def main() -> None:
         fail(f"object_detection_cib_torch/ not found beside {Path(__file__).name}")
     sys.path.insert(0, str(root))
 
+    import numpy as np
+
     from object_detection_cib_torch.core.nms import non_max_suppression, select_candidates
-    from object_detection_cib_torch.core.types import default_anchors
+    from object_detection_cib_torch.core.types import FeatureShape, default_anchors
+    from object_detection_cib_torch.data.device_pipeline import DeviceDataPipeline, draw_augment
+    from object_detection_cib_torch.data.host_augment import AugParams
     from object_detection_cib_torch.data.synthetic import build_fake_manifest
     from object_detection_cib_torch.data.val_cache import ValDeviceCache
     from object_detection_cib_torch.eval.decode import decode_predictions
     from object_detection_cib_torch.models.yolov5 import build_network
+    from object_detection_cib_torch.ops import augment as aug_ops
+    from object_detection_cib_torch.ops import gather as gather_ops
+    from object_detection_cib_torch.ops import hsv as hsv_ops
     from object_detection_cib_torch.ops import nms as nms_ops
-    from object_detection_cib_torch.train.steps import make_eval_step
-    from object_detection_cib_torch.train.trainer import Evaluator
+    from object_detection_cib_torch.ops import warp as warp_ops
+    from object_detection_cib_torch.ops.build import build_all
+    from object_detection_cib_torch.train.optim import OptimizerConfig, SmartSGD
+    from object_detection_cib_torch.train.steps import make_eval_step, make_train_step
+    from object_detection_cib_torch.train.trainer import Evaluator, Trainer
 
     card = card_line()
     log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
@@ -126,8 +200,9 @@ def main() -> None:
 
     # ----------------------------------------------------------------- 2 build
     t0 = time.perf_counter()
-    lib = nms_ops.build(verbose=True)
-    log(f"[build] setup: nvcc {lib.name} in {time.perf_counter() - t0:.2f} s")
+    libs = build_all(verbose=True)
+    log(f"[build] setup: nvcc {', '.join(p.name for p in libs.values())} in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # -------------------------------------------------- 3 kernels vs plain
     def rand_case(K, n_real, seed, span, wh):
@@ -178,25 +253,16 @@ def main() -> None:
 
     boxes, live, thr = cases["yolov5s@640 B=32 K=2048"]
     keep = nms_ops.greedy_nms_mask(boxes, live, thr)
-    kernel = lambda: nms_ops.greedy_nms_mask(boxes, live, thr)  # noqa: E731
-    plain = lambda: nms_ops.greedy_nms_mask_plain(boxes, live, thr)  # noqa: E731
-    for _ in range(3):
-        kernel()
-    plain()
-    turns = {"plain": [], "kernel": []}
-    for who in ("plain", "kernel", "kernel", "plain"):
-        turns[who].append(cuda_ms(kernel if who == "kernel" else plain, 30 if who == "kernel" else 5))
-    nms_ms, plain_ms = statistics.median(turns["kernel"]), statistics.median(turns["plain"])
+    nms_ms, plain_ms, turns = in_turns(lambda: nms_ops.greedy_nms_mask(boxes, live, thr),
+                                       lambda: nms_ops.greedy_nms_mask_plain(boxes, live, thr), 30, 5)
     B, K = live.shape
     nms_bytes = B * K * (16 + 1 + 1)  # boxes f32x4 + live u8 in, keep u8 out
     pairs = nms_pairs_needed(keep, live)
-    t_bytes = nms_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = pairs * NMS_OPS_PER_PAIR / H100_F32_FLOP_PER_S * 1e3
-    bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    bound_ms, bound_by = bound(nms_bytes, pairs * NMS_OPS_PER_PAIR)
     log(f"[kernels] greedy_nms_mask B={B} K={K}: kernel {nms_ms:.4f} ms (turns {turns['kernel']}), "
         f"plain {plain_ms:.4f} ms (turns {turns['plain']}) | {card}")
-    log(f"[kernels] bound: {nms_bytes} B / 3.35 TB/s = {t_bytes:.6f} ms; {pairs} pair tests x "
-        f"{NMS_OPS_PER_PAIR} ops / 67 TFLOP/s = {t_ops:.6f} ms -> {bound_ms:.6f} ms ({bound_by})")
+    log(f"[kernels] bound: {nms_bytes} B at 3.35 TB/s, {pairs} pair tests x {NMS_OPS_PER_PAIR} ops "
+        f"at 67 TFLOP/s -> {bound_ms:.6f} ms ({bound_by})")
 
     # ------------------------------------------------------------- 4 serving
     estep = make_eval_step(net, anchors, conf_thres=CONF, iou_thres=IOU,
@@ -269,7 +335,7 @@ def main() -> None:
                                zipf_a=1.01, seed=0)
     t0 = time.perf_counter()
     cache = ValDeviceCache(info, range(VAL_N), VAL_S, 120, fake_mode=True)
-    ev = Evaluator(net, anchors, info.classes, batch_size=VAL_B)
+    ev = Evaluator(net, anchors, info.classes, batch_size=VAL_B, device=dev)
     ev.device_blocks(cache)
     torch.cuda.synchronize()
     log(f"[validation] setup: {VAL_N} canvases at {VAL_S} on the card in {time.perf_counter() - t0:.2f} s")
@@ -287,20 +353,267 @@ def main() -> None:
         f"host mAP), NMS launches {val_launches} | {card}")
     log("[validation] " + json.dumps(metrics))
 
-    # --------------------------------------------------------------- 6 report
-    kernels = [{
-        "name": "greedy_nms_mask",
-        "route": "cuda",
-        "source": "object_detection_cib_torch/ops/csrc/nms.cu",
-        "replaces": "object_detection_cib_tpu/ops/pallas_nms.py:131",
-        "launches": serve_launches,
-        "max_abs_err": max_err,
-        "ms": nms_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]
+    # ------------------------------------------------------- 6 training set-up
+    aug = AugParams()  # configs/data/augmentations/aug_params.yaml, mixup 0
+    train_info = build_fake_manifest(num_classes=NC, num_images=TRAIN_N, seed=0)
+    t0 = time.perf_counter()
+    trainer = Trainer(train_info, info, size="s", image_size=TRAIN_S, batch_size=TRAIN_B,
+                      aug_params=aug, max_targets=MAX_TARGETS, seed=0, dtype=torch.bfloat16,
+                      device=dev)
+    torch.cuda.synchronize()
+    pipe = trainer.pipeline
+    corpus = pipe.corpus
+    log(f"[train] setup: fake corpus {tuple(corpus.shape)} uint8 = {corpus.numel()} B on the "
+        f"card, net, pipeline and val cache in {time.perf_counter() - t0:.2f} s; "
+        f"{trainer.steps_per_epoch} steps per epoch, warmup {trainer.optimizer.nw} steps")
+
+    # ------------------------------------------- 7 training kernels vs plain
+    K = 4 * TRAIN_B
+    idx_np = np.random.default_rng(1).integers(0, TRAIN_N, K).astype(np.int32)
+    idx_np[:4] = idx_np[4]  # repeated rows
+    idx = torch.from_numpy(idx_np).to(dev)
+    row_bytes = corpus[0].numel()
+    flat = corpus.view(TRAIN_N, 8, row_bytes // 8)
+    errs = {}
+    errs["gather_rows_planar"] = max(
+        check_equal(f"gather_rows_planar {tuple(corpus.shape)}[{K}]",
+                    gather_ops.gather_rows_planar(corpus, idx), gather_ops.gather_rows_plain(corpus, idx)),
+        check_equal("gather_rows_planar byte path (7,3,13,7)[5]",
+                    gather_ops.gather_rows_planar(corpus[:7, :, :13, :7].contiguous(), idx[4:9] % 7),
+                    gather_ops.gather_rows_plain(corpus[:7, :, :13, :7].contiguous(), idx[4:9] % 7)))
+    errs["gather_rows_flat"] = check_equal(
+        f"gather_rows_flat {tuple(flat.shape)}[{K}]",
+        gather_ops.gather_rows_flat(flat, idx), gather_ops.gather_rows_plain(flat, idx))
+    timing = {}
+    for name, fn, src in (("gather_rows_planar", gather_ops.gather_rows_planar, corpus),
+                          ("gather_rows_flat", gather_ops.gather_rows_flat, flat)):
+        k_ms, p_ms, turns = in_turns(lambda: fn(src, idx), lambda: gather_ops.gather_rows_plain(src, idx),
+                                     30, 10)
+        lib_ms = statistics.median([cuda_ms(lambda: torch.index_select(src, 0, idx.long()), 30)
+                                    for _ in range(2)])
+        timing[name] = (k_ms, p_ms, lib_ms, *bound(2 * K * row_bytes, 0))
+        log(f"[kernels] {name} K={K} rows of {row_bytes} B: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"torch.index_select {lib_ms:.4f} ms, bound {timing[name][3]:.6f} ms ({timing[name][4]}) "
+            f"(turns {turns}) | {card}")
+
+    # a real step's warp and HSV inputs, drawn from a generator of their own
+    gen = torch.Generator(device=dev).manual_seed(7)
+    draws = draw_augment(gen, TRAIN_B, TRAIN_S, aug)
+    sample = pipe.gather(torch.from_numpy(pipe._epoch_plan()[0].astype(np.int32)).to(dev))
+    G = TRAIN_B
+    placement = aug_ops._mosaic_placement(sample.sizes.reshape(G, 4, 2), draws.centers, TRAIN_S)
+    M = aug_ops._affine_matrices(draws.values, 2 * TRAIN_S, 2 * TRAIN_S, TRAIN_S, TRAIN_S)
+    taps = aug_ops.mosaic_warp_taps(M, placement, TRAIN_S, draws.flip)
+    imgs = sample.images.reshape(G, 4, 3, TRAIN_S, TRAIN_S)
+
+    def rand_taps(G_, S_, seed):
+        gt = torch.Generator(device=dev).manual_seed(seed)
+        out = [torch.randint(0, 256, (G_, 4, 3, S_, S_), generator=gt, device=dev, dtype=torch.uint8)]
+        for _ in range(2):
+            j0 = torch.randint(-3, S_ + 1, (G_, 4, S_), generator=gt, device=dev, dtype=torch.int32)
+            w = [torch.rand(G_, 4, S_, generator=gt, device=dev) for _ in range(2)]
+            w = [torch.where(torch.rand(G_, 4, S_, generator=gt, device=dev) < 0.2, 0.0, x) for x in w]
+            out += [j0, *w]
+        return out
+
+    dead = [t.clone() for t in taps]
+    for t in dead[1:3] + dead[4:6]:
+        t[:, 2] = 0.0  # quadrant 2 wholly outside its window: every weight zero
+    warp_cases = {
+        f"real draw {tuple(imgs.shape)}": (imgs, *taps),
+        "random windowed taps G=16 S=416": tuple(rand_taps(16, 416, 1)),
+        "random windowed taps G=16 S=640": tuple(rand_taps(16, 640, 2)),
+        "real draw, quadrant 2 outside its window": (imgs, *dead),
+    }
+    errs["warp_quadrants"] = 0.0
+    for name, args in warp_cases.items():
+        for od in (torch.bfloat16, torch.float32):
+            errs["warp_quadrants"] = max(errs["warp_quadrants"], check_equal(
+                f"warp_quadrants {name} -> {od}", warp_ops.warp_quadrants(*args, out_dtype=od),
+                warp_ops.warp_quadrants_plain(*args, out_dtype=od)))
+    warped = warp_ops.warp_quadrants(imgs, *taps, out_dtype=torch.bfloat16)
+    k_ms, p_ms, turns = in_turns(lambda: warp_ops.warp_quadrants(imgs, *taps, out_dtype=torch.bfloat16),
+                                 lambda: warp_ops.warp_quadrants_plain(imgs, *taps, out_dtype=torch.bfloat16),
+                                 30, 5)
+    jx0, wx0, wx1, jy0, wy0, wy1 = taps
+    src_bytes = float((used_lines(jy0, wy0, wy1, TRAIN_S) * used_lines(jx0, wx0, wx1, TRAIN_S)).sum() * 3)
+    tap_bytes = sum(t.numel() * t.element_size() for t in taps)
+    out_bytes = warped.numel() * warped.element_size()
+    live_rows = float(((wy0 != 0) | (wy1 != 0)).sum())
+    warp_ops_n = live_rows * TRAIN_S * 3 * WARP_OPS_PER_TAP_ROW + warped.numel() * 2
+    timing["warp_quadrants"] = (k_ms, p_ms, None, *bound(src_bytes + tap_bytes + out_bytes, warp_ops_n))
+    log(f"[kernels] warp_quadrants G={G} S={TRAIN_S} bf16 out: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
+        f"(turns {turns}); bytes needed: source {src_bytes:.0f} (of {imgs.numel()} held) + taps "
+        f"{tap_bytes} + out {out_bytes}; ops {warp_ops_n:.0f} (live quadrant rows {live_rows:.0f} of "
+        f"{wy0.numel()}) -> bound {timing['warp_quadrants'][3]:.6f} ms ({timing['warp_quadrants'][4]}) | {card}")
+
+    gh = torch.Generator(device=dev).manual_seed(3)
+    extreme = torch.tensor([[0.985, 0.3, 0.6], [1.015, 1.7, 1.4], [1.0, 1.0, 1.0], [0.99, 1.69, 0.61]],
+                           device=dev).repeat(G // 4, 1)
+    hsv_cases = {
+        "real warp output bf16": (warped, draws.hsv_r),
+        "real warp output f32": (warped.float(), draws.hsv_r),
+        "integral bf16, extreme gains": (torch.randint(0, 256, warped.shape, generator=gh, device=dev)
+                                         .to(torch.bfloat16), extreme),
+        "non-integral f32, extreme gains": (torch.rand(warped.shape, generator=gh, device=dev) * 255.0,
+                                            extreme),
+    }
+    errs["hsv_planar"] = 0.0
+    for name, (x, r) in hsv_cases.items():
+        errs["hsv_planar"] = max(errs["hsv_planar"], check_equal(
+            f"hsv_planar {name} {tuple(x.shape)}", hsv_ops.hsv_planar(x, r), hsv_ops.hsv_planar_plain(x, r)))
+    k_ms, p_ms, turns = in_turns(lambda: hsv_ops.hsv_planar(warped, draws.hsv_r),
+                                 lambda: hsv_ops.hsv_planar_plain(warped, draws.hsv_r), 30, 5)
+    n_pos = warped.numel() // 3
+    timing["hsv_planar"] = (k_ms, p_ms, None,
+                            *bound(2 * warped.numel() * warped.element_size() + draws.hsv_r.numel() * 4,
+                                   n_pos * HSV_OPS_PER_PIXEL))
+    log(f"[kernels] hsv_planar {tuple(warped.shape)} bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
+        f"(turns {turns}), bound {timing['hsv_planar'][3]:.6f} ms ({timing['hsv_planar'][4]}) | {card}")
+    timing["greedy_nms_mask"] = (nms_ms, plain_ms, None, bound_ms, bound_by)
+    errs["greedy_nms_mask"] = max_err
+
+    # ------------------------------------------------------------- 8 training
+    net = trainer.net
+    before = [p.detach().clone() for p in net.parameters()]
+    marks = {}
+
+    def on_step(epoch, i, m):
+        if i in (TRAIN_STEPS - TIMED_STEPS - 1, TRAIN_STEPS - 1):
+            torch.cuda.synchronize()
+            marks[i] = time.perf_counter()
+
+    counted = (gather_ops.gather_rows_planar, gather_ops.gather_rows_flat, hsv_ops.hsv_planar,
+               warp_ops.warp_quadrants, nms_ops.greedy_nms_mask)
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    train_map = trainer.fit(max_epochs=1, limit_train_batches=TRAIN_STEPS, on_step=on_step)
+    fit_s = time.perf_counter() - t0
+    train_launches = {fn.__name__: fn.launches for fn in counted}
+    log(f"[train] fit(max_epochs=1, limit_train_batches={TRAIN_STEPS}) incl. validation: {fit_s:.2f} s; "
+        f"launches {train_launches}")
+    for name in ("gather_rows_planar", "hsv_planar", "warp_quadrants"):
+        if train_launches[name] != TRAIN_STEPS:
+            fail(f"training launched {name} {train_launches[name]} times in {TRAIN_STEPS} steps")
+    if train_launches["greedy_nms_mask"] != n_blocks:
+        fail(f"epoch-end validation launched NMS {train_launches['greedy_nms_mask']} times, want {n_blocks}")
+    em = trainer.epoch_metrics[-1]
+    if not all(np.isfinite(v).all() for v in em.values()):
+        fail(f"training losses not finite: {em}")
+    unmoved = sum(torch.equal(a, b) for a, b in zip(before, net.parameters()))
+    if unmoved:
+        fail(f"{unmoved} of {len(before)} parameters did not move in {TRAIN_STEPS} steps")
+    if not all(math.isfinite(v) for v in train_map.values()):
+        fail(f"epoch-end mAP not finite: {train_map}")
+    t_lo, t_hi = marks[TRAIN_STEPS - TIMED_STEPS - 1], marks[TRAIN_STEPS - 1]
+    train_ips = TIMED_STEPS * TRAIN_B / (t_hi - t_lo)
+    log(f"[train] yolov5s nc={NC} {TRAIN_S}x{TRAIN_S} B={TRAIN_B} bf16: {TIMED_STEPS} steps "
+        f"(steps {TRAIN_STEPS - TIMED_STEPS + 1}-{TRAIN_STEPS}) in {t_hi - t_lo:.4f} s = {train_ips:.2f} img/s; "
+        f"epoch wall {trainer.epoch_walls[-1]:.3f} s for {trainer.epoch_imgs[-1]} images | {card}")
+    log("[train] losses per step: " + ", ".join(f"{k} {v[0]:.4f}->{v[-1]:.4f}" for k, v in em.items())
+        + f"; all {len(before)} parameters moved; assign_drop total {em['assign_drop'].sum():.0f}; "
+        f"targets dropped by max_targets {pipe.overflow_total}")
+    log("[train] epoch-end validation " + json.dumps(train_map))
+
+    plan_idx = torch.from_numpy(pipe._epoch_plan()[1].astype(np.int32)).to(dev)
+    fixed = pipe.gather(plan_idx)
+    batch, _ = pipe.augment_fn(fixed, draws)
+    stage = {
+        "gather (K2 + sizes/targets)": cuda_ms(lambda: pipe.gather(plan_idx), 10),
+        "augment (K5, K4, boxes, to_batch)": cuda_ms(lambda: pipe.augment_fn(fixed, draws), 10),
+        "draws": cuda_ms(lambda: draw_augment(gen, TRAIN_B, TRAIN_S, aug), 10),
+        "forward+assign+loss+backward+SGD": cuda_ms(lambda: trainer.train_step(batch), 10),
+        "whole step": cuda_ms(lambda: trainer.train_step(pipe.gather_augment(
+            plan_idx, draw_augment(gen, TRAIN_B, TRAIN_S, aug))[0]), 10),
+    }
+    log("[train] ms per stage (CUDA events, median of 10): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in stage.items()) + f" | {card}")
+    enqueue = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(pipe.gather_augment(plan_idx, draw_augment(gen, TRAIN_B, TRAIN_S, aug))[0])
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    log(f"[train] host enqueue of one whole step (median of 5): {statistics.median(enqueue):.4f} ms "
+        f"(runs {[round(t, 4) for t in enqueue]}) | {card}")
+
+    # device busy time per step and kernels launched per step, from a trace
+    # of 3 whole steps; the idle share compares that busy time with the
+    # untraced pipelined step time of the fit above
+    from torch.profiler import ProfilerActivity, profile
+
+    n_prof = 3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            trainer.train_step(pipe.gather_augment(plan_idx, draw_augment(gen, TRAIN_B, TRAIN_S, aug))[0])
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(getattr(e, "self_device_time_total", 0) for e in dev_events) / 1e3 / n_prof
+    launches_per_step = sum(e.count for e in dev_events) / n_prof
+    step_ms = (t_hi - t_lo) / TIMED_STEPS * 1e3
+    if busy_ms > 0:
+        log(f"[train] profiler: device busy {busy_ms:.4f} ms per step, {launches_per_step:.0f} kernels per "
+            f"step; pipelined step {step_ms:.4f} ms -> device idle share {1 - busy_ms / step_ms:.4f} | {card}")
+        top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:12]
+        log("[train] top kernels by device time per step (ms): " + "; ".join(
+            f"{e.key[:60]} x{e.count // n_prof} {e.self_device_time_total / 1e3 / n_prof:.3f}" for e in top))
+    else:
+        log("[train] profiler: no device time in the trace; idle share not measured")
+
+    # two f32 yolov5n steps at 64 px from the same weights and draws, CPU vs card
+    small_info = build_fake_manifest(num_classes=3, num_images=16, image_size=64, seed=0)
+    g_cpu = torch.Generator().manual_seed(5)
+    small_draws = [draw_augment(g_cpu, 4, 64, aug) for _ in range(2)]
+
+    def to(d, device):
+        return type(d)(*(None if t is None else (type(t)(*(v.to(device) for v in t))
+                                                   if isinstance(t, tuple) else t.to(device))
+                         for t in d))
+
+    def small_run(device):
+        snet = build_network(3, "n", device=device, seed=1)
+        spipe = DeviceDataPipeline(small_info, 64, 4, aug, max_targets=20, seed=0,
+                                   feed_dtype=torch.float32, device=device)
+        sstep = make_train_step(snet, anchors, FeatureShape(64, 64),
+                                SmartSGD(snet, OptimizerConfig(max_epochs=10), 4))
+        plan = spipe._epoch_plan()
+        losses = []
+        for i in range(2):
+            b, _ = spipe.gather_augment(torch.from_numpy(plan[i].astype(np.int32)).to(device),
+                                        to(small_draws[i], device))
+            losses.append(float(sstep(b).total))
+        return losses
+
+    l_cpu, l_gpu = small_run(torch.device("cpu")), small_run(dev)
+    if not all(abs(a - b) <= 1e-3 * abs(a) for a, b in zip(l_cpu, l_gpu)):
+        fail(f"small f32 train steps: CPU losses {l_cpu} vs card {l_gpu} beyond 1e-3 relative")
+    log(f"[train] small f32 check: yolov5n@64 B=4, 2 steps, loss CPU {l_cpu} vs card {l_gpu} "
+        f"(within 1e-3 relative)")
+
+    # --------------------------------------------------------------- 9 report
+    src = "object_detection_cib_torch/ops/csrc/"
+    rows = [
+        ("greedy_nms_mask", "nms.cu", "object_detection_cib_tpu/ops/pallas_nms.py:131", serve_launches),
+        ("gather_rows_planar", "gather.cu", "object_detection_cib_tpu/ops/pallas_gather.py:98",
+         train_launches["gather_rows_planar"]),
+        ("gather_rows_flat", "gather.cu", "object_detection_cib_tpu/ops/pallas_gather.py:62",
+         train_launches["gather_rows_flat"]),
+        ("hsv_planar", "hsv.cu", "object_detection_cib_tpu/ops/pallas_hsv.py:132",
+         train_launches["hsv_planar"]),
+        ("warp_quadrants", "warp.cu", "object_detection_cib_tpu/ops/pallas_warp.py:208",
+         train_launches["warp_quadrants"]),
+    ]
+    kernels = []
+    for name, file, replaces, launches in rows:
+        k_ms, p_ms, lib_ms, b_ms, b_by = timing[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + file, "replaces": replaces,
+            "launches": launches, "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

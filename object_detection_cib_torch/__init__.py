@@ -4,17 +4,25 @@ The JAX package stays the reference; this package mirrors its layout and
 names so each module's counterpart is found at the same relative path. It
 imports ``torch`` and never JAX, flax or the JAX package.
 
-Ported so far (the serving and validation path):
+Ported so far (the serving and validation path, and the production
+training path):
 
 - ``core``    box math, the IoU family, batched NMS (``non_max_suppression``)
+              and the YOLOv5 label assigner
 - ``models``  YOLOv5 n/s/m/l as ``nn.Module``s, and the flax->torch weight
               converter (``models/convert.py``)
-- ``ops``     the greedy-NMS keep-mask kernel: CUDA C++ for sm_90a
-              (``ops/csrc/nms.cu``) beside its plain PyTorch version
+- ``ops``     every TPU kernel of the JAX package as CUDA C++ for sm_90a
+              (``ops/csrc/*.cu``, built by ``ops/build.py``), each beside its
+              plain PyTorch version: greedy-NMS keep mask (``nms.py``),
+              corpus row gather (``gather.py``), HSV jitter (``hsv.py``),
+              fused mosaic warp (``warp.py``); and the device augment
+              (``augment.py``)
 - ``eval``    head decode and the numpy COCO-style mAP evaluator
 - ``data``    dataset manifests, the fake manifest builder, the native JPEG
-              loader bindings and the device-resident validation cache
-- ``train``   ``make_eval_step`` and the ``Evaluator`` (validate / predict)
+              loader bindings, the device-resident validation cache, the
+              augmentation parameters and the device training pipeline
+- ``train``   loss, SmartSGD, the train and eval steps, the ``Evaluator``
+              (validate / predict) and the ``Trainer`` (``fit``)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

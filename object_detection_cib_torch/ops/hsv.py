@@ -1,0 +1,83 @@
+"""HSV jitter of planar images: the CUDA kernel (K4) and its plain version.
+
+Counterpart of ``object_detection_cib_tpu/ops/pallas_hsv.py``
+(``hsv_planar``). The kernel source is ``csrc/hsv.cu``, with a bf16 and an
+f32 instance; the plain version is ``ops/augment.py:hsv_batch`` with
+``channel_axis=1``, the function the Pallas kernel equals.
+
+``hsv_planar`` takes the plain version only for tensors on the CPU; for a
+CUDA tensor it launches the kernel or raises, and counts the launch in
+``hsv_planar.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from object_detection_cib_torch.ops import build as kbuild
+from object_detection_cib_torch.ops.augment import hsv_batch
+
+_lib: Optional[ctypes.CDLL] = None
+_ENTRY = {torch.bfloat16: "odcib_hsv_planar_bf16", torch.float32: "odcib_hsv_planar_f32"}
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = kbuild.load("hsv")
+        for name in _ENTRY.values():
+            fn = getattr(lib, name)
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def hsv_planar_plain(images: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: ``hsv_batch(images, r, channel_axis=1)``."""
+    return hsv_batch(images, r, channel_axis=1)
+
+
+def hsv_planar(images: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """images (B, 3, H, W) bf16/f32, r (B, 3) f32 gains -> jittered images.
+
+    Same dtype and shape out. CPU tensors take ``hsv_planar_plain``.
+    """
+    if images.dim() != 4 or images.shape[1] != 3:
+        raise ValueError(f"images must be (B, 3, H, W), got {tuple(images.shape)}")
+    B = images.shape[0]
+    if tuple(r.shape) != (B, 3) or r.dtype != torch.float32:
+        raise ValueError(f"r must be ({B}, 3) float32, got {tuple(r.shape)} {r.dtype}")
+    if r.device != images.device:
+        raise ValueError(f"images on {images.device} but r on {r.device}")
+    if images.device.type == "cpu":
+        return hsv_planar_plain(images, r)
+    if images.device.type != "cuda":
+        raise ValueError(f"no HSV kernel for device {images.device}")
+    if images.dtype not in _ENTRY:
+        raise ValueError(f"no HSV kernel for dtype {images.dtype}")
+    if not (images.is_contiguous() and r.is_contiguous()):
+        raise ValueError("images and r must be contiguous")
+    if B > 65535:
+        raise ValueError(f"batch {B} exceeds the kernel's grid limit 65535")
+    out = torch.empty_like(images)
+    if images.numel() == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(images.device):
+        err = getattr(lib, _ENTRY[images.dtype])(
+            images.data_ptr(), r.data_ptr(), out.data_ptr(), B,
+            images.shape[2] * images.shape[3], kbuild.stream_of(images),
+        )
+    kbuild.check(err, "hsv_planar")
+    hsv_planar.launches += 1
+    return out
+
+
+hsv_planar.launches = 0

@@ -3,7 +3,8 @@
 Counterpart of ``object_detection_cib_tpu/ops/pallas_nms.py``
 (``pallas_greedy_nms_mask``). The kernel source is ``csrc/nms.cu``: CUDA C++
 for sm_90a with a plain C interface, compiled by ``nvcc`` on first use into
-``build/kernels/`` at the root of the checkout and loaded with ``ctypes``.
+``build/kernels/`` at the root of the checkout and loaded with ``ctypes``
+(``ops/build.py``, shared by every kernel of the port).
 
 ``greedy_nms_mask`` takes the plain version only for tensors on the CPU; for
 a CUDA tensor it launches the kernel or raises. Where the JAX package falls
@@ -15,69 +16,32 @@ kept), so every K up to ``MAX_K`` goes through the kernel unpadded.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import Optional
 
 import torch
 
 from object_detection_cib_torch.core.iou import compute_iou_pairwise
+from object_detection_cib_torch.ops import build as kbuild
 
 MAX_K = 8192  # kMaxK in csrc/nms.cu: 20 B of shared memory per box
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "nms.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-)
-
 _lib: Optional[ctypes.CDLL] = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return str(Path(cuda_home) / "bin" / "nvcc")
 
 
 def build(verbose: bool = False) -> Path:
     """Compile ``csrc/nms.cu`` (if not built yet) and return the library path.
 
-    The library's name carries a hash of the source and flags, so an edited
-    source is never served by a stale build. With ``verbose`` the compiler's
-    register and shared-memory report (``-Xptxas -v``) is printed.
+    See ``ops/build.py``; with ``verbose`` the compiler's register and
+    shared-memory report (``-Xptxas -v``) is printed.
     """
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libodcib_nms_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)
-    return out
+    return kbuild.build_all(["nms"], verbose=verbose)["nms"]
 
 
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = kbuild.load("nms")
         lib.odcib_greedy_nms_mask.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
@@ -149,13 +113,11 @@ def greedy_nms_mask(
         return keep
     lib = _load()
     with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream(boxes.device).cuda_stream
         err = lib.odcib_greedy_nms_mask(
             boxes.data_ptr(), live.data_ptr(), keep.data_ptr(),
-            B, K, float(iou_thres), stream,
+            B, K, float(iou_thres), kbuild.stream_of(boxes),
         )
-    if err:
-        raise RuntimeError(f"greedy NMS kernel launch failed: cudaError {err}")
+    kbuild.check(err, "greedy NMS")
     greedy_nms_mask.launches += 1
     return keep
 

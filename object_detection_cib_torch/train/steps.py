@@ -1,19 +1,105 @@
-"""The eval step: forward (eval mode) -> decode -> NMS.
+"""The train step (forward -> assign -> loss -> backward -> SmartSGD) and the
+eval step (forward -> decode -> NMS).
 
-Counterpart of ``make_eval_step`` in ``object_detection_cib_tpu/train/steps.py``
-(parity: kod/lightning/experiments/yv5_baseline/exp.py:140-154, conf 0.001 /
-iou 0.6 at exp.py:45-46). The JAX step takes ``(params, batch_stats,
-images)``; here the network module holds its weights, so the step takes the
-images alone. ``train_step`` comes with the training slice.
+Counterpart of ``object_detection_cib_tpu/train/steps.py`` (parity:
+kod/lightning/experiments/yv5_baseline/exp.py):
+  * training_step (exp.py:104-138): forward(train) -> assign -> compact the
+    assignment to ``ASSIGN_COMPACT_SLOTS * B`` slots per level -> loss ->
+    total = B * (box + obj + cls) -> backward -> SmartSGD; BatchNorm running
+    statistics move in the forward;
+  * validation_step (exp.py:140-154): forward(eval) -> decode -> NMS
+    (conf 0.001 / iou 0.6, exp.py:45-46).
+The JAX steps take ``(params, batch_stats, ...)``; here the network module
+holds its weights, so the train step takes a batch and the eval step the
+images. Not carried: jit/mesh sharding, ``remat_policy`` (XLA
+rematerialisation) and ``head_sharding`` (GSPMD), which have no
+counterpart in an eager single-card step.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
+from object_detection_cib_torch.core.assigner import (
+    Assignment,
+    assign_targets,
+    compact_level_assignment,
+)
 from object_detection_cib_torch.core.nms import NMSResult, non_max_suppression
-from object_detection_cib_torch.core.types import LevelAnchors
+from object_detection_cib_torch.core.types import FeatureShape, LevelAnchors
 from object_detection_cib_torch.eval.decode import decode_predictions
+from object_detection_cib_torch.train.loss import LossParams, yolov5_loss
+from object_detection_cib_torch.train.optim import SmartSGD
+
+# assignment slots kept per image and level (the JAX train step's default)
+ASSIGN_COMPACT_SLOTS = 128
+
+
+class Batch(NamedTuple):
+    """Fixed-shape detection batch: targets padded to capacity T with a mask."""
+
+    images: torch.Tensor  # (B, H, W, 3) in [0, 1], feed dtype
+    boxes: torch.Tensor  # (B, T, 4) xyxy pixels
+    labels: torch.Tensor  # (B, T) int
+    mask: torch.Tensor  # (B, T) bool
+
+
+class StepMetrics(NamedTuple):
+    """One train step's losses (0-d f32 tensors, left on the device)."""
+
+    total: torch.Tensor
+    box: torch.Tensor
+    obj: torch.Tensor
+    cls: torch.Tensor
+    lr: float
+    # valid assignment slots dropped by the compaction (0 = exact)
+    assign_drop: torch.Tensor
+
+
+def make_train_step(
+    net: torch.nn.Module,
+    anchors: LevelAnchors,
+    image_shape: FeatureShape,
+    optimizer: SmartSGD,
+    loss_params: LossParams = LossParams(),
+    class_weights: Optional[torch.Tensor] = None,
+):
+    """Build ``train_step(batch) -> StepMetrics``, which updates ``net`` in place.
+
+    The step makes no host-device synchronisation: its losses stay on the
+    device, and the anchors are copied to the device once.
+    """
+    dev = next(net.parameters()).device
+    anchor_tensors = [torch.as_tensor(info.as_array()).to(dev) for info in anchors.levels()]
+
+    def train_step(batch: Batch) -> StepMetrics:
+        net.train()
+        out = net(batch.images)
+        assignment = assign_targets(batch.boxes, batch.labels, batch.mask, image_shape,
+                                    anchors, anchor_tensors)
+        cap = ASSIGN_COMPACT_SLOTS * batch.images.shape[0]
+        assign_drop = torch.zeros((), dtype=torch.int64, device=batch.boxes.device)
+        for lv in assignment.levels():
+            n_valid = lv.valid.sum()
+            assign_drop = assign_drop + (n_valid - min(cap, int(lv.valid.shape[0]))).clamp(min=0)
+        assignment = Assignment(*(compact_level_assignment(lv, cap) for lv in assignment.levels()))
+        lres = yolov5_loss(out, assignment, image_shape, loss_params, class_weights)
+        total = batch.images.shape[0] * lres.total  # ref exp.py:126-130
+        optimizer.zero_grad()
+        total.backward()
+        lr_other = optimizer.step()
+        return StepMetrics(
+            total=total.detach(),
+            box=lres.localization.detach(),
+            obj=lres.objectness.detach(),
+            cls=lres.classification.detach(),
+            lr=lr_other,
+            assign_drop=assign_drop,
+        )
+
+    return train_step
 
 
 def make_eval_step(

@@ -1,6 +1,9 @@
-"""Validation and prediction over the device-resident val corpus.
+"""The training loop, and validation and prediction over the val corpus.
 
-The serving/validation slice of ``object_detection_cib_tpu/train/trainer.py``:
+The counterpart of ``object_detection_cib_tpu/train/trainer.py`` in two
+parts. ``Trainer`` runs the production training loop (the fused-epoch
+mode of ``Trainer.fit``, :974): per step the device pipeline's gather and
+augment (K2, K5, K4) and the train step; per epoch the validation.
 ``Evaluator.validate`` is the counterpart of ``Trainer._validate_device``
 (train/trainer.py:832-956 of the JAX package) and ``Evaluator.predict`` of
 ``Trainer.predict``'s per-image dicts (:1333-1382). The uint8 canvases of a
@@ -10,24 +13,32 @@ eval step. The host converts and scores block i-1 while the card runs block
 i (a one-deep pipeline: results come back by a non-blocking copy into pinned
 memory, and the host waits on that copy's event only).
 
-Not here yet: config composition, the CLI, checkpoints, loggers, ``fit``,
-and the multi-host mAP merge; they come with later slices.
+Not here yet: config composition and the CLI (ROADMAP A6), checkpoints,
+loggers, early stopping, sampler dumps, the software-pipelined or
+CUDA-graph epoch, and the multi-host mAP merge (A7).
 """
 
 from __future__ import annotations
 
 import json
+import time
 from pathlib import Path
-from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from object_detection_cib_torch.core.nms import NMSResult
-from object_detection_cib_torch.core.types import LevelAnchors
+from object_detection_cib_torch.core.types import FeatureShape, LevelAnchors, default_anchors
+from object_detection_cib_torch.data.cache import DatasetInfo
+from object_detection_cib_torch.data.device_pipeline import DeviceDataPipeline
+from object_detection_cib_torch.data.host_augment import AugParams
 from object_detection_cib_torch.data.val_cache import ValDeviceCache
 from object_detection_cib_torch.eval.coco_map import MeanAveragePrecisionEvaluator
-from object_detection_cib_torch.train.steps import make_eval_step
+from object_detection_cib_torch.models.yolov5 import build_network
+from object_detection_cib_torch.train.loss import LossParams
+from object_detection_cib_torch.train.optim import OptimizerConfig, SmartSGD
+from object_detection_cib_torch.train.steps import StepMetrics, make_eval_step, make_train_step
 from object_detection_cib_torch.utils.device import resolve_device
 
 
@@ -134,3 +145,95 @@ def _trimmed(bi: int, fetched, B: int, n: int) -> Tuple[int, NMSResult]:
         event.synchronize()
     rows = min(n - bi * B, B)
     return bi, NMSResult(*(t.numpy()[:rows] for t in host))
+
+
+def _compute_loss_weights(info: DatasetInfo) -> np.ndarray:
+    """sum(n)/n_c per class (ref tasks/trainer.py:54-60)."""
+    counts = info.get_instance_count()
+    total = sum(counts.values())
+    return np.asarray([total / max(counts[c], 1) for c in info.classes], np.float32)
+
+
+class Trainer:
+    """The production training loop on one card, built from plain arguments.
+
+    The network (random weights from ``seed``), the device pipeline over
+    ``train_info`` (corpus on the card, fake mode, planar), SmartSGD with
+    ``steps_per_epoch = len(train) // batch_size``, the train step, and the
+    ``Evaluator`` over a ``ValDeviceCache`` of ``val_info``. Config
+    composition and the CLI are ROADMAP item A6.
+    """
+
+    def __init__(
+        self,
+        train_info: DatasetInfo,
+        val_info: DatasetInfo,
+        size: str = "s",
+        image_size: int = 416,
+        batch_size: int = 64,
+        aug_params: AugParams = AugParams(),
+        optimizer: OptimizerConfig = OptimizerConfig(),
+        loss_params: LossParams = LossParams(),
+        use_loss_weights: bool = False,
+        max_targets: int = 120,
+        seed: int = 0,
+        dtype: Optional[torch.dtype] = torch.bfloat16,
+        device: Union[str, torch.device] = "cuda",
+    ):
+        self.device = resolve_device(device)
+        self.classes = list(train_info.classes)
+        self.batch_size = batch_size
+        self.image_shape = FeatureShape(image_size, image_size)
+        self.anchors = default_anchors()
+        self.net = build_network(len(self.classes), size, dtype=dtype, device=self.device, seed=seed)
+        self.pipeline = DeviceDataPipeline(
+            train_info, image_size, batch_size, aug_params, max_targets=max_targets,
+            seed=seed, feed_dtype=torch.float32 if dtype is None else dtype,
+            device=self.device,
+        )
+        self.steps_per_epoch = max(len(train_info.samples) // batch_size, 1)
+        self.optimizer = SmartSGD(self.net, optimizer, self.steps_per_epoch)
+        class_weights = None
+        if use_loss_weights:
+            class_weights = torch.from_numpy(_compute_loss_weights(train_info)).to(self.device)
+        self.train_step = make_train_step(self.net, self.anchors, self.image_shape,
+                                          self.optimizer, loss_params, class_weights)
+        self.val_cache = ValDeviceCache(val_info, range(len(val_info.samples)), image_size,
+                                        max_targets, fake_mode=True)
+        self.evaluator = Evaluator(self.net, self.anchors, val_info.classes,
+                                   batch_size=batch_size, device=self.device)
+        self.epoch_imgs: List[int] = []
+        self.epoch_walls: List[float] = []
+        self.epoch_metrics: List[Dict[str, np.ndarray]] = []
+
+    def fit(self, max_epochs: int, limit_train_batches: Optional[int] = None,
+            on_step: Optional[Callable[[int, int, StepMetrics], None]] = None) -> Dict[str, float]:
+        """Train ``max_epochs`` epochs, validating after each; returns the last mAP dict.
+
+        ``limit_train_batches`` caps the steps per epoch (the JAX trainer's
+        knob, :978, in its integer form).
+        ``on_step(epoch, step, metrics)`` runs after each step is enqueued.
+        Per epoch, the images and the wall time (host clock, ending in the
+        host fetch of the epoch's metrics) are recorded, and the per-step
+        losses come back to the host in one copy.
+        """
+        n_steps = self.steps_per_epoch
+        if limit_train_batches:
+            n_steps = min(int(limit_train_batches), n_steps)
+        last_val: Dict[str, float] = {}
+        for epoch in range(max_epochs):
+            t0 = time.perf_counter()
+            rows = []
+            for i, (batch, _) in enumerate(self.pipeline.epoch(n_steps)):
+                m = self.train_step(batch)
+                rows.append(torch.stack([m.total, m.box, m.obj, m.cls, m.assign_drop.float()]))
+                if on_step is not None:
+                    on_step(epoch, i, m)
+            stacked = torch.stack(rows).cpu().numpy()
+            self.epoch_walls.append(time.perf_counter() - t0)
+            self.epoch_imgs.append(len(rows) * self.batch_size)
+            self.epoch_metrics.append({k: stacked[:, j] for j, k in
+                                       enumerate(("total", "box", "obj", "cls", "assign_drop"))})
+            last_val = self.evaluator.validate(self.val_cache)
+            last_val["images_per_sec"] = self.epoch_imgs[-1] / self.epoch_walls[-1]
+        return last_val

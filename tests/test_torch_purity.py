@@ -86,3 +86,46 @@ def test_nms_kernel_wrapper_never_falls_back(monkeypatch):
     with pytest.raises(ValueError, match="no NMS kernel"):
         nms.greedy_nms_mask(boxes, live, 0.5)
     assert nms.greedy_nms_mask.launches == before
+
+
+def test_training_entry_points_refuse_the_cpu_without_asking(monkeypatch):
+    from object_detection_cib_torch.data.device_pipeline import DeviceDataPipeline
+    from object_detection_cib_torch.data.host_augment import AugParams
+    from object_detection_cib_torch.data.synthetic import build_fake_manifest
+    from object_detection_cib_torch.train.trainer import Trainer
+
+    info = build_fake_manifest(num_classes=2, num_images=8, image_size=64, seed=0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceDataPipeline(info, 64, 2, AugParams())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(info, info, size="n", image_size=64, batch_size=2)
+
+
+@pytest.mark.parametrize("kernel", ["gather_rows_planar", "gather_rows_flat", "hsv_planar",
+                                    "warp_quadrants"])
+def test_training_kernel_wrappers_never_fall_back(monkeypatch, kernel):
+    """A non-CPU tensor never reaches a plain version; meta has no kernel."""
+    from object_detection_cib_torch.ops import augment, gather, hsv, warp
+
+    meta = dict(device="meta")
+    for mod, plain in ((gather, "gather_rows_plain"), (hsv, "hsv_planar_plain"),
+                       (warp, "warp_quadrants_plain"), (augment, "hsv_batch")):
+        monkeypatch.setattr(mod, plain, lambda *a, **k: pytest.fail("fell back"))
+    calls = {
+        "gather_rows_planar": lambda: gather.gather_rows_planar(
+            torch.zeros(4, 3, 8, 8, dtype=torch.uint8, **meta), torch.zeros(2, dtype=torch.int32, **meta)),
+        "gather_rows_flat": lambda: gather.gather_rows_flat(
+            torch.zeros(4, 8, 16, dtype=torch.uint8, **meta), torch.zeros(2, dtype=torch.int32, **meta)),
+        "hsv_planar": lambda: hsv.hsv_planar(torch.zeros(2, 3, 8, 8, **meta), torch.ones(2, 3, **meta)),
+        "warp_quadrants": lambda: warp.warp_quadrants(
+            torch.zeros(1, 4, 3, 8, 8, dtype=torch.uint8, **meta),
+            *(torch.zeros(1, 4, 8, dtype=dt, **meta)
+              for dt in (torch.int32, torch.float32, torch.float32) * 2)),
+    }
+    fn = getattr({"gather_rows_planar": gather, "gather_rows_flat": gather, "hsv_planar": hsv,
+                  "warp_quadrants": warp}[kernel], kernel)
+    before = fn.launches
+    with pytest.raises(ValueError, match="no .* kernel for device"):
+        calls[kernel]()
+    assert fn.launches == before
