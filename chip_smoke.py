@@ -3,7 +3,21 @@
 
 Run from the root of a checkout, on a machine with one card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline DIR ...]
+
+``--baseline DIR`` (repeatable) also builds the ``gather.cu`` and
+``warp.cu`` of another checkout at DIR (for example the parent commit,
+unpacked with ``git archive`` into a git-ignored directory), holds each
+bitwise against the plain version in phase 7, and times it in turns with
+this checkout's kernel on the same inputs. Without it, one card and
+nothing else is needed.
+
+Every kernel is timed two ways: ``ms``, CUDA events around 30 calls in a
+row (the kernel's device time, as long as the host enqueues a call faster
+than the card runs it; ``--baseline .`` times the same kernels called
+without the Python wrapper), and ``call_ms``, one call between two events
+from an idle stream, median of 30 (the wrapper's host path included, as a
+host-bound step sees it).
 
 Phases (any failure raises, so the script exits non-zero and prints no
 result line):
@@ -54,6 +68,8 @@ result line):
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import math
 import statistics
@@ -94,6 +110,11 @@ def fail(msg: str) -> None:
     raise RuntimeError(msg)
 
 
+def check_err(err: int) -> None:
+    if err:
+        fail(f"baseline kernel launch failed: cudaError {err}")
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Median device time of ``fn()`` over ``reps`` calls, by CUDA events."""
     times = []
@@ -107,15 +128,29 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def run_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn()``, from CUDA events around ``reps`` calls
+    in a row: the host enqueues ahead of the card, so the launch overhead of
+    a call does not show between two kernels."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def in_turns(kernel, plain, reps_kernel: int, reps_plain: int):
-    """Median ms of kernel and plain, timed in turns (plain, kernel, kernel, plain)."""
+    """ms per call of kernel and plain, each a run of calls in a row, timed in
+    turns (plain, kernel, kernel, plain); the median of each one's turns."""
     for _ in range(3):
         kernel()
     plain()
     turns = {"plain": [], "kernel": []}
     for who in ("plain", "kernel", "kernel", "plain"):
         fn, reps = (kernel, reps_kernel) if who == "kernel" else (plain, reps_plain)
-        turns[who].append(cuda_ms(fn, reps))
+        turns[who].append(run_ms(fn, reps))
     return statistics.median(turns["kernel"]), statistics.median(turns["plain"]), turns
 
 
@@ -160,6 +195,10 @@ def nms_pairs_needed(keep, live) -> int:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", type=Path, action="append", default=[],
+                    help="root of another checkout whose gather.cu and warp.cu are timed beside")
+    args = ap.parse_args()
     # ---------------------------------------------------------------- 1 device
     if not torch.cuda.is_available():
         fail("no CUDA device: torch.cuda.is_available() is False")
@@ -183,7 +222,7 @@ def main() -> None:
     from object_detection_cib_torch.ops import hsv as hsv_ops
     from object_detection_cib_torch.ops import nms as nms_ops
     from object_detection_cib_torch.ops import warp as warp_ops
-    from object_detection_cib_torch.ops.build import build_all
+    from object_detection_cib_torch.ops.build import REPORTS, build_all, kernel_usage
     from object_detection_cib_torch.train.optim import OptimizerConfig, SmartSGD
     from object_detection_cib_torch.train.steps import make_eval_step, make_train_step
     from object_detection_cib_torch.train.trainer import Evaluator, Trainer
@@ -203,6 +242,22 @@ def main() -> None:
     libs = build_all(verbose=True)
     log(f"[build] setup: nvcc {', '.join(p.name for p in libs.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
+    baselines = {}  # checkout dir -> {source: library}
+    for b in args.baseline:
+        t0 = time.perf_counter()
+        built = build_all(["gather", "warp"], csrc=b / "object_detection_cib_torch" / "ops" / "csrc")
+        baselines[b] = {n: ctypes.CDLL(str(p)) for n, p in built.items()}
+        log(f"[build] baseline {b}: gather.cu and warp.cu in {time.perf_counter() - t0:.2f} s")
+    usage = {}  # kernel entry -> (registers per thread, static shared bytes), from ptxas
+    for report in REPORTS.values():
+        usage.update(kernel_usage(report))
+
+    def resources(entry_part: str, dynamic: int) -> str:
+        found = [(e, u) for e, u in usage.items() if entry_part in e]
+        if not found:
+            return f"registers not reported, shared memory {dynamic} B dynamic per block"
+        return "; ".join(f"{e}: {r} registers per thread, {st + dynamic} B shared memory per block "
+                         f"({st} static + {dynamic} dynamic)" for e, (r, st) in found)
 
     # -------------------------------------------------- 3 kernels vs plain
     def rand_case(K, n_real, seed, span, wh):
@@ -263,6 +318,9 @@ def main() -> None:
         f"plain {plain_ms:.4f} ms (turns {turns['plain']}) | {card}")
     log(f"[kernels] bound: {nms_bytes} B at 3.35 TB/s, {pairs} pair tests x {NMS_OPS_PER_PAIR} ops "
         f"at 67 TFLOP/s -> {bound_ms:.6f} ms ({bound_by})")
+    call_ms = {"greedy_nms_mask": (cuda_ms(lambda: nms_ops.greedy_nms_mask(boxes, live, thr), 30), None)}
+    log(f"[kernels] greedy_nms_mask one call from an idle stream, host launch path included (median "
+        f"of 30): {call_ms['greedy_nms_mask'][0]:.4f} ms | {card}")
 
     # ------------------------------------------------------------- 4 serving
     estep = make_eval_step(net, anchors, conf_thres=CONF, iou_thres=IOU,
@@ -381,6 +439,13 @@ def main() -> None:
         check_equal("gather_rows_planar byte path (7,3,13,7)[5]",
                     gather_ops.gather_rows_planar(corpus[:7, :, :13, :7].contiguous(), idx[4:9] % 7),
                     gather_ops.gather_rows_plain(corpus[:7, :, :13, :7].contiguous(), idx[4:9] % 7)))
+    bad = idx[:8].clone()
+    bad[[1, 5]] = torch.tensor([-1, TRAIN_N], dtype=torch.int32, device=dev)
+    want = gather_ops.gather_rows_plain(corpus, torch.where((bad >= 0) & (bad < TRAIN_N), bad, 0))
+    want[[1, 5]] = 0
+    errs["gather_rows_planar"] = max(errs["gather_rows_planar"], check_equal(
+        "gather_rows_planar out-of-range rows come out zero", gather_ops.gather_rows_planar(corpus, bad),
+        want))
     errs["gather_rows_flat"] = check_equal(
         f"gather_rows_flat {tuple(flat.shape)}[{K}]",
         gather_ops.gather_rows_flat(flat, idx), gather_ops.gather_rows_plain(flat, idx))
@@ -389,12 +454,36 @@ def main() -> None:
                           ("gather_rows_flat", gather_ops.gather_rows_flat, flat)):
         k_ms, p_ms, turns = in_turns(lambda: fn(src, idx), lambda: gather_ops.gather_rows_plain(src, idx),
                                      30, 10)
-        lib_ms = statistics.median([cuda_ms(lambda: torch.index_select(src, 0, idx.long()), 30)
+        lib_ms = statistics.median([run_ms(lambda: torch.index_select(src, 0, idx.long()), 30)
                                     for _ in range(2)])
         timing[name] = (k_ms, p_ms, lib_ms, *bound(2 * K * row_bytes, 0))
         log(f"[kernels] {name} K={K} rows of {row_bytes} B: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
             f"torch.index_select {lib_ms:.4f} ms, bound {timing[name][3]:.6f} ms ({timing[name][4]}) "
             f"(turns {turns}) | {card}")
+        log(f"[kernels] {name}: {2 * K * row_bytes / k_ms / 1e6:.1f} GB/s moved (index_select "
+            f"{2 * K * row_bytes / lib_ms / 1e6:.1f}), {timing[name][3] / k_ms:.4f} of the byte bound | {card}")
+        call_ms[name] = (cuda_ms(lambda: fn(src, idx), 30),
+                         cuda_ms(lambda: torch.index_select(src, 0, idx.long()), 30))
+        log(f"[kernels] {name} one call from an idle stream, host launch path included (median of 30): "
+            f"kernel {call_ms[name][0]:.4f} ms, torch.index_select {call_ms[name][1]:.4f} ms | {card}")
+    log(f"[kernels] gather.cu with 16-byte rows: {resources('gather_rows_kernelI5uint4', 0)}")
+    want = gather_ops.gather_rows_plain(corpus, idx)
+    for b, blibs in baselines.items():
+        fn = blibs["gather"].odcib_gather_rows
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                                               ctypes.c_void_p]
+        got = torch.zeros_like(want)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def base_gather():
+            check_err(fn(corpus.data_ptr(), idx.data_ptr(), got.data_ptr(), TRAIN_N, K, row_bytes, stream))
+
+        base_gather()
+        check_equal(f"baseline {b} gather_rows_planar", got, want)
+        k_ms, b_ms, turns = in_turns(lambda: gather_ops.gather_rows_planar(corpus, idx), base_gather, 30, 30)
+        log(f"[kernels] gather_rows_planar K={K}, in a row: this checkout {k_ms:.4f} ms, baseline {b} "
+            f"{b_ms:.4f} ms (turns {turns}) | {card}")
+    del want
 
     # a real step's warp and HSV inputs, drawn from a generator of their own
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -446,6 +535,30 @@ def main() -> None:
         f"(turns {turns}); bytes needed: source {src_bytes:.0f} (of {imgs.numel()} held) + taps "
         f"{tap_bytes} + out {out_bytes}; ops {warp_ops_n:.0f} (live quadrant rows {live_rows:.0f} of "
         f"{wy0.numel()}) -> bound {timing['warp_quadrants'][3]:.6f} ms ({timing['warp_quadrants'][4]}) | {card}")
+    log(f"[kernels] warp_quadrants: {(src_bytes + tap_bytes + out_bytes) / k_ms / 1e6:.1f} GB/s of needed "
+        f"bytes, {timing['warp_quadrants'][3] / k_ms:.4f} of the bound | {card}")
+    call_ms["warp_quadrants"] = (
+        cuda_ms(lambda: warp_ops.warp_quadrants(imgs, *taps, out_dtype=torch.bfloat16), 30), None)
+    log(f"[kernels] warp_quadrants one call from an idle stream, host launch path included (median of "
+        f"30): {call_ms['warp_quadrants'][0]:.4f} ms | {card}")
+    for b, blibs in baselines.items():
+        fn = blibs["warp"].odcib_warp_quadrants_bf16
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        got = torch.zeros_like(warped)
+        ptrs = [imgs.data_ptr(), *(t.data_ptr() for t in taps), got.data_ptr()]
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def base_warp():
+            check_err(fn(*ptrs, G, TRAIN_S, TRAIN_S, stream))
+
+        base_warp()
+        check_equal(f"baseline {b} warp_quadrants", got, warped)
+        k_ms, b_ms, turns = in_turns(lambda: warp_ops.warp_quadrants(imgs, *taps, out_dtype=torch.bfloat16),
+                                     base_warp, 30, 30)
+        log(f"[kernels] warp_quadrants G={G} S={TRAIN_S}, in a row: this checkout {k_ms:.4f} ms, baseline "
+            f"{b} {b_ms:.4f} ms (turns {turns}) | {card}")
+    log(f"[kernels] warp.cu at S=So={TRAIN_S}: "
+        f"{resources('warp_quadrants_kernel', warp_ops.smem_bytes(TRAIN_S, TRAIN_S))}")
 
     gh = torch.Generator(device=dev).manual_seed(3)
     extreme = torch.tensor([[0.985, 0.3, 0.6], [1.015, 1.7, 1.4], [1.0, 1.0, 1.0], [0.99, 1.69, 0.61]],
@@ -470,6 +583,9 @@ def main() -> None:
                                    n_pos * HSV_OPS_PER_PIXEL))
     log(f"[kernels] hsv_planar {tuple(warped.shape)} bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
         f"(turns {turns}), bound {timing['hsv_planar'][3]:.6f} ms ({timing['hsv_planar'][4]}) | {card}")
+    call_ms["hsv_planar"] = (cuda_ms(lambda: hsv_ops.hsv_planar(warped, draws.hsv_r), 30), None)
+    log(f"[kernels] hsv_planar one call from an idle stream, host launch path included (median of 30): "
+        f"{call_ms['hsv_planar'][0]:.4f} ms | {card}")
     timing["greedy_nms_mask"] = (nms_ms, plain_ms, None, bound_ms, bound_by)
     errs["greedy_nms_mask"] = max_err
 
@@ -613,6 +729,7 @@ def main() -> None:
             "name": name, "route": "cuda", "source": src + file, "replaces": replaces,
             "launches": launches, "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "call_ms": call_ms[name][0], "library_call_ms": call_ms[name][1],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -5,9 +5,11 @@ Counterpart of ``object_detection_cib_tpu/ops/pallas_gather.py``:
 corpus, the training feed) and ``gather_rows_flat`` (K3, rows of the
 (N, 8, D/8) byte view). The flat layout existed because a TPU tiles its
 arrays in (8, 128); on the card a row of any shape is contiguous bytes, so
-both functions launch the same kernel, ``csrc/gather.cu``, over rows of
-bytes. The JAX package's ``gather_rows`` (any row shape through the flat
-view) is ``gather_rows_flat`` on a reshaped view here.
+both functions launch the same kernel file, ``csrc/gather.cu``, over rows
+of bytes, as a vector copy with the widest element (16 bytes for every
+planar row at 416 or 640) that the row size and base pointers allow. The JAX
+package's ``gather_rows`` (any row shape through the flat view) is
+``gather_rows_flat`` on a reshaped view here.
 
 CPU tensors take the plain version, ``src[idx]``, which raises on an index
 outside [0, N). CUDA tensors launch the kernel or raise; the launch is
@@ -65,8 +67,6 @@ def _gather(src: torch.Tensor, idx: torch.Tensor, entry) -> torch.Tensor:
         raise ValueError("src must be contiguous")
     idx = idx.to(torch.int32).contiguous()
     K = idx.shape[0]
-    if K > 65535:
-        raise ValueError(f"{K} rows exceed the kernel's grid limit 65535")
     out = torch.empty((K,) + tuple(src.shape[1:]), dtype=src.dtype, device=src.device)
     if K == 0 or out.numel() == 0:
         return out

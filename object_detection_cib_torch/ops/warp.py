@@ -11,10 +11,12 @@ matrix is ever built. The kernel source is ``csrc/warp.cu``; it and
 f32 sums, quadrants accumulated in order, ``rint(acc + 114)``), so the
 three agree bit for bit.
 
-The JAX kernel's ``S <= 512`` limit was a VMEM budget; this kernel holds
-nothing on chip and takes any S. Its dead-quadrant skip was a DMA-elision
-device; here a quadrant whose y-weights are zero for a row is skipped per
-thread, which changes no bit.
+The JAX kernel's ``S <= 512`` limit was a VMEM budget; this kernel stages
+a band's taps and, per warp, one output row's source rows and y-pass in
+shared memory (74,816 B a block at S = So = 416, 114,240 B at 640) and
+takes any S up to 32,767 and any So. Its dead-quadrant skip was a
+DMA-elision device; here a quadrant whose y-weights are zero for a row is
+skipped by the whole warp, which changes no bit.
 
 ``warp_quadrants`` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises, and counts the launch in
@@ -44,8 +46,15 @@ def _load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.odcib_warp_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.odcib_warp_smem_bytes.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def smem_bytes(S: int, So: int) -> int:
+    """Dynamic shared memory of one block of the kernel at sizes S and So."""
+    return _load().odcib_warp_smem_bytes(S, So)
 
 
 def _taps(j: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor, n: int):
@@ -115,8 +124,9 @@ def warp_quadrants(
         raise ValueError(f"no warp kernel for device {imgs.device}")
     if not (imgs.is_contiguous() and all(t.is_contiguous() for t in taps)):
         raise ValueError("imgs and taps must be contiguous")
-    if G > 65535:
-        raise ValueError(f"{G} groups exceed the kernel's grid limit 65535")
+    if G > 65535 or imgs.shape[-1] > 32767:
+        raise ValueError(f"{G} groups or S={imgs.shape[-1]} exceed the kernel's limits "
+                         "(65535 groups, S <= 32767)")
     S = imgs.shape[-1]
     out = torch.empty((G, 3, So, So), dtype=out_dtype, device=imgs.device)
     if out.numel() == 0:

@@ -170,6 +170,34 @@ def test_warp_plain_matches_pallas_bitwise(G, S, seed):
     np.testing.assert_array_equal(got16.float().numpy(), want16)
 
 
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("scale", [0.5, 1.5])
+def test_warp_plain_matches_pallas_at_extreme_scales(scale, flip):
+    """Taps of real mosaic draws at both ends of aug_params.yaml's scale
+    range (0.5 +- 0.5), mirrored or not: the inputs that stress the CUDA
+    kernel's x-windows and row staging."""
+    G, S = 2, 64
+    rng = np.random.default_rng(int(scale * 10) + flip)
+    imgs = rng.integers(0, 256, (G, 4, 3, S, S), np.uint8)
+    sizes = rng.integers(S // 2, S + 1, (G, 4, 2)).astype(np.int32)
+    centers = rng.integers(S // 2, 2 * S - S // 2, (G, 2)).astype(np.int32)
+    zeros = np.zeros(G, np.float32)
+    values = ta.AffineBatchValues(
+        *(T(v) for v in (zeros, zeros, zeros, np.full(G, scale, np.float32), zeros, zeros,
+                         rng.uniform(0.4, 0.6, G).astype(np.float32),
+                         rng.uniform(0.4, 0.6, G).astype(np.float32))))
+    placement = ta._mosaic_placement(T(sizes), T(centers), S)
+    M = ta._affine_matrices(values, 2 * S, 2 * S, S, S)
+    flip_do = T(np.array([True, False])) if flip else None
+    jx, wx0, wx1, jy, wy0, wy1 = (t.numpy() for t in ta.mosaic_warp_taps(M, placement, S, flip_do))
+    want = pallas_warp.warp_quadrants(
+        jnp.asarray(imgs), jnp.asarray(_dense(jx, wx0, wx1, S)), jnp.asarray(jy),
+        jnp.asarray(wy0), jnp.asarray(wy1), 114.0, out_dtype=jnp.float32, interpret=True)
+    got = tw.warp_quadrants_plain(*(T(a) for a in (imgs, jx, wx0, wx1, jy, wy0, wy1)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got != 114.0).any()
+
+
 def test_tap_scalars_and_matrix_match_jax():
     rng = np.random.default_rng(5)
     s = rng.uniform(-10, 70, (3, 64)).astype(np.float32)

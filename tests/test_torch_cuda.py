@@ -105,6 +105,55 @@ def test_gather_flat_equals_plain(dev):
     assert torch.equal(got.cpu(), flat[idx.long()])
 
 
+def _gather_expected(corpus, idx):
+    """corpus[idx] with zero rows where an index lies outside [0, N)."""
+    n = corpus.shape[0]
+    ok = (idx >= 0) & (idx < n)
+    want = gather_ops.gather_rows_plain(corpus, torch.where(ok, idx, 0))
+    want[~ok] = 0
+    return want
+
+
+@pytest.mark.parametrize("K", [1, 255, 256, 4096])
+def test_gather_aligned_rows_equal_plain(dev, K):
+    # rows of 49,920 B: 16-byte aligned, so copied as 16-byte vectors
+    g = torch.Generator().manual_seed(K)
+    corpus = torch.randint(0, 256, (600, 3, 40, 416), generator=g, dtype=torch.uint8)
+    idx = torch.randint(0, 600, (K,), generator=g, dtype=torch.int32)
+    idx[: K // 3] = idx[0]  # repeated rows
+    src = corpus.to(dev)
+    got = gather_ops.gather_rows_planar(src, idx.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather_ops.gather_rows_plain(src, idx.to(dev).long()))
+
+
+@pytest.mark.parametrize("shape", [(9, 3, 40, 416), (9, 3, 13, 7), (9, 3, 4, 6)])
+def test_gather_out_of_range_rows_are_zero(dev, shape):
+    g = torch.Generator().manual_seed(5)
+    corpus = torch.randint(1, 256, shape, generator=g, dtype=torch.uint8)
+    idx = torch.tensor([3, -1, 8, 9, 3, 1000, -7, 0], dtype=torch.int32)
+    got = gather_ops.gather_rows_planar(corpus.to(dev), idx.to(dev))
+    torch.cuda.synchronize()
+    want = _gather_expected(corpus, idx)
+    assert torch.equal(got.cpu(), want)
+    assert not got[[1, 3, 5, 6]].any() and got[[0, 2, 4, 7]].all()
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4, 8, 16])
+def test_gather_unaligned_source_base(dev, offset):
+    # a contiguous view whose base lies `offset` bytes into its buffer: the
+    # copy takes the widest vector that the base alignment allows
+    n, row = 11, 3 * 16 * 64
+    g = torch.Generator().manual_seed(offset)
+    buf = torch.randint(0, 256, (n * row + offset,), generator=g, dtype=torch.uint8).to(dev)
+    src = buf[offset:].view(n, 3, 16, 64)
+    assert src.is_contiguous() and src.data_ptr() % 16 == offset % 16
+    idx = torch.tensor([10, 0, 5, 5, 2], dtype=torch.int32, device=dev)
+    got = gather_ops.gather_rows_planar(src, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather_ops.gather_rows_plain(src, idx))
+
+
 # ------------------------------------------------------------------ K4 HSV
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -184,3 +233,46 @@ def test_mosaic_affine_on_card_equals_plain(dev, flip):
     assert d.max() <= 2 and (d == 0).float().mean() > 0.85
     assert torch.allclose(gpu.boxes.cpu(), cpu.boxes, atol=1e-4)
     assert torch.equal(gpu.mask.cpu(), cpu.mask)
+
+
+def _mosaic_taps(G, S, scale, flip, seed):
+    """Taps of mosaic draws at a fixed affine scale, as the training step
+    makes them (translate in [0.4, 0.6], no rotation or shear)."""
+    rng = np.random.default_rng(seed)
+    imgs = torch.from_numpy(rng.integers(0, 256, (G, 4, 3, S, S), np.uint8))
+    sizes = torch.from_numpy(rng.integers(S // 2, S + 1, (G, 4, 2)).astype(np.int32))
+    centers = torch.from_numpy(rng.integers(S // 2, 2 * S - S // 2, (G, 2)).astype(np.int32))
+    zeros = torch.zeros(G)
+    values = aug_ops.AffineBatchValues(
+        zeros, zeros, zeros, torch.full((G,), scale), zeros, zeros,
+        torch.from_numpy(rng.uniform(0.4, 0.6, G).astype(np.float32)),
+        torch.from_numpy(rng.uniform(0.4, 0.6, G).astype(np.float32)))
+    placement = aug_ops._mosaic_placement(sizes, centers, S)
+    M = aug_ops._affine_matrices(values, 2 * S, 2 * S, S, S)
+    flip_do = torch.from_numpy(rng.random(G) < 0.5) if flip else None
+    return imgs, list(aug_ops.mosaic_warp_taps(M, placement, S, flip_do))
+
+
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("scale", [0.5, 1.5])
+def test_warp_mosaic_taps_equal_plain(dev, scale, flip):
+    imgs, taps = _mosaic_taps(8, 416, scale, flip, seed=int(scale * 10) + flip)
+    for t in taps[1:3] + taps[4:6]:
+        t[3, 1] = 0.0  # quadrant 1 of group 3 lies wholly outside its window
+    args = [imgs.to(dev)] + [t.to(dev) for t in taps]
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = warp_ops.warp_quadrants(*args, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, warp_ops.warp_quadrants_plain(*args, out_dtype=out_dtype))
+
+
+@pytest.mark.parametrize("S,So", [(416, 320), (320, 416), (416, 520), (52, 100), (45, 37)])
+def test_warp_other_sizes_equal_plain(dev, S, So):
+    # So != S, and So wider than one pass of the kernel (448 columns); S not
+    # a multiple of 16 (4-byte copies) or of 4 (byte copies); So odd
+    imgs, taps = _random_taps(3, So, S, seed=S + So)
+    args = [imgs.to(dev)] + [t.to(dev) for t in taps]
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = warp_ops.warp_quadrants(*args, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, warp_ops.warp_quadrants_plain(*args, out_dtype=out_dtype))
