@@ -5,12 +5,16 @@ Run from the root of a checkout, on a machine with one card:
 
     python3 chip_smoke.py [--baseline DIR ...]
 
-``--baseline DIR`` (repeatable) also builds the ``gather.cu`` and
-``warp.cu`` of another checkout at DIR (for example the parent commit,
-unpacked with ``git archive`` into a git-ignored directory), holds each
-bitwise against the plain version in phase 7, and times it in turns with
-this checkout's kernel on the same inputs. Without it, one card and
-nothing else is needed.
+``--baseline DIR`` (repeatable) also builds the four kernel sources
+(``nms.cu``, ``gather.cu``, ``hsv.cu``, ``warp.cu``) of another checkout at
+DIR (for example the parent commit, unpacked with ``git archive`` into a
+git-ignored directory), holds each bitwise against the plain version in
+phases 3 and 7, and times it in turns with this checkout's kernel on the
+same inputs, called straight through ctypes. Each checkout's ``nms.cu`` is
+called by the interface it has: a library that exports
+``odcib_nms_workspace_bytes`` takes a workspace pointer and its capacity in
+images after ``keep``; one that does not takes the earlier seven arguments.
+Without ``--baseline``, one card and nothing else is needed.
 
 Every kernel is timed two ways: ``ms``, CUDA events around 30 calls in a
 row (the kernel's device time, as long as the host enqueues a call faster
@@ -29,12 +33,16 @@ result line):
    with ptxas' register report);
 3. kernels: hold each kernel BITWISE against its plain PyTorch version on
    the card (greedy-NMS keep mask: the chain case, K=256 random, K=2048 with
-   900 live, a ragged K=1000, and the batch of 32 at K=2048 from a real
-   yolov5s output), then time kernel and plain version in turns with CUDA
-   events (median of repeats) and compute the kernel's bound from this
-   run's inputs. Greedy NMS has no single PyTorch call (there is no
-   torchvision here), so there is no library yardstick: ``library_ms`` is
-   null;
+   900 live, a ragged K=1000, K=64 and K=65, the validation batch of 64 at
+   K=2048, one image alone, an image with no live box, one where every box
+   is kept and one where box 0 suppresses all others, and the batch of 32 at
+   K=2048 from a real yolov5s output), then time kernel and plain version in
+   turns with CUDA events (median of repeats), at the batch of 32 and for
+   its first image alone, and compute the kernel's bound from this run's
+   inputs, beside the dependency depth of the timed case (the sweeps the
+   plain version needs to its fixpoint: the chain no parallel design can
+   cut). Greedy NMS has no single PyTorch call (there is no torchvision
+   here), so there is no library yardstick: ``library_ms`` is null;
 4. serving: yolov5s, nc=10, 640x640, batch 32, bf16, channels_last, random
    weights from a seed, through ``make_eval_step`` (forward -> decode -> NMS
    at conf 0.001 / IoU 0.6 / max_nms 2048 / max_det 300) for 200 steps;
@@ -50,7 +58,9 @@ result line):
    fake 4,992-image corpus of ``bench.py:bench_sustained``, held on the card
    as planar uint8 (2.59 GB), with the phase-5 val set;
 7. training kernels: the corpus gather (K2 planar, K3 flat view), HSV (K4,
-   bf16 and f32, integral and non-integral, extreme gains) and the mosaic
+   bf16 and f32, integral and non-integral, extreme gains, a plane that is
+   not a multiple of 8, a base 2 bytes off 16-byte alignment, and pixels
+   that read entries 0, 1 and 255 of both division tables) and the mosaic
    warp (K5: taps of a real draw at 416, random windowed taps at 416 and
    640, a quadrant wholly outside its window) held BITWISE against their
    plain versions on the card, then timed in turns against them (and the
@@ -197,7 +207,7 @@ def nms_pairs_needed(keep, live) -> int:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path, action="append", default=[],
-                    help="root of another checkout whose gather.cu and warp.cu are timed beside")
+                    help="root of another checkout whose four kernel sources are timed beside")
     args = ap.parse_args()
     # ---------------------------------------------------------------- 1 device
     if not torch.cuda.is_available():
@@ -245,9 +255,10 @@ def main() -> None:
     baselines = {}  # checkout dir -> {source: library}
     for b in args.baseline:
         t0 = time.perf_counter()
-        built = build_all(["gather", "warp"], csrc=b / "object_detection_cib_torch" / "ops" / "csrc")
+        built = build_all(["gather", "hsv", "nms", "warp"],
+                          csrc=b / "object_detection_cib_torch" / "ops" / "csrc")
         baselines[b] = {n: ctypes.CDLL(str(p)) for n, p in built.items()}
-        log(f"[build] baseline {b}: gather.cu and warp.cu in {time.perf_counter() - t0:.2f} s")
+        log(f"[build] baseline {b}: {', '.join(built)} in {time.perf_counter() - t0:.2f} s")
     usage = {}  # kernel entry -> (registers per thread, static shared bytes), from ptxas
     for report in REPORTS.values():
         usage.update(kernel_usage(report))
@@ -285,11 +296,35 @@ def main() -> None:
     log(f"[kernels] yolov5s@640 candidates past conf {CONF}: min {min(n_pass)} max {max(n_pass)} "
         f"of K={cand.live.shape[1]} (detections per image {det.shape[1] * NC})")
 
+    def batch_case(B, K, seed):
+        """Random boxes of three classes (offset 4096 apart), ~90% live."""
+        g = torch.Generator().manual_seed(seed)
+        xy = torch.rand(B, K, 2, generator=g) * 300.0
+        sz = 5.0 + torch.rand(B, K, 2, generator=g) * 85.0
+        cls = torch.randint(0, 3, (B, K, 1), generator=g).float() * 4096.0
+        live = torch.rand(B, K, generator=g) > 0.1
+        return (torch.cat([xy, xy + sz], -1) + cls).to(dev), live.to(dev)
+
+    # image 0: no live box; image 1: disjoint boxes, all kept; image 2: equal
+    # boxes, box 0 suppresses all others
+    edge = torch.zeros(3, 300, 4)
+    edge[:2, :, 0] = torch.arange(300.0) * 20.0
+    edge[:2, :, 2] = edge[:2, :, 0] + 10.0
+    edge[:2, :, 3] = 10.0
+    edge[2] = torch.tensor([0.0, 0.0, 100.0, 100.0])
+    edge_live = torch.ones(3, 300, dtype=torch.bool)
+    edge_live[0] = False
+
     cases = {
         "chain K=256": (chain.to(dev), chain_live.to(dev), 0.45),
         "random K=256": (*rand_case(256, 200, 0, 200, (10, 80)), 0.45),
         "random K=2048 900 live": (*rand_case(2048, 900, 5, 400, (10, 90)), 0.5),
         "random K=1000 ragged": (*rand_case(1000, 700, 6, 300, (10, 80)), 0.45),
+        "random K=64 (one word)": (*batch_case(2, 64, 7), 0.45),
+        "random K=65 (one word and one box)": (*batch_case(2, 65, 8), 0.45),
+        "random B=64 K=2048 (the validation batch)": (*batch_case(VAL_B, 2048, 9), IOU),
+        "none live / all kept / box 0 suppresses all, K=300": (edge.to(dev), edge_live.to(dev), 0.5),
+        "yolov5s@640 B=1 K=2048": (cand.offset_boxes[:1], cand.live[:1], IOU),
         "yolov5s@640 B=32 K=2048": (cand.offset_boxes, cand.live, IOU),
     }
     max_err = 0
@@ -305,6 +340,10 @@ def main() -> None:
             fail(f"greedy_nms_mask disagrees with its plain version on {name}")
         if name.startswith("chain") and got[0, :3].tolist() != [True, False, True]:
             fail("chain case: greedy NMS must keep {A, C}")
+        if name.startswith("none live") and (
+                got[0].any() or not got[1].all() or got[2].nonzero().flatten().tolist() != [0]):
+            fail("edge cases: want nothing kept, everything kept, only box 0 kept")
+        del want
 
     boxes, live, thr = cases["yolov5s@640 B=32 K=2048"]
     keep = nms_ops.greedy_nms_mask(boxes, live, thr)
@@ -316,11 +355,56 @@ def main() -> None:
     bound_ms, bound_by = bound(nms_bytes, pairs * NMS_OPS_PER_PAIR)
     log(f"[kernels] greedy_nms_mask B={B} K={K}: kernel {nms_ms:.4f} ms (turns {turns['kernel']}), "
         f"plain {plain_ms:.4f} ms (turns {turns['plain']}) | {card}")
+    _, sweeps = nms_ops.greedy_nms_mask_plain(boxes, live, thr, with_sweeps=True)
+    kept_n = keep.sum(dim=1)
     log(f"[kernels] bound: {nms_bytes} B at 3.35 TB/s, {pairs} pair tests x {NMS_OPS_PER_PAIR} ops "
-        f"at 67 TFLOP/s -> {bound_ms:.6f} ms ({bound_by})")
+        f"at 67 TFLOP/s -> {bound_ms:.6f} ms ({bound_by}); dependency depth: the plain version "
+        f"reaches its fixpoint in {sweeps} sweeps; kept per image min {int(kept_n.min())} max "
+        f"{int(kept_n.max())} of {int(live.sum(dim=1).min())}..{int(live.sum(dim=1).max())} live")
     call_ms = {"greedy_nms_mask": (cuda_ms(lambda: nms_ops.greedy_nms_mask(boxes, live, thr), 30), None)}
     log(f"[kernels] greedy_nms_mask one call from an idle stream, host launch path included (median "
         f"of 30): {call_ms['greedy_nms_mask'][0]:.4f} ms | {card}")
+    one_ms, one_plain_ms, turns = in_turns(
+        lambda: nms_ops.greedy_nms_mask(boxes[:1], live[:1], thr),
+        lambda: nms_ops.greedy_nms_mask_plain(boxes[:1], live[:1], thr), 30, 5)
+    log(f"[kernels] greedy_nms_mask B=1 K={K} (the batch's first image alone), in a row: kernel "
+        f"{one_ms:.4f} ms, plain {one_plain_ms:.4f} ms (turns {turns}) | {card}")
+    log(f"[kernels] nms.cu at K={K}: {resources('pair_kernel', 0)}; "
+        f"{resources('scan_kernel', nms_ops.scan_smem_bytes(K))}")
+
+    def nms_direct(lib, bx, lv):
+        """A checkout's nms.cu called straight through ctypes, by the
+        interface it has: (call, keep buffer)."""
+        nb, nk = lv.shape
+        out = torch.zeros_like(lv)
+        fn = lib.odcib_greedy_nms_mask
+        args = [bx.data_ptr(), lv.data_ptr(), out.data_ptr()]
+        types = [ctypes.c_void_p] * 3
+        ws = None
+        if hasattr(lib, "odcib_nms_workspace_bytes"):
+            lib.odcib_nms_workspace_bytes.argtypes = [ctypes.c_int]
+            lib.odcib_nms_workspace_bytes.restype = ctypes.c_longlong
+            ws = torch.empty(nb * lib.odcib_nms_workspace_bytes(nk), dtype=torch.uint8, device=dev)
+            args += [ws.data_ptr(), nb]
+            types += [ctypes.c_void_p, ctypes.c_int]
+        args += [nb, nk, float(thr), torch.cuda.current_stream().cuda_stream]
+        fn.argtypes = types + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+
+        def call(ws=ws):  # the workspace lives as long as the call does
+            check_err(fn(*args))
+
+        return call, out
+
+    for b, blibs in baselines.items():
+        for bx, lv, want in ((boxes, live, keep), (boxes[:1], live[:1], keep[:1])):
+            base_nms, got = nms_direct(blibs["nms"], bx, lv)
+            base_nms()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"baseline {b} greedy_nms_mask disagrees at B={lv.shape[0]}")
+            k_ms, b_ms, turns = in_turns(lambda: nms_ops.greedy_nms_mask(bx, lv, thr), base_nms, 30, 30)
+            log(f"[kernels] greedy_nms_mask B={lv.shape[0]} K={K}, in a row: this checkout {k_ms:.4f} ms, "
+                f"baseline {b} {b_ms:.4f} ms, bitwise_equal=True (turns {turns}) | {card}")
 
     # ------------------------------------------------------------- 4 serving
     estep = make_eval_step(net, anchors, conf_thres=CONF, iou_thres=IOU,
@@ -571,6 +655,22 @@ def main() -> None:
         "non-integral f32, extreme gains": (torch.rand(warped.shape, generator=gh, device=dev) * 255.0,
                                             extreme),
     }
+    # every (v, diff) pair twice over: entries 0, 1 and 255 of both tables
+    vv, dd = torch.meshgrid(torch.arange(256), torch.arange(256), indexing="ij")
+    vv, dd = vv.flatten()[None], torch.minimum(vv, dd).flatten()[None]
+    lut = torch.stack([torch.cat([vv, vv - dd], 1), torch.cat([vv - dd, vv], 1),
+                       torch.cat([vv - dd // 2, vv - dd], 1)], 1).view(1, 3, 256, 512)
+    odd = torch.randint(0, 256, (5, 3, 13, 7), generator=gh, device=dev)
+    buf = torch.randint(0, 256, (4 * 3 * 16 * 64 + 1,), generator=gh, device=dev)
+    for dt in (torch.bfloat16, torch.float32):
+        off = buf.to(dt)[1:].view(4, 3, 16, 64)  # 2 or 4 bytes past a 16-byte boundary
+        if off.data_ptr() % 16 == 0:
+            fail("the offset view is 16-byte aligned: the case tests nothing")
+        hsv_cases.update({
+            f"every (v, diff) pair {dt}": (lut.to(dev, dt), extreme[1:2]),
+            f"plane of 91, not a multiple of 8, {dt}": (odd.to(dt), extreme[:5]),
+            f"base {off.data_ptr() % 16} bytes off 16-byte alignment {dt}": (off, extreme[:4]),
+        })
     errs["hsv_planar"] = 0.0
     for name, (x, r) in hsv_cases.items():
         errs["hsv_planar"] = max(errs["hsv_planar"], check_equal(
@@ -586,6 +686,26 @@ def main() -> None:
     call_ms["hsv_planar"] = (cuda_ms(lambda: hsv_ops.hsv_planar(warped, draws.hsv_r), 30), None)
     log(f"[kernels] hsv_planar one call from an idle stream, host launch path included (median of 30): "
         f"{call_ms['hsv_planar'][0]:.4f} ms | {card}")
+    hsv_bytes = 2 * warped.numel() * warped.element_size()
+    log(f"[kernels] hsv_planar: {hsv_bytes / k_ms / 1e6:.1f} GB/s moved, "
+        f"{timing['hsv_planar'][3] / k_ms:.4f} of the bound | {card}")
+    log(f"[kernels] hsv.cu: {resources('hsv_planar_kernel', 0)}")
+    hsv_want = hsv_ops.hsv_planar(warped, draws.hsv_r)
+    for b, blibs in baselines.items():
+        fn = blibs["hsv"].odcib_hsv_planar_bf16
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+        got = torch.zeros_like(warped)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def base_hsv():
+            check_err(fn(warped.data_ptr(), draws.hsv_r.data_ptr(), got.data_ptr(), G,
+                         TRAIN_S * TRAIN_S, stream))
+
+        base_hsv()
+        check_equal(f"baseline {b} hsv_planar", got, hsv_want)
+        k_ms, b_ms, turns = in_turns(lambda: hsv_ops.hsv_planar(warped, draws.hsv_r), base_hsv, 30, 30)
+        log(f"[kernels] hsv_planar {tuple(warped.shape)} bf16, in a row: this checkout {k_ms:.4f} ms, "
+            f"baseline {b} {b_ms:.4f} ms (turns {turns}) | {card}")
     timing["greedy_nms_mask"] = (nms_ms, plain_ms, None, bound_ms, bound_by)
     errs["greedy_nms_mask"] = max_err
 

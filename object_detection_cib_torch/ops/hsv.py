@@ -3,7 +3,11 @@
 Counterpart of ``object_detection_cib_tpu/ops/pallas_hsv.py``
 (``hsv_planar``). The kernel source is ``csrc/hsv.cu``, with a bf16 and an
 f32 instance; the plain version is ``ops/augment.py:hsv_batch`` with
-``channel_axis=1``, the function the Pallas kernel equals.
+``channel_axis=1``, the function the Pallas kernel equals. The kernel moves
+runs of 8 positions with 16-byte accesses where the tensors are 16-byte
+aligned and H * W is a multiple of 8, and one position at a time otherwise;
+it reads cv2's two division tables (``hsv_div_tables``) from shared memory
+where the plain version divides.
 
 ``hsv_planar`` takes the plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises, and counts the launch in
@@ -37,6 +41,20 @@ def _load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def hsv_div_tables() -> tuple[torch.Tensor, torch.Tensor]:
+    """cv2's 256-entry ``sdiv`` and ``hdiv`` tables (int32), as the kernel fills them.
+
+    ``sdiv[v] = round(1044480 / v)`` and ``hdiv[d] = round(122880 / d)`` by
+    the integer formula ``(2a + i) // (2i)`` (never a tie for 1 <= i <= 255),
+    entry 0 = 0: what ``hsv_batch`` computes per pixel by division.
+    """
+    i = torch.arange(256, dtype=torch.int32)
+    den = (2 * i).clamp(min=1)
+    sdiv = torch.where(i > 0, (2 * 1044480 + i) // den, 0)
+    hdiv = torch.where(i > 0, (2 * 122880 + i) // den, 0)
+    return sdiv.to(torch.int32), hdiv.to(torch.int32)
 
 
 def hsv_planar_plain(images: torch.Tensor, r: torch.Tensor) -> torch.Tensor:

@@ -131,6 +131,64 @@ def test_hsv_bf16_and_nhwc_match_jax():
     np.testing.assert_array_equal(ta.hsv_batch(T(nhwc), T(r)).numpy(), np.asarray(want))
 
 
+def _jax_exact_floordiv(num, den):
+    """The arithmetic of ``exact_floordiv`` inside the JAX ``hsv_batch``
+    (ops/augment.py:736-749, a local function there): an f32 quotient and one
+    exact-remainder correction."""
+    q = jnp.floor(num.astype(jnp.float32) / den.astype(jnp.float32)).astype(jnp.int32)
+    r = num - q * den
+    return q + jnp.where(r >= den, 1, 0) - jnp.where(r < 0, 1, 0)
+
+
+def test_hsv_div_tables_match_port_and_jax_division():
+    """The kernel's 256-entry tables equal, entry by entry, cv2's rounded
+    quotients, what the port's ``hsv_batch`` divides out
+    (ops/augment.py:360-361) and what the JAX ``hsv_batch``'s
+    ``exact_floordiv`` gives, for every v and every diff in 0..255.
+    ``test_hsv_every_table_entry_matches_jax`` sends the same 256 x 256 pairs
+    through the two ``hsv_batch``'s themselves."""
+    sdiv, hdiv = th.hsv_div_tables()
+    assert sdiv.dtype == hdiv.dtype == torch.int32 and sdiv.shape == hdiv.shape == (256,)
+    i = np.arange(256)
+    for table, a in ((sdiv, 1044480), (hdiv, 122880)):
+        cv2_round = np.where(i > 0, np.round(a / np.maximum(i, 1)), 0).astype(np.int64)
+        np.testing.assert_array_equal(table.numpy(), cv2_round)
+        ti = torch.arange(256, dtype=torch.int32)
+        port = torch.where(ti > 0, torch.div(2 * a + ti, (2 * ti).clamp(min=1),
+                                             rounding_mode="floor"), 0)
+        np.testing.assert_array_equal(table.numpy(), port.numpy())
+        ji = jnp.arange(256, dtype=jnp.int32)
+        jax_t = jnp.where(ji > 0, _jax_exact_floordiv(2 * a + ji, jnp.maximum(2 * ji, 1)), 0)
+        np.testing.assert_array_equal(table.numpy(), np.asarray(jax_t))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_hsv_every_table_entry_matches_jax(dtype):
+    """Every (v, diff) pair, in two channel orders, through both
+    ``hsv_batch``'s: each entry of both tables decides some output."""
+    v, d = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    v, d = v.ravel(), np.minimum(v, d).ravel()
+    px = np.stack([np.concatenate([v, v - d]), np.concatenate([v - d, v]),
+                   np.concatenate([v - d // 2, v - d])]).reshape(1, 3, 256, 512).astype(np.float32)
+    r = np.asarray([[1.015, 1.7, 1.4]], np.float32)
+    jdt, tdt = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    want = ja.hsv_batch(jnp.asarray(px, jdt), None, r=jnp.asarray(r), channel_axis=1)
+    got = th.hsv_planar(T(px).to(tdt), T(r))
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+
+
+@pytest.mark.parametrize("shape", [(5, 3, 13, 7), (2, 3, 9, 11)])
+def test_hsv_plane_not_multiple_of_8_matches_jax(shape):
+    rng = np.random.default_rng(4)
+    imgs = rng.integers(0, 256, shape).astype(np.float32)
+    r = np.asarray(ja.hsv_gains(jax.random.PRNGKey(3), shape[0], 0.015, 0.7, 0.4))
+    assert (shape[2] * shape[3]) % 8 != 0
+    for jdt, tdt in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
+        want = ja.hsv_batch(jnp.asarray(imgs, jdt), None, r=jnp.asarray(r), channel_axis=1)
+        got = th.hsv_planar_plain(T(imgs).to(tdt), T(r))
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+
+
 # ----------------------------------------------------------------- K5 warp
 
 def _dense(j0, w0, w1, n):

@@ -46,7 +46,9 @@ def _boxes(B, K, n_live, seed, span=300.0, wh=(5.0, 90.0)):
 @pytest.mark.parametrize(
     "B,K,n_live,thr",
     [(1, 1, 1, 0.5), (2, 255, 200, 0.45), (3, 257, 257, 0.6), (4, 2048, 2048, 0.6),
-     (2, 1000, 700, 0.3), (1, nms_ops.MAX_K, 5000, 0.6), (32, 2048, 1500, 0.6)],
+     (2, 1000, 700, 0.3), (1, nms_ops.MAX_K, 5000, 0.6), (32, 2048, 1500, 0.6),
+     (64, 2048, 2048, 0.6), (2, 64, 64, 0.45), (2, 65, 65, 0.45), (1, 2048, 2048, 0.6),
+     (3, 130, 130, -0.5), (2, 300, 0, 0.5)],
 )
 def test_kernel_equals_plain_bitwise(dev, B, K, n_live, thr):
     boxes, live = _boxes(B, K, n_live, seed=K + B)
@@ -66,6 +68,43 @@ def test_kernel_chain_case(dev):
     live[0, :3] = True
     got = nms_ops.greedy_nms_mask(boxes.to(dev), live.to(dev), 0.45)
     assert got[0, :3].tolist() == [True, False, True]
+
+
+def test_kernel_edge_images(dev):
+    """One batch: no live box; disjoint boxes, all kept; equal boxes, box 0
+    suppresses all others."""
+    boxes = torch.zeros(3, 300, 4)
+    boxes[:2, :, 0] = torch.arange(300.0) * 20.0
+    boxes[:2, :, 2] = boxes[:2, :, 0] + 10.0
+    boxes[:2, :, 3] = 10.0
+    boxes[2] = torch.tensor([0.0, 0.0, 100.0, 100.0])
+    live = torch.ones(3, 300, dtype=torch.bool)
+    live[0] = False
+    got = nms_ops.greedy_nms_mask(boxes.to(dev), live.to(dev), 0.5)
+    assert torch.equal(got, nms_ops.greedy_nms_mask_plain(boxes.to(dev), live.to(dev), 0.5))
+    assert not got[0].any() and got[1].all()
+    assert got[2].nonzero().flatten().tolist() == [0]
+
+
+def test_kernel_workspace_is_not_stale(dev):
+    """Calls in a row on different shapes, none synchronised in between: each
+    call's workspace holds only its own words."""
+    shapes = [(4, 2048, 0.6), (2, 130, 0.3), (7, 1000, 0.45), (1, 64, 0.5), (4, 2048, 0.6)]
+    cases = [(*(t.to(dev) for t in _boxes(B, K, K, seed=i)), thr)
+             for i, (B, K, thr) in enumerate(shapes)]
+    got = [nms_ops.greedy_nms_mask(*case) for case in cases]
+    torch.cuda.synchronize()
+    for g, case in zip(got, cases):
+        assert torch.equal(g, nms_ops.greedy_nms_mask_plain(*case))
+
+
+def test_kernel_batch_in_workspace_chunks(dev, monkeypatch):
+    """A workspace cap below the batch's need: the images go through in
+    chunks that reuse it."""
+    boxes, live = (t.to(dev) for t in _boxes(5, 300, 300, seed=11))
+    monkeypatch.setattr(nms_ops, "WORKSPACE_CAP_BYTES", 2 * 300 * 6 * 8)
+    got = nms_ops.greedy_nms_mask(boxes, live, 0.45)
+    assert torch.equal(got, nms_ops.greedy_nms_mask_plain(boxes, live, 0.45))
 
 
 def test_kernel_wrapper_refuses(dev):
@@ -156,21 +195,43 @@ def test_gather_unaligned_source_base(dev, offset):
 
 # ------------------------------------------------------------------ K4 HSV
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("integral", [True, False])
-def test_hsv_equals_plain(dev, dtype, integral):
+_HSV_GAINS = [[0.985, 0.3, 0.6], [1.015, 1.7, 1.4], [1.0, 1.0, 1.0], [0.99, 1.69, 0.61]]
+
+
+def _hsv_input(case):
+    """(4 or 5, 3, H, W) f32 pixels of one case of ``test_hsv_equals_plain``."""
     g = torch.Generator().manual_seed(2)
-    if integral:
-        x = torch.randint(0, 256, (4, 3, 32, 416), generator=g).float()
-    else:
-        x = torch.rand(4, 3, 32, 416, generator=g) * 255.0
-    x = x.to(dtype)
-    r = torch.tensor([[0.985, 0.3, 0.6], [1.015, 1.7, 1.4], [1.0, 1.0, 1.0], [0.99, 1.69, 0.61]])
+    if case == "integral":
+        return torch.randint(0, 256, (4, 3, 32, 416), generator=g).float()
+    if case == "non_integral":
+        return torch.rand(4, 3, 32, 416, generator=g) * 255.0
+    if case == "odd_plane":  # 91 positions: not a multiple of 8, element path
+        return torch.randint(0, 256, (4, 3, 13, 7), generator=g).float()
+    if case == "offset_base":  # made 16-byte unaligned by the test
+        return torch.randint(0, 256, (4, 3, 16, 64), generator=g).float()
+    # every (v, diff) pair, in both channel orders: entries 0, 1 and 255 of
+    # both division tables are read
+    v, d = torch.meshgrid(torch.arange(256), torch.arange(256), indexing="ij")
+    v, d = v.flatten(), torch.minimum(v, d).flatten()
+    px = torch.stack([torch.cat([v, v - d]), torch.cat([v - d, v]), torch.cat([v - d // 2, v - d])])
+    return px.view(1, 3, 256, 512).float().expand(4, -1, -1, -1).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["integral", "non_integral", "odd_plane", "offset_base", "tables"])
+def test_hsv_equals_plain(dev, dtype, case):
+    x = _hsv_input(case).to(dtype).to(dev)
+    if case == "offset_base":
+        buf = torch.zeros(x.numel() + 1, dtype=dtype, device=dev)
+        buf[1:] = x.flatten()
+        x = buf[1:].view(x.shape)  # one element past a 16-byte boundary
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    r = torch.tensor(_HSV_GAINS, device=dev)
     before = hsv_ops.hsv_planar.launches
-    got = hsv_ops.hsv_planar(x.to(dev), r.to(dev))
+    got = hsv_ops.hsv_planar(x, r)
     torch.cuda.synchronize()
     assert hsv_ops.hsv_planar.launches == before + 1
-    want = hsv_ops.hsv_planar_plain(x.to(dev), r.to(dev))
+    want = hsv_ops.hsv_planar_plain(x, r)
     assert torch.equal(got, want)
 
 

@@ -23,6 +23,8 @@ from object_detection_cib_torch.core.nms import non_max_suppression as t_nms
 from object_detection_cib_torch.ops.nms import (
     greedy_nms_mask,
     greedy_nms_mask_plain,
+    greedy_nms_mask_words,
+    suppression_words,
 )
 from object_detection_cib_tpu.core.nms import _greedy_nms_mask
 from object_detection_cib_tpu.core.nms import non_max_suppression as j_nms
@@ -118,6 +120,92 @@ def test_plain_mask_threshold_ties():
     for thr in (iou, np.nextafter(np.float32(iou), np.float32(0))):
         want = np.asarray(_greedy_nms_mask(jnp.asarray(boxes), jnp.asarray(live), float(thr)))
         np.testing.assert_array_equal(_port_mask(boxes, live, float(thr)), want)
+
+
+# The CUDA kernel's algorithm (64-bit suppression words, then a scan over the
+# 64-box blocks) in plain PyTorch, held exact against the plain version, the
+# XLA fixpoint and the interpret-mode Pallas kernel.
+
+def _edge_case(name):
+    K = 300
+    boxes = np.zeros((K, 4), np.float32)
+    live = np.ones(K, bool)
+    if name == "equal_boxes":  # box 0 suppresses all others
+        boxes[:] = [0, 0, 100, 100]
+    else:  # disjoint boxes: all kept, or none live
+        boxes[:, 0] = np.arange(K) * 20.0
+        boxes[:, 2] = boxes[:, 0] + 10.0
+        boxes[:, 3] = 10.0
+        live[:] = name == "disjoint"
+    return boxes, live
+
+
+def _words_cases():
+    cases = {f"random_{n}_seed{seed}": (*_random_boxes(n, seed=seed), 0.45)
+             for seed in (0, 1, 2) for n in (5, 60, 200)}
+    cases["k2048"] = (*_random_boxes(900, K=2048, seed=5, span=400, wh=(10, 90)), 0.5)
+    cases["k64"] = (*_random_boxes(64, K=64, seed=7, span=120), 0.45)
+    cases["k65"] = (*_random_boxes(65, K=65, seed=8, span=120), 0.45)
+    cases["k1000_ragged"] = (*_random_boxes(700, K=1000, seed=6, span=300), 0.45)
+    cases["thr_zero"] = (*_random_boxes(150, K=192, seed=9), 0.0)
+    cases["thr_negative"] = (*_random_boxes(100, K=130, seed=10), -0.5)
+    for name in ("none_live", "disjoint", "equal_boxes"):
+        cases[name] = (*_edge_case(name), 0.5)
+    return cases
+
+
+_WORDS_CASES = _words_cases()
+
+
+@pytest.mark.parametrize("name", list(_WORDS_CASES))
+def test_words_algorithm_matches_plain_xla_and_pallas(name):
+    boxes, live, thr = _WORDS_CASES[name]
+    tb, tl = torch.from_numpy(boxes[None]), torch.from_numpy(live[None])
+    got = greedy_nms_mask_words(tb, tl, thr)[0].numpy()
+    np.testing.assert_array_equal(got, greedy_nms_mask_plain(tb, tl, thr)[0].numpy())
+    want = np.asarray(_greedy_nms_mask(jnp.asarray(boxes), jnp.asarray(live), thr))
+    np.testing.assert_array_equal(got, want)
+    if len(live) % 256 == 0:  # the Pallas kernel takes whole tiles only
+        pallas = pallas_greedy_nms_mask(jnp.asarray(boxes), jnp.asarray(live), thr, interpret=True)
+        np.testing.assert_array_equal(got, np.asarray(pallas))
+    if name == "none_live":
+        assert not got.any()
+    if name == "disjoint":
+        assert got.all()
+    if name == "equal_boxes":
+        assert got.nonzero()[0].tolist() == [0]
+
+
+def test_words_algorithm_batched_and_ties():
+    b0, l0 = _random_boxes(50, seed=3)
+    b1, l1 = _random_boxes(120, seed=4)
+    boxes, live = torch.from_numpy(np.stack([b0, b1])), torch.from_numpy(np.stack([l0, l1]))
+    assert torch.equal(greedy_nms_mask_words(boxes, live, 0.5), greedy_nms_mask_plain(boxes, live, 0.5))
+    # IoU exactly at the threshold is kept; one ulp below it suppresses
+    tie = torch.zeros(1, 4, 4)
+    tie[0, 0] = torch.tensor([0.0, 0.0, 10.0, 10.0])
+    tie[0, 1] = torch.tensor([5.0, 0.0, 15.0, 10.0])
+    tie_live = torch.tensor([[True, True, False, False]])
+    iou = float(torch.tensor(50.0) / (torch.tensor(150.0) + 1e-7))
+    for thr, kept in ((iou, [True, True]), (float(np.nextafter(np.float32(iou), np.float32(0))), [True, False])):
+        assert greedy_nms_mask_words(tie, tie_live, thr)[0, :2].tolist() == kept
+        assert greedy_nms_mask_plain(tie, tie_live, thr)[0, :2].tolist() == kept
+
+
+def test_suppression_words_layout():
+    """Right of the diagonal, bit i of word w of row j is 'j suppresses
+    64 w + i'; in a row's own block, 'the earlier box 64 w + i suppresses j';
+    left of the diagonal and past K nothing; bit 63 included."""
+    K = 130
+    boxes = torch.zeros(1, K, 4)
+    boxes[0, :, 2:] = 10.0  # all equal: every pair is above the threshold
+    words = suppression_words(boxes, 0.5)[0]
+    assert words.shape == (K, 3) and words.dtype == torch.int64
+    bits = ((words[:, :, None] >> torch.arange(64)) & 1).bool().reshape(K, 192)
+    j, i = torch.meshgrid(torch.arange(K), torch.arange(192), indexing="ij")
+    want = (i < K) & ((i // 64 > j // 64) | ((i // 64 == j // 64) & (i < j)))
+    assert torch.equal(bits, want)
+    assert bits[0, 127] and bits[63, 62] and not bits[63, 63] and not bits[62, 63]
 
 
 def test_wrapper_rejects_bad_inputs():
