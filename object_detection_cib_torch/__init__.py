@@ -4,8 +4,9 @@ The JAX package stays the reference; this package mirrors its layout and
 names so each module's counterpart is found at the same relative path. It
 imports ``torch`` and never JAX, flax or the JAX package.
 
-Ported so far (the serving and validation path, and the production
-training path):
+Ported so far (the serving and validation path, the production training
+path, and the imbalance recipes on it: samplers, mixup, the no-mosaic
+letterbox, a general affine, the exact warp):
 
 - ``core``    box math, the IoU family, batched NMS (``non_max_suppression``)
               and the YOLOv5 label assigner
@@ -16,11 +17,12 @@ training path):
               plain PyTorch version: greedy-NMS keep mask (``nms.py``),
               corpus row gather (``gather.py``), HSV jitter (``hsv.py``),
               fused mosaic warp (``warp.py``); and the device augment
-              (``augment.py``)
+              (``augment.py``: the fused and the composed path, mixup)
 - ``eval``    head decode and the numpy COCO-style mAP evaluator
 - ``data``    dataset manifests, the fake manifest builder, the native JPEG
               loader bindings, the device-resident validation cache, the
-              augmentation parameters and the device training pipeline
+              augmentation parameters, the imbalance-aware samplers
+              (``samplers.py``) and the device training pipeline
 - ``train``   loss, SmartSGD, the train and eval steps, the ``Evaluator``
               (validate / predict) and the ``Trainer`` (``fit``)
 

@@ -2,30 +2,36 @@
 and augmented on the card every step.
 
 Counterpart of ``object_detection_cib_tpu/data/device_pipeline.py`` in its
-production form (``data.pipeline=device``, ``data.device_cache=True``,
-``corpus_layout=planar``, ``warp_precision=fast``). Per step of batch B:
+device-cache form (``data.pipeline=device``, ``data.device_cache=True``).
+Per step of batch B:
 
-  1. the epoch plan gives 4B corpus rows (each primary image and three
-     co-samples, shuffled within their quad);
-  2. K2 gathers the 4B planar images (``ops/gather.py``), and their sizes
-     and per-image targets are gathered from arrays on the card;
-  3. the fused mosaic + affine warp, K5 (``ops/augment.py``), with the
-     horizontal flip folded into its taps;
-  4. HSV jitter, K4 (``ops/hsv.py``);
-  5. flip of the boxes, then ``to_batch``: capacity ``max_targets`` (valid
-     targets first), NHWC, ``/255`` in f32, cast to the feed dtype.
+  1. the epoch plan gives the corpus rows: with mosaic 4B (each primary
+     image, from the sampler's epoch stream or a permutation, and three
+     co-samples, shuffled within their quad), without mosaic B; under mixup
+     4B more for the secondary mosaic group;
+  2. K2 gathers the planar images (``ops/gather.py``), once per group, and
+     their sizes and per-image targets are gathered from arrays on the card;
+  3. ``augment_group``. With mosaic and an axis-aligned affine, the fused
+     mosaic + warp (``ops/augment.py``: K5 at ``warp_precision="fast"``, two
+     f32 matrix products at ``"exact"``) with the horizontal flip folded
+     into its taps, HSV (K4, bf16), flip of the boxes. Otherwise the
+     composed path: the 2S x 2S mosaic canvas or the centred letterbox, the
+     cast to f32, ``affine_batch`` (per-pixel bilinear sampling for a
+     rotating, shearing or perspective affine), HSV (K4, f32), ``flip_batch``;
+  4. under mixup both groups go through 3, are blended by a beta(32, 32)
+     ratio where the per-image coin says so, and the targets grow to 2 x 4T;
+  5. ``to_batch``: capacity ``max_targets`` (valid targets first), NHWC,
+     ``/255`` in f32, cast to the feed dtype.
 
-The epoch plan uses ``random.Random`` and numpy exactly as the JAX package
-does, so the same seed gives the same groups. The per-step ``jax.random``
-keys become draws from one ``torch.Generator`` on the card
+The epoch plan uses the sampler, ``random.Random`` and numpy exactly as the
+JAX package does, so the same seed gives the same groups. The per-step
+``jax.random`` keys become draws from one ``torch.Generator`` on the card
 (``draw_augment``), so augmentation is reproducible within the port only.
 
-Settings outside this path raise ``NotImplementedError`` naming the ROADMAP
-item that will port them, never switching path quietly: ``mixup_prob > 0``
-(A5), ``use_mosaic=False`` (A4), a non-axis-aligned affine (A4),
-``warp_precision="exact"`` (A4), a sampler (A3), real JPEG decode (A3) and
-the host-fed pipeline (A3). The flat (N, 8, D/8) corpus layout is a TPU
-tiling workaround and is not ported (K3's kernel still exists, in
+Settings not ported raise ``NotImplementedError`` naming the ROADMAP item
+that will port them, never switching path quietly: real JPEG decode and the
+host-fed pipeline (A3). The flat (N, 8, D/8) corpus layout is a TPU tiling
+workaround and is not ported (K3's kernel still exists, in
 ``ops/gather.py``). Not ported either: ``device_put_row_major`` (a TPU
 layout pin) and the multi-host and sharded-corpus modes (A7).
 """
@@ -33,6 +39,7 @@ layout pin) and the multi-host and sharded-corpus modes (A7).
 from __future__ import annotations
 
 import random as pyrandom
+from collections import deque
 from typing import Iterator, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -43,12 +50,18 @@ from object_detection_cib_torch.data.host_augment import AugParams
 from object_detection_cib_torch.ops.augment import (
     AffineBatchValues,
     DeviceSample,
+    affine_batch,
     draw_affine_values,
     draw_flip,
+    draw_mixup,
     draw_mosaic_centers,
+    flip_batch,
     flip_boxes,
     hsv_gains,
+    mixup_batch,
+    mosaic4_batch,
     mosaic_affine_batch,
+    take_rows_cols,
 )
 from object_detection_cib_torch.ops.gather import gather_rows_planar
 from object_detection_cib_torch.ops.hsv import hsv_planar
@@ -58,19 +71,36 @@ from object_detection_cib_torch.utils.device import resolve_device
 
 
 class AugmentDraws(NamedTuple):
-    """One step's random draws for G = B mosaic groups."""
+    """One step's random draws for one group of G output images.
 
-    centers: torch.Tensor  # (G, 2) int32
+    Under mixup the primary group's draws also hold the secondary group's,
+    the blend ratio and the per-image coin.
+    """
+
+    centers: Optional[torch.Tensor]  # (G, 2) int32, None without mosaic
     values: AffineBatchValues  # (G,) each
     flip: Optional[torch.Tensor]  # (G,) bool, None when flip_lr_prob == 0
     hsv_r: Optional[torch.Tensor]  # (G, 3) f32, None when HSV is off
+    secondary: Optional["AugmentDraws"] = None  # the mixup partner group's draws
+    mix_r: Optional[torch.Tensor] = None  # (G, 1, 1, 1) f32 blend ratio
+    mix_do: Optional[torch.Tensor] = None  # (G,) bool: blend this image
+
+    def to(self, device) -> "AugmentDraws":
+        """The same draws on another device."""
+        def move(t):
+            if t is None:
+                return None
+            if isinstance(t, (torch.Tensor, AugmentDraws)):
+                return t.to(device)
+            return type(t)(*(v.to(device) for v in t))  # AffineBatchValues
+
+        return AugmentDraws(*(move(t) for t in self))
 
 
-def draw_augment(gen: torch.Generator, groups: int, target_size: int,
-                 aug: AugParams) -> AugmentDraws:
-    """Draw one step's randoms from ``gen`` (on the card in training)."""
+def _draw_group(gen: torch.Generator, groups: int, target_size: int, aug: AugParams,
+                use_mosaic: bool) -> AugmentDraws:
     ap, hp = aug.affine_params, aug.hsv_params
-    centers = draw_mosaic_centers(gen, groups, target_size)
+    centers = draw_mosaic_centers(gen, groups, target_size) if use_mosaic else None
     values = draw_affine_values(gen, groups, degrees=ap.degrees, translate=ap.translate,
                                 scale=ap.scale, shear=ap.shear, perspective=ap.perspective)
     r = hsv_gains(gen, groups, hp.hue, hp.saturation, hp.value) if hp.should_aug() else None
@@ -78,35 +108,92 @@ def draw_augment(gen: torch.Generator, groups: int, target_size: int,
     return AugmentDraws(centers, values, flip, r)
 
 
-def _check_supported(aug: AugParams, mixup_prob: float, use_mosaic: bool,
-                     warp_precision: str) -> None:
+def draw_augment(gen: torch.Generator, groups: int, target_size: int, aug: AugParams,
+                 use_mosaic: bool = True, mixup_prob: float = 0.0) -> AugmentDraws:
+    """Draw one step's randoms from ``gen`` (on the card in training)."""
+    draws = _draw_group(gen, groups, target_size, aug, use_mosaic)
     if mixup_prob > 0.0:
-        raise NotImplementedError("mixup (the secondary mosaic group) is ROADMAP item A5")
-    if not use_mosaic:
-        raise NotImplementedError("the no-mosaic letterbox path is ROADMAP item A4")
-    if not aug.affine_params.axis_aligned():
-        raise NotImplementedError(
-            "a rotating/shearing/perspective affine (the per-pixel gather warp) is ROADMAP item A4")
-    if warp_precision != "fast":
-        raise NotImplementedError(f"warp_precision={warp_precision!r} is ROADMAP item A4; "
-                                  "the port has 'fast'")
+        secondary = _draw_group(gen, groups, target_size, aug, use_mosaic)
+        mix_r, mix_do = draw_mixup(gen, groups, mixup_prob)
+        draws = draws._replace(secondary=secondary, mix_r=mix_r, mix_do=mix_do)
+    return draws
 
 
-def augment_group(sample: DeviceSample, draws: AugmentDraws, target_size: int,
-                  aug: AugParams) -> DeviceSample:
-    """Fused mosaic + warp (K5, flip folded in), HSV (K4), box flip.
+def letterbox_center(sample: DeviceSample, target_size: int) -> DeviceSample:
+    """Centre each image's top-left (h, w) content on its S x S canvas.
 
-    ``sample.images`` (4G, 3, S, S) uint8 -> (G, 3, S', S') bf16 images:
-    the warp's output is integer-valued in [0, 255], so bf16 holds it
-    exactly (the JAX package's stage dtype).
+    A per-image roll by ((S - h) // 2, (S - w) // 2), wrap-around included
+    (what wraps is FILL), as index arithmetic on the card; boxes shift
+    along and sizes become S.
     """
-    s = mosaic_affine_batch(sample, draws.centers, draws.values, target_size,
-                            flip_do=draws.flip, out_dtype=torch.bfloat16)
+    S = target_size
+    top = (S - sample.sizes[:, 0]) // 2
+    left = (S - sample.sizes[:, 1]) // 2
+    pos = torch.arange(S, dtype=torch.int32, device=sample.images.device)[None]
+    rows = torch.remainder(pos - top[:, None], S)  # (B, S) source row of each output row
+    cols = torch.remainder(pos - left[:, None], S)
+    shift = torch.stack([left, top, left, top], -1).float()
+    return sample._replace(images=take_rows_cols(sample.images, rows, cols),
+                           boxes=sample.boxes + shift[:, None, :],
+                           sizes=torch.full_like(sample.sizes, S))
+
+
+def augment_group(sample: DeviceSample, draws: AugmentDraws, target_size: int, aug: AugParams,
+                  use_mosaic: bool = True, warp_precision: str = "fast") -> DeviceSample:
+    """One group's mosaic or letterbox, affine warp, HSV and flip.
+
+    With mosaic and an axis-aligned affine, the fused path:
+    ``sample.images`` (4G, 3, S, S) uint8 -> (G, 3, S', S') bf16 images (the
+    warp's output is integer-valued in [0, 255], so bf16 holds it exactly:
+    the JAX package's stage dtype), the flip folded into the warp. Otherwise
+    the composed path in f32: the canvas (or, without mosaic, G = the
+    sample's own images, letterboxed), ``affine_batch``, HSV, ``flip_batch``.
+    HSV is K4 on the card on both paths.
+    """
+    axis_aligned = aug.affine_params.axis_aligned()
+    if use_mosaic and axis_aligned:
+        s = mosaic_affine_batch(sample, draws.centers, draws.values, target_size,
+                                flip_do=draws.flip, out_dtype=torch.bfloat16,
+                                precision=warp_precision)
+        if draws.hsv_r is not None:
+            s = s._replace(images=hsv_planar(s.images, draws.hsv_r))
+        if draws.flip is not None:
+            s = s._replace(boxes=flip_boxes(s.boxes, draws.flip, target_size))
+        return s
+    if use_mosaic:
+        s = mosaic4_batch(sample, draws.centers, target_size)
+        border = (-target_size // 2, -target_size // 2)
+    else:
+        s = letterbox_center(sample, target_size)
+        border = (0, 0)
+    # placement and roll are exact in uint8; the warp computes in f32
+    s = s._replace(images=s.images.float())
+    s = affine_batch(s, draws.values, target_size, border=border, axis_aligned=axis_aligned)
     if draws.hsv_r is not None:
         s = s._replace(images=hsv_planar(s.images, draws.hsv_r))
     if draws.flip is not None:
-        s = s._replace(boxes=flip_boxes(s.boxes, draws.flip, target_size))
+        s = flip_batch(s, draws.flip)
     return s
+
+
+def mixup_groups(a: DeviceSample, b: DeviceSample, r: torch.Tensor, do: torch.Tensor) -> DeviceSample:
+    """Blend the augmented primary ``a`` with the secondary ``b`` where ``do``.
+
+    Target capacity doubles to 2T; where the coin is false the primary's
+    targets are padded from T to 2T. The blend and the select promote bf16
+    images to f32, as in the JAX package, so ``to_batch`` divides the f32
+    blend, never a value rounded to bf16.
+    """
+    mixed = mixup_batch(a, b, r)
+    T = a.boxes.shape[1]
+    pad = torch.nn.functional.pad
+    return DeviceSample(
+        images=torch.where(do[:, None, None, None], mixed.images, a.images),
+        sizes=a.sizes,
+        boxes=torch.where(do[:, None, None], mixed.boxes, pad(a.boxes, (0, 0, 0, T))),
+        labels=torch.where(do[:, None], mixed.labels, pad(a.labels, (0, T))),
+        mask=torch.where(do[:, None], mixed.mask, pad(a.mask, (0, T))),
+    )
 
 
 def to_batch(s: DeviceSample, max_targets: int,
@@ -149,13 +236,73 @@ def build_device_augment_fn(
     warp_precision: str = "fast",
     feed_dtype: torch.dtype = torch.bfloat16,
 ):
-    """``fn(sample, draws) -> (Batch, overflow)`` for planar 4B-image samples."""
-    _check_supported(aug, mixup_prob, use_mosaic, warp_precision)
+    """``fn(primary, draws, secondary=None) -> (Batch, overflow)`` for planar samples.
 
-    def fn(primary: DeviceSample, draws: AugmentDraws):
-        return to_batch(augment_group(primary, draws, target_size, aug), max_targets, feed_dtype)
+    ``primary`` holds 4B images with mosaic and B without; under mixup
+    ``secondary`` holds the 4B images of the partner mosaics.
+    """
+    if warp_precision not in ("fast", "exact"):
+        raise ValueError(f"warp_precision must be 'fast' or 'exact', got {warp_precision!r}")
+    if mixup_prob > 0.0 and not use_mosaic:
+        raise ValueError("mixup requires mosaic (ref detection.py:58-59)")
+
+    def group(sample: DeviceSample, draws: AugmentDraws) -> DeviceSample:
+        return augment_group(sample, draws, target_size, aug, use_mosaic, warp_precision)
+
+    def fn(primary: DeviceSample, draws: AugmentDraws, secondary: Optional[DeviceSample] = None):
+        s = group(primary, draws)
+        if mixup_prob > 0.0:
+            s = mixup_groups(s, group(secondary, draws.secondary), draws.mix_r, draws.mix_do)
+        return to_batch(s, max_targets, feed_dtype)
 
     return fn
+
+
+class DeviceCorpus:
+    """The fake corpus and its per-image targets as tensors on one device.
+
+    Built once and shared by every pipeline over the same dataset, image
+    size and device (``DeviceDataPipeline(corpus=...)``): images (N, 3, S, S)
+    uint8 planar with the content in the top-left (h, w) window and FILL
+    elsewhere (the JAX package's draws), sizes (N, 2) int32, and target
+    arrays of capacity ``src_T`` in resized-content coordinates.
+    """
+
+    def __init__(self, info: DatasetInfo, target_size: int, device: torch.device):
+        n, S = len(info.samples), target_size
+        self.info, self.S, self.device = info, S, device
+        # per-source-image target capacity before the mosaic merge
+        self.src_T = max(max((len(s.targets) for s in info.samples), default=1), 1)
+        label_to_index = {c: i for i, c in enumerate(info.classes)}
+        images = np.full((n, 3, S, S), FILL, np.uint8)
+        sizes = np.zeros((n, 2), np.int32)
+        tb = np.zeros((n, self.src_T, 4), np.float32)
+        tl = np.zeros((n, self.src_T), np.int32)
+        tm = np.zeros((n, self.src_T), bool)
+        rng = np.random.default_rng(0)
+        for i, s in enumerate(info.samples):
+            meta = s.image_metadata
+            # boxes use the uniform scale S / max(h, w), the host reader's
+            # math (albumentations LongestMaxSize), not the rounded ratios
+            scale = S / max(meta.height, meta.width)
+            h = min(max(int(round(meta.height * scale)), 1), S)
+            w = min(max(int(round(meta.width * scale)), 1), S)
+            images[i, :, :h, :w] = rng.integers(0, 256, (h, w, 3), dtype=np.uint8).transpose(2, 0, 1)
+            sizes[i] = (h, w)
+            k = 0
+            for t in s.targets:
+                bb = t.bounding_box
+                if bb.x_max <= bb.x_min or bb.y_max <= bb.y_min or k >= self.src_T:
+                    continue
+                tb[i, k] = [bb.x_min * scale, bb.y_min * scale, bb.x_max * scale, bb.y_max * scale]
+                tl[i, k] = label_to_index[t.class_name]
+                tm[i, k] = True
+                k += 1
+        self.images = torch.from_numpy(images).to(device)
+        self.sizes = torch.from_numpy(sizes).to(device)
+        self.t_boxes = torch.from_numpy(tb).to(device)
+        self.t_labels = torch.from_numpy(tl).to(device)
+        self.t_mask = torch.from_numpy(tm).to(device)
 
 
 class DeviceDataPipeline:
@@ -178,10 +325,8 @@ class DeviceDataPipeline:
         corpus_layout: str = "planar",
         feed_dtype: torch.dtype = torch.bfloat16,
         device: Union[str, torch.device] = "cuda",
+        corpus: Optional[DeviceCorpus] = None,
     ):
-        _check_supported(aug_params, mixup_prob, use_mosaic, warp_precision)
-        if sampler is not None:
-            raise NotImplementedError("samplers (class-aware, repeat-factor) are ROADMAP item A3")
         if not fake_mode:
             raise NotImplementedError("JPEG corpora (native decode into the cache) are ROADMAP item A3")
         if not device_cache:
@@ -196,17 +341,30 @@ class DeviceDataPipeline:
         self.B = batch_size
         self.aug = aug_params
         self.max_targets = max_targets
+        self.mixup_prob = mixup_prob
+        self.use_mosaic = use_mosaic
+        self.sampler = sampler
+        self.image_repeat_factors = getattr(sampler, "image_repeat_factors", None)
         self.pyrng = pyrandom.Random(seed)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.label_to_index = {c: i for i, c in enumerate(dataset_info.classes)}
-        self.src_T = max(max((len(s.targets) for s in dataset_info.samples), default=1), 1)
         self.augment_fn = build_device_augment_fn(
             target_size, aug_params, mixup_prob, max_targets, use_mosaic,
             warp_precision, feed_dtype)
         # valid targets dropped by max_targets: device scalars, summed on read
         self._overflow_done = 0
         self._overflow_pending: list = []
-        self._build_device_cache()
+        # every epoch plan drawn, rows per step (FIFO): the trainer counts
+        # the instances of the epoch it trained without drawing the sampler
+        self.consumed_plan_log: deque = deque(maxlen=8)
+        if corpus is None:
+            corpus = DeviceCorpus(dataset_info, target_size, self.device)
+        elif (corpus.info is not dataset_info or corpus.S != target_size
+              or corpus.device != self.device):
+            raise ValueError("corpus was built for another dataset, image size or device")
+        self.device_corpus = corpus
+        self.src_T = corpus.src_T
+        self.corpus, self.sizes = corpus.images, corpus.sizes
+        self.t_boxes, self.t_labels, self.t_mask = corpus.t_boxes, corpus.t_labels, corpus.t_mask
 
     def __len__(self) -> int:
         return len(self.info.samples) // self.B
@@ -219,105 +377,92 @@ class DeviceDataPipeline:
             self._overflow_done += int(torch.stack(pending).sum())
         return self._overflow_done
 
-    # -------------------- the corpus on the card --------------------
-    def _build_device_cache(self) -> None:
-        """Fake corpus (the JAX package's draws, planar) and targets on the card."""
-        n, S = len(self.info.samples), self.S
-        corpus = np.full((n, 3, S, S), FILL, np.uint8)
-        sizes = np.zeros((n, 2), np.int32)
-        rng = np.random.default_rng(0)
-        for i, s in enumerate(self.info.samples):
-            meta = s.image_metadata
-            scale = S / max(meta.height, meta.width)
-            h = min(max(int(round(meta.height * scale)), 1), S)
-            w = min(max(int(round(meta.width * scale)), 1), S)
-            corpus[i, :, :h, :w] = rng.integers(0, 256, (h, w, 3), dtype=np.uint8).transpose(2, 0, 1)
-            sizes[i] = (h, w)
-        tb = np.zeros((n, self.src_T, 4), np.float32)
-        tl = np.zeros((n, self.src_T), np.int32)
-        tm = np.zeros((n, self.src_T), bool)
-        for i in range(n):
-            tb[i], tl[i], tm[i] = self._targets_arrays(i)
-        dev = self.device
-        self.corpus = torch.from_numpy(corpus).to(dev)
-        self.sizes = torch.from_numpy(sizes).to(dev)
-        self.t_boxes = torch.from_numpy(tb).to(dev)
-        self.t_labels = torch.from_numpy(tl).to(dev)
-        self.t_mask = torch.from_numpy(tm).to(dev)
-
-    def _targets_arrays(self, idx: int):
-        """Per-image targets in resized-content coordinates.
-
-        Boxes use the uniform scale S / max(h, w), the host reader's math
-        (albumentations LongestMaxSize), not the per-axis rounded ratios.
-        """
-        s = self.info.samples[idx]
-        boxes = np.zeros((self.src_T, 4), np.float32)
-        labels = np.zeros((self.src_T,), np.int32)
-        mask = np.zeros((self.src_T,), bool)
-        k = 0
-        meta = s.image_metadata
-        sc = self.S / max(meta.height, meta.width)
-        for t in s.targets:
-            bb = t.bounding_box
-            if bb.x_max <= bb.x_min or bb.y_max <= bb.y_min or k >= self.src_T:
-                continue
-            boxes[k] = [bb.x_min * sc, bb.y_min * sc, bb.x_max * sc, bb.y_max * sc]
-            labels[k] = self.label_to_index[t.class_name]
-            mask[k] = True
-            k += 1
-        return boxes, labels, mask
-
     # -------------------------- the epoch --------------------------
-    def _epoch_plan(self) -> np.ndarray:
-        """One epoch's (steps, 4B) corpus rows, drawn as the JAX package draws
-        them (``sampler=None``, one process), advancing ``pyrng`` alike."""
+    def _epoch_plan(self) -> Tuple[np.ndarray, np.ndarray]:
+        """One epoch's corpus rows per step, ``(groups, secs)``, drawn as the
+        JAX package draws them in one process, advancing the sampler and
+        ``pyrng`` alike: ``groups`` (steps, 4B) with mosaic or (steps, B)
+        without, ``secs`` (steps, 4B) under mixup, else (steps, 0)."""
         n = len(self.info.samples)
-        epoch_idx = np.random.default_rng(self.pyrng.randrange(2**31)).permutation(n)
+        if self.sampler is not None:
+            epoch_idx = np.asarray(self.sampler.epoch_indices())
+        else:
+            epoch_idx = np.random.default_rng(self.pyrng.randrange(2**31)).permutation(n)
         epoch_idx = np.asarray(epoch_idx, np.int64)
         n_batches = len(epoch_idx) // self.B
         n_prim = n_batches * self.B
         rng = np.random.default_rng(self.pyrng.randrange(2**31))
-        pool = np.arange(n, dtype=np.int64)
+        # read after epoch_indices(): the class-aware sampler replaces its
+        # pool every epoch
+        pool = getattr(self.sampler, "sampler_indices", None)
+        pool = np.asarray(pool if pool is not None else np.arange(n), np.int64)
+        p = None
+        if self.image_repeat_factors is not None:
+            p = np.asarray(self.image_repeat_factors, np.float64)
+            p = p / p.sum()
 
         def draw(k):
             if k == 0:
                 return np.zeros((0,), np.int64)
-            return pool[rng.choice(len(pool), size=k, p=None)]
+            return pool[rng.choice(len(pool), size=k, p=p)]
 
-        # per primary: [primary, co1, co2, co3] shuffled within the quad
-        quads = np.concatenate([epoch_idx[:n_prim, None], draw(3 * n_prim).reshape(n_prim, 3)], 1)
-        quads = rng.permuted(quads, axis=1)
-        return quads.reshape(n_batches, 4 * self.B)
+        if self.use_mosaic:
+            # per primary: [primary, co1, co2, co3] shuffled within the quad
+            quads = np.concatenate([epoch_idx[:n_prim, None], draw(3 * n_prim).reshape(n_prim, 3)], 1)
+            quads = rng.permuted(quads, axis=1)
+            groups = quads.reshape(n_batches, 4 * self.B)
+        else:
+            groups = epoch_idx[:n_prim].reshape(n_batches, self.B)
+        if self.mixup_prob > 0.0:
+            secs = draw(4 * n_prim).reshape(n_batches, 4 * self.B)
+        else:
+            secs = np.zeros((n_batches, 0), np.int64)
+        # mixup co-mosaics are counted whatever the per-image coin, which is
+        # drawn on the card
+        self.consumed_plan_log.append(np.concatenate([groups, secs], 1) if secs.size else groups)
+        return groups, secs
 
     def gather(self, idx: torch.Tensor) -> DeviceSample:
-        """4B corpus rows (one K2 launch) and their sizes and targets."""
+        """Corpus rows ``idx`` (one K2 launch) and their sizes and targets."""
         rows = idx.long()
         return DeviceSample(gather_rows_planar(self.corpus, idx), self.sizes[rows],
                             self.t_boxes[rows], self.t_labels[rows], self.t_mask[rows])
 
-    def gather_augment(self, idx: torch.Tensor, draws: AugmentDraws) -> Tuple[Batch, torch.Tensor]:
-        """idx (4B,) int32 on the card -> (Batch, overflow)."""
-        return self.augment_fn(self.gather(idx), draws)
+    def draw(self) -> AugmentDraws:
+        """One step's draws from the pipeline's generator."""
+        return draw_augment(self.gen, self.B, self.S, self.aug, self.use_mosaic, self.mixup_prob)
+
+    def gather_augment(self, idx: torch.Tensor, draws: AugmentDraws,
+                       idx2: Optional[torch.Tensor] = None) -> Tuple[Batch, torch.Tensor]:
+        """idx (4B,) or, without mosaic, (B,) int32 on the card -> (Batch, overflow).
+
+        Under mixup ``idx2`` (4B,) names the secondary group's rows, gathered
+        by a second K2 launch.
+        """
+        if (idx2 is not None) != (self.mixup_prob > 0.0):
+            raise ValueError("idx2 is given exactly when mixup_prob > 0")
+        secondary = self.gather(idx2) if idx2 is not None else None
+        return self.augment_fn(self.gather(idx), draws, secondary)
 
     def epoch(self, max_steps: Optional[int] = None) -> Iterator[Tuple[Batch, torch.Tensor]]:
         """Yield ``(Batch, overflow)`` per step of one epoch.
 
         The whole epoch's plan goes to the card in one copy after a range
         check on the host; each step then draws its randoms on the card and
-        launches K2, K5 and K4 once each. Overflow counts stay on the card
-        until ``overflow_total`` is read.
+        launches K2 and K4 once per group (two groups under mixup) and K5
+        once per group on the fused fast path. Overflow counts stay on the
+        card until ``overflow_total`` is read.
         """
-        groups = self._epoch_plan()
+        groups, secs = self._epoch_plan()
         if max_steps is not None:
-            groups = groups[:max_steps]
+            groups, secs = groups[:max_steps], secs[:max_steps]
         n = len(self.info.samples)
-        if groups.size and (groups.min() < 0 or groups.max() >= n):
-            raise IndexError(f"epoch plan row outside [0, {n})")
+        for rows in (groups, secs):
+            if rows.size and (rows.min() < 0 or rows.max() >= n):
+                raise IndexError(f"epoch plan row outside [0, {n})")
         plan = torch.from_numpy(groups.astype(np.int32)).to(self.device)
-        G = self.B
+        plan2 = torch.from_numpy(secs.astype(np.int32)).to(self.device) if secs.size else None
         for i in range(plan.shape[0]):
-            draws = draw_augment(self.gen, G, self.S, self.aug)
-            batch, ovf = self.gather_augment(plan[i], draws)
+            batch, ovf = self.gather_augment(plan[i], self.draw(), None if plan2 is None else plan2[i])
             self._overflow_pending.append(ovf)
             yield batch, ovf

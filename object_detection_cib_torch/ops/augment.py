@@ -1,22 +1,29 @@
-"""On-device batched augmentation: the fused mosaic + affine warp, HSV, flip.
+"""On-device batched augmentation: mosaic, affine warp, HSV, flip, mixup.
 
-Counterpart of ``object_detection_cib_tpu/ops/augment.py`` for the
-production path only: planar (B, 3, S, S) uint8 source images, a 4-image
-mosaic fused with an axis-aligned affine warp (degrees = shear =
-perspective = 0) in ``warp_precision="fast"``, HSV jitter and a horizontal
-flip folded into the warp. Semantics, not the TPU's formulation: the warp
-is the sparse kernel of ``ops/warp.py`` (K5) over tap scalars, never the
-dense tap-matrix einsums.
+Counterpart of ``object_detection_cib_tpu/ops/augment.py`` on planar
+(B, 3, S, S) images (the layout of the corpus on the card; the pixel
+arithmetic is per channel, so the layout changes no value):
+
+  * ``mosaic_affine_batch``: the production path, a 4-image mosaic fused
+    with an axis-aligned affine warp (degrees = shear = perspective = 0).
+    ``precision="fast"`` is the sparse kernel of ``ops/warp.py`` (K5) over
+    tap scalars; ``precision="exact"`` is two f32 matrix products over dense
+    windowed tap matrices, as the JAX package computes it (no kernel there
+    either).
+  * the composed path for every other recipe: ``mosaic4_batch`` (the 2S x 2S
+    canvas, by index arithmetic instead of the TPU's pad + roll + select),
+    ``affine_batch`` (the dense separable warp when axis-aligned, else the
+    per-pixel inverse map through ``_bilinear_sample``), ``flip_batch`` and
+    ``mixup_batch``.
+  * ``hsv_batch``, the plain version of K4.
+
+Nothing here reads a device value on the host: placements, windows and
+coins stay tensors, so a step never waits for the card.
 
 Randomness: every function takes its random draws as tensors (mosaic
-centers, ``AffineBatchValues``, flip coins, HSV gains), so tests can feed
-the JAX package's draws. The ``draw_*`` helpers make them from an explicit
-``torch.Generator`` on the tensors' device.
-
-Not here (ROADMAP item A4, later slices): ``mosaic4_batch`` and
-``affine_batch`` (the canvas path and the per-pixel gather for a general
-affine), the "exact" warp precision, ``flip_batch`` on images,
-``mixup_batch``, and the NHWC layout.
+centers, ``AffineBatchValues``, flip coins, HSV gains, the mixup ratio), so
+tests can feed the JAX package's draws. The ``draw_*`` helpers make them
+from an explicit ``torch.Generator`` on the tensors' device.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from object_detection_cib_torch.ops.warp import warp_quadrants
+from object_detection_cib_torch.ops.warp import FILL, warp_quadrants
 
 
 class DeviceSample(NamedTuple):
@@ -107,6 +114,56 @@ def draw_mosaic_centers(gen: torch.Generator, groups: int, target_size: int) -> 
     S = target_size
     return torch.randint(S // 2, 2 * S - S // 2, (groups, 2), generator=gen,
                          device=gen.device, dtype=torch.int32)
+
+
+def take_rows_cols(imgs: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """out[b, c, y, x] = imgs[b, c, rows[b, y], cols[b, x]].
+
+    imgs (B, C, H, W); rows (B, Y) and cols (B, X) integer tensors already
+    inside [0, H) and [0, W). Two ``torch.gather`` calls over expanded
+    (never materialised) index views.
+    """
+    B, C, _, W = imgs.shape
+    Y, X = rows.shape[1], cols.shape[1]
+    picked = torch.gather(imgs, 2, rows.long()[:, None, :, None].expand(B, C, Y, W))
+    return torch.gather(picked, 3, cols.long()[:, None, None, :].expand(B, C, Y, X))
+
+
+def mosaic4_batch(sample: DeviceSample, centers: torch.Tensor, target_size: int) -> DeviceSample:
+    """Group the batch into 4s and mosaic each group onto a 2S x 2S canvas.
+
+    ``sample.images`` (B, 3, S, S) with B divisible by 4, ``centers``
+    (B//4, 2) int -> canvas (B//4, 3, 2S, 2S) of the input dtype filled with
+    FILL, target capacity 4T. A quadrant's placement is an integer
+    translation, so each canvas pixel inside the quadrant's rectangle
+    [x1a, x2a) x [y1a, y2a) reads source pixel (y - y1a + y1b, x - x1a + x1b);
+    later quadrants overwrite earlier ones, as the JAX package's chain of
+    selects does.
+    """
+    B, _, S, _ = sample.images.shape
+    if B % 4:
+        raise ValueError(f"batch {B} is not divisible by 4")
+    G = B // 4
+    S2 = 2 * target_size
+    dev = sample.images.device
+    imgs = sample.images.reshape(G, 4, 3, S, S)
+    x1a, y1a, x2a, y2a, x1b, y1b = _mosaic_placement(
+        sample.sizes.reshape(G, 4, 2), centers, target_size)
+    mb, ml, mm = _mosaic_boxes(sample.boxes.reshape(G, 4, -1, 4), sample.labels.reshape(G, 4, -1),
+                               sample.mask.reshape(G, 4, -1), x1a, y1a, x1b, y1b, S2)
+    pos = torch.arange(S2, dtype=torch.int32, device=dev)[None]  # canvas row or column
+    canvas = torch.full((G, 3, S2, S2), int(FILL), dtype=sample.images.dtype, device=dev)
+    for q in range(4):
+        in_y = (pos >= y1a[:, q, None]) & (pos < y2a[:, q, None])  # (G, 2S)
+        in_x = (pos >= x1a[:, q, None]) & (pos < x2a[:, q, None])
+        # inside the rectangle the source index lies in [0, S); the clamp
+        # only keeps the unused reads outside it in range
+        src_y = (pos - (y1a - y1b)[:, q, None]).clamp(0, S - 1)
+        src_x = (pos - (x1a - x1b)[:, q, None]).clamp(0, S - 1)
+        placed = take_rows_cols(imgs[:, q], src_y, src_x)
+        canvas = torch.where((in_y[:, :, None] & in_x[:, None, :])[:, None], placed, canvas)
+    out_sizes = torch.full((G, 2), S2, dtype=torch.int32, device=dev)
+    return DeviceSample(canvas, out_sizes, mb, ml, mm)
 
 
 # ---------------------------------------------------------------------------
@@ -203,6 +260,127 @@ def _affine_boxes(boxes, mask, values: AffineBatchValues, M, out_size: int):
     return proc, new_mask
 
 
+def _require_f32_matmul(t: torch.Tensor) -> None:
+    """The dense warps are f32 products of bilinear taps: TF32 would round
+    the taps to 10 mantissa bits, so it must be off on the card."""
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the dense f32 warp needs torch.backends.cuda.matmul.allow_tf32 = False")
+
+
+def _bilinear_sample(imgs: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    """imgs (B, 3, H, W) float; xs/ys (B, h, w) float sample coords -> (B, 3, h, w).
+
+    cv2 5.x warpAffine INTER_LINEAR: four taps, each replaced by FILL when
+    out of bounds, blended along x then along y in f32, rounded to the
+    integer grid (half to even). Not ``grid_sample``, whose border handling
+    and rounding differ.
+    """
+    B, C, H, W = imgs.shape
+    h, w = xs.shape[1:]
+    x0 = torch.floor(xs)
+    y0 = torch.floor(ys)
+    fx = (xs - x0)[:, None]
+    fy = (ys - y0)[:, None]
+    x0i = x0.to(torch.int32)
+    y0i = y0.to(torch.int32)
+    flat = imgs.reshape(B, C, H * W)
+    fill = torch.full((), FILL, dtype=imgs.dtype, device=imgs.device)
+
+    def at(yi, xi):
+        inb = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
+        lin = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)).long().reshape(B, 1, h * w)
+        v = torch.gather(flat, 2, lin.expand(B, C, h * w)).reshape(B, C, h, w)
+        return torch.where(inb[:, None], v, fill)
+
+    v00 = at(y0i, x0i)
+    v01 = at(y0i, x0i + 1)
+    v10 = at(y0i + 1, x0i)
+    v11 = at(y0i + 1, x0i + 1)
+    top = v00 * (1 - fx) + v01 * fx
+    bot = v10 * (1 - fx) + v11 * fx
+    return torch.round(top * (1 - fy) + bot * fy)
+
+
+def _dense_taps(i0: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., out, n) matrix with w0 at column i0 and w1 at column i0 + 1."""
+    j = torch.arange(n, dtype=torch.int32, device=i0.device)
+    return w0[..., None] * (j == i0[..., None]) + w1[..., None] * (j == (i0 + 1)[..., None])
+
+
+def _tap_matrix(s: torch.Tensor, n: int):
+    """Bilinear 1-D sampling operator: s (B, out) float source coords ->
+    A (B, out, n) tap weights (out-of-bounds taps zeroed) and cov (B, out),
+    the in-bounds weight mass (1 - cov is FILL's share)."""
+    i0f = torch.floor(s)
+    f = s - i0f
+    i0 = i0f.to(torch.int32)
+    zero = torch.zeros((), dtype=s.dtype, device=s.device)
+    w0 = torch.where((i0 >= 0) & (i0 < n), 1.0 - f, zero)
+    w1 = torch.where((i0 + 1 >= 0) & (i0 + 1 < n), f, zero)
+    return _dense_taps(i0, w0, w1, n), w0 + w1
+
+
+def _axis_aligned_warp(imgs: torch.Tensor, minv: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Separable scale + translate warp as two f32 batched matrix products.
+
+    imgs (B, 3, H, W) f32, minv (B, 3, 3) with minv[0, 1] == minv[1, 0] == 0
+    and no perspective -> (B, 3, out, out). The x pass computes
+    v0 * (1 - fx) + v1 * fx with FILL for each out-of-bounds tap
+    (``(1 - cov) * FILL`` added after the product), the y pass likewise.
+    """
+    _require_f32_matmul(imgs)
+    _, _, H, W = imgs.shape
+    o = torch.arange(out_size, dtype=torch.float32, device=imgs.device)
+    z = minv[:, 2, 2, None]
+    sx = (minv[:, 0, 0, None] * o + minv[:, 0, 2, None]) / z  # (B, out)
+    sy = (minv[:, 1, 1, None] * o + minv[:, 1, 2, None]) / z
+    Ax, covx = _tap_matrix(sx, W)
+    Ay, covy = _tap_matrix(sy, H)
+    h1 = torch.einsum("bchw,bxw->bchx", imgs, Ax)
+    h1 = h1 + ((1.0 - covx) * FILL)[:, None, None, :]
+    out = torch.einsum("byh,bchx->bcyx", Ay, h1)
+    out = out + ((1.0 - covy) * FILL)[:, None, :, None]
+    # the product comes back as a permuted view; the stages after it
+    # (the HSV kernel among them) take contiguous planar images
+    return torch.round(out).contiguous()
+
+
+def affine_batch(sample: DeviceSample, values: AffineBatchValues, out_size: int,
+                 border=(0, 0), axis_aligned: bool = False) -> DeviceSample:
+    """Warp images (B, 3, H, W) f32 and boxes; candidate-filter boxes into the mask.
+
+    For the mosaic path the input canvas is 2S x 2S with border
+    (-S//2, -S//2), giving an S x S output. ``axis_aligned`` promises
+    degrees == shear == perspective == 0 and takes the dense separable
+    warp; otherwise each output pixel maps through the inverse matrix
+    (divided by the third coordinate, so perspective is covered) and is
+    sampled by ``_bilinear_sample``.
+    """
+    B, _, H, W = sample.images.shape
+    in_w = W + border[1] * 2
+    in_h = H + border[0] * 2
+    if in_w != out_size or in_h != out_size:
+        raise ValueError(f"input {H}x{W} with border {border} is not {out_size}x{out_size}")
+    dev = sample.images.device
+    M = _affine_matrices(values, W, H, in_w, in_h)
+    # inv_ex: no singularity check, which would wait for the device
+    Minv = torch.linalg.inv_ex(M).inverse
+    if axis_aligned:
+        out_imgs = _axis_aligned_warp(sample.images, Minv, out_size)
+    else:
+        o = torch.arange(out_size, dtype=torch.float32, device=dev)
+        yy, xx = torch.meshgrid(o, o, indexing="ij")
+        dst = torch.stack([xx, yy, torch.ones_like(xx)], -1)  # (h, w, 3)
+        # src = dst @ Minv.T as three multiply-adds per coordinate: the
+        # order of a 3-term dot is fixed, whatever the matmul settings
+        m = Minv[:, None, None]  # (B, 1, 1, 3, 3)
+        src = dst[..., 0, None] * m[..., 0] + dst[..., 1, None] * m[..., 1] + dst[..., 2, None] * m[..., 2]
+        out_imgs = _bilinear_sample(sample.images, src[..., 0] / src[..., 2], src[..., 1] / src[..., 2])
+    proc, new_mask = _affine_boxes(sample.boxes, sample.mask, values, M, out_size)
+    out_sizes = torch.full((B, 2), out_size, dtype=torch.int32, device=dev)
+    return DeviceSample(out_imgs, out_sizes, proc, sample.labels, new_mask)
+
+
 # ---------------------------------------------------------------------------
 # fused mosaic + axis-aligned affine (the production path)
 # ---------------------------------------------------------------------------
@@ -225,12 +403,8 @@ def _tap_scalars_windowed(s: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor):
 
 
 def _tap_matrix_windowed(s: torch.Tensor, n: int, lo: torch.Tensor, hi: torch.Tensor):
-    """Dense (B, out, n) form of ``_tap_scalars_windowed`` (tests only)."""
-    i0, w0, w1 = _tap_scalars_windowed(s, lo, hi)
-    j = torch.arange(n, dtype=torch.int32, device=s.device)
-    hit0 = j == i0[..., None]
-    hit1 = j == (i0 + 1)[..., None]
-    return w0[..., None] * hit0 + w1[..., None] * hit1
+    """Dense (B, out, n) form of ``_tap_scalars_windowed``."""
+    return _dense_taps(*_tap_scalars_windowed(s, lo, hi), n)
 
 
 def mosaic_affine_batch(
@@ -240,17 +414,27 @@ def mosaic_affine_batch(
     target_size: int,
     flip_do: Optional[torch.Tensor] = None,
     out_dtype: torch.dtype = torch.float32,
+    precision: str = "fast",
 ) -> DeviceSample:
     """Fused 4-image mosaic + axis-aligned affine warp, canvas-free.
 
-    The JAX package's ``mosaic_affine_batch(..., planar=True,
-    precision="fast", warp_pallas=True)``: sample images (B, 3, S, S)
-    uint8, B divisible by 4, ``centers`` (B//4, 2) int, ``values`` (B//4,)
-    each. Output (B//4, 3, S', S') ``out_dtype`` with S' = ``target_size``
-    and target capacity 4T. ``flip_do`` (B//4,) bool folds the horizontal
-    flip into the x taps; the boxes are flipped by the caller
-    (``flip_boxes``). The warp is one launch of K5 (``ops/warp.py``).
+    The JAX package's ``mosaic_affine_batch(..., planar=True)``: sample
+    images (B, 3, S, S) uint8, B divisible by 4, ``centers`` (B//4, 2) int,
+    ``values`` (B//4,) each. Output (B//4, 3, S', S') ``out_dtype`` with
+    S' = ``target_size`` and target capacity 4T. ``flip_do`` (B//4,) bool
+    folds the horizontal flip into the x taps; the boxes are flipped by the
+    caller (``flip_boxes``).
+
+    ``precision="fast"`` is one launch of K5 (``ops/warp.py``), bf16
+    operands with f32 accumulation. ``precision="exact"`` is
+    ``FILL + sum_q Ay_q @ (img_q - FILL) @ Ax_q^T`` in f32 over dense
+    windowed tap matrices, which reproduces the composed path
+    (``affine_batch(mosaic4_batch(...), axis_aligned=True)``) up to the
+    summation order ahead of the rounding; as in the JAX package it is two
+    plain matrix products and launches no kernel.
     """
+    if precision not in ("fast", "exact"):
+        raise ValueError(f"precision must be 'fast' or 'exact', got {precision!r}")
     B, _, S, _ = sample.images.shape
     if B % 4:
         raise ValueError(f"batch {B} is not divisible by 4")
@@ -269,7 +453,16 @@ def mosaic_affine_batch(
 
     M = _affine_matrices(values, S2, S2, target_size, target_size)
     taps = mosaic_warp_taps(M, placement, target_size, flip_do)
-    out_imgs = warp_quadrants(imgs.contiguous(), *taps, out_dtype=out_dtype)
+    if precision == "fast":
+        out_imgs = warp_quadrants(imgs.contiguous(), *taps, out_dtype=out_dtype)
+    else:
+        _require_f32_matmul(imgs)
+        jx0, wx0, wx1, jy0, wy0, wy1 = taps
+        Ax = _dense_taps(jx0, wx0, wx1, S)  # (G, 4, out, S)
+        Ay = _dense_taps(jy0, wy0, wy1, S)
+        t = torch.einsum("gqchw,gqxw->gqchx", imgs.float() - FILL, Ax)
+        out = torch.einsum("gqyh,gqchx->gcyx", Ay, t)
+        out_imgs = torch.round(out + FILL).to(out_dtype).contiguous()
     proc, new_mask = _affine_boxes(mb, mm, values, M, target_size)
     out_sizes = torch.full((G, 2), target_size, dtype=torch.int32, device=dev)
     return DeviceSample(out_imgs, out_sizes, proc, ml, new_mask)
@@ -313,9 +506,50 @@ def flip_boxes(boxes: torch.Tensor, do: torch.Tensor, width: int) -> torch.Tenso
     return torch.where(do[:, None, None], fb, boxes)
 
 
+def flip_batch(sample: DeviceSample, do: torch.Tensor) -> DeviceSample:
+    """Horizontal flip of images (B, 3, H, W) and boxes where ``do`` (B,) is set."""
+    W = sample.images.shape[3]
+    images = torch.where(do[:, None, None, None], sample.images.flip(3), sample.images)
+    return sample._replace(images=images, boxes=flip_boxes(sample.boxes, do, W))
+
+
 def draw_flip(gen: torch.Generator, batch: int, prob: float) -> torch.Tensor:
     """(B,) bool horizontal-flip coins."""
     return torch.rand(batch, generator=gen, device=gen.device) < prob
+
+
+# ---------------------------------------------------------------------------
+# mixup
+# ---------------------------------------------------------------------------
+
+def mixup_batch(s1: DeviceSample, s2: DeviceSample, r: torch.Tensor) -> DeviceSample:
+    """Blend ``s1 * r + s2 * (1 - r)`` with ``r`` (B, 1, 1, 1) f32 and
+    concatenate the targets to capacity 2T (ref default.py:400-408).
+
+    ``r`` being f32 promotes bf16 images to f32: the blend is never done in
+    bf16.
+    """
+    return DeviceSample(
+        images=s1.images * r + s2.images * (1.0 - r),
+        sizes=s1.sizes,
+        boxes=torch.cat([s1.boxes, s2.boxes], 1),
+        labels=torch.cat([s1.labels, s2.labels], 1),
+        mask=torch.cat([s1.mask, s2.mask], 1),
+    )
+
+
+def draw_mixup(gen: torch.Generator, batch: int, prob: float):
+    """-> (r (B, 1, 1, 1) f32 ~ beta(32, 32), do (B,) bool with P(do) = prob).
+
+    ``torch.distributions.Beta`` takes no generator. Both shape parameters
+    are the integer 32, so X / (X + Y) with X and Y each the sum of 32
+    standard exponentials, -log(1 - U), is an exact beta(32, 32) draw from
+    ``gen``.
+    """
+    u = torch.rand(2, batch, 32, generator=gen, device=gen.device)
+    x, y = (-torch.log1p(-u)).sum(-1)
+    do = torch.rand(batch, generator=gen, device=gen.device) < prob
+    return (x / (x + y)).reshape(batch, 1, 1, 1), do
 
 
 # ---------------------------------------------------------------------------

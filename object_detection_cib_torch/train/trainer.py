@@ -3,7 +3,9 @@
 The counterpart of ``object_detection_cib_tpu/train/trainer.py`` in two
 parts. ``Trainer`` runs the production training loop (the fused-epoch
 mode of ``Trainer.fit``, :974): per step the device pipeline's gather and
-augment (K2, K5, K4) and the train step; per epoch the validation.
+augment (K2, K5, K4) and the train step; per epoch the validation. The
+imbalance recipes are arguments: a sampler, ``mixup_prob``, ``use_mosaic``,
+``warp_precision`` and, through ``aug_params``, a general affine.
 ``Evaluator.validate`` is the counterpart of ``Trainer._validate_device``
 (train/trainer.py:832-956 of the JAX package) and ``Evaluator.predict`` of
 ``Trainer.predict``'s per-image dicts (:1333-1382). The uint8 canvases of a
@@ -14,7 +16,8 @@ i (a one-deep pipeline: results come back by a non-blocking copy into pinned
 memory, and the host waits on that copy's event only).
 
 Not here yet: config composition and the CLI (ROADMAP A6), checkpoints,
-loggers, early stopping, sampler dumps, the software-pipelined or
+loggers, early stopping, the sampler-statistics file (``sampler_stats``
+returns the counts), the software-pipelined or
 CUDA-graph epoch, and the multi-host mAP merge (A7).
 """
 
@@ -31,7 +34,7 @@ import torch
 from object_detection_cib_torch.core.nms import NMSResult
 from object_detection_cib_torch.core.types import FeatureShape, LevelAnchors, default_anchors
 from object_detection_cib_torch.data.cache import DatasetInfo
-from object_detection_cib_torch.data.device_pipeline import DeviceDataPipeline
+from object_detection_cib_torch.data.device_pipeline import DeviceCorpus, DeviceDataPipeline
 from object_detection_cib_torch.data.host_augment import AugParams
 from object_detection_cib_torch.data.val_cache import ValDeviceCache
 from object_detection_cib_torch.eval.coco_map import MeanAveragePrecisionEvaluator
@@ -160,8 +163,10 @@ class Trainer:
     The network (random weights from ``seed``), the device pipeline over
     ``train_info`` (corpus on the card, fake mode, planar), SmartSGD with
     ``steps_per_epoch = len(train) // batch_size``, the train step, and the
-    ``Evaluator`` over a ``ValDeviceCache`` of ``val_info``. Config
-    composition and the CLI are ROADMAP item A6.
+    ``Evaluator`` over a ``ValDeviceCache`` of ``val_info``. ``sampler`` is
+    any object with ``epoch_indices()`` (``data/samplers.py``); ``corpus``
+    shares one ``DeviceCorpus`` between trainers over the same dataset.
+    Config composition and the CLI are ROADMAP item A6.
     """
 
     def __init__(
@@ -179,8 +184,14 @@ class Trainer:
         seed: int = 0,
         dtype: Optional[torch.dtype] = torch.bfloat16,
         device: Union[str, torch.device] = "cuda",
+        sampler=None,
+        mixup_prob: float = 0.0,
+        use_mosaic: bool = True,
+        warp_precision: str = "fast",
+        corpus: Optional[DeviceCorpus] = None,
     ):
         self.device = resolve_device(device)
+        self.train_info = train_info
         self.classes = list(train_info.classes)
         self.batch_size = batch_size
         self.image_shape = FeatureShape(image_size, image_size)
@@ -188,8 +199,9 @@ class Trainer:
         self.net = build_network(len(self.classes), size, dtype=dtype, device=self.device, seed=seed)
         self.pipeline = DeviceDataPipeline(
             train_info, image_size, batch_size, aug_params, max_targets=max_targets,
-            seed=seed, feed_dtype=torch.float32 if dtype is None else dtype,
-            device=self.device,
+            mixup_prob=mixup_prob, use_mosaic=use_mosaic, warp_precision=warp_precision,
+            sampler=sampler, seed=seed, feed_dtype=torch.float32 if dtype is None else dtype,
+            device=self.device, corpus=corpus,
         )
         self.steps_per_epoch = max(len(train_info.samples) // batch_size, 1)
         self.optimizer = SmartSGD(self.net, optimizer, self.steps_per_epoch)
@@ -205,6 +217,7 @@ class Trainer:
         self.epoch_imgs: List[int] = []
         self.epoch_walls: List[float] = []
         self.epoch_metrics: List[Dict[str, np.ndarray]] = []
+        self._last_sampler_plan: Optional[np.ndarray] = None
 
     def fit(self, max_epochs: int, limit_train_batches: Optional[int] = None,
             on_step: Optional[Callable[[int, int, StepMetrics], None]] = None) -> Dict[str, float]:
@@ -237,3 +250,31 @@ class Trainer:
             last_val = self.evaluator.validate(self.val_cache)
             last_val["images_per_sec"] = self.epoch_imgs[-1] / self.epoch_walls[-1]
         return last_val
+
+    def sampler_stats(self, consumed_steps: Optional[int] = None) -> Optional[Dict[str, int]]:
+        """Instances per class that the oldest epoch not yet counted fed to
+        the augment (the JAX trainer's ``_dump_sampler_stats``, :1299-1330).
+
+        Counted from the pipeline's ``consumed_plan_log`` (first in, first
+        out), trimmed to the ``consumed_steps`` actually trained; mosaic
+        co-samples and mixup partners count. The sampler is never drawn, so
+        asking does not change the training stream. With the log empty the
+        last plan counted is used again; None when no epoch was planned.
+        """
+        log = self.pipeline.consumed_plan_log
+        if log:
+            self._last_sampler_plan = log.popleft()
+        if self._last_sampler_plan is None:
+            return None
+        return plan_instance_counts(self.train_info, self._last_sampler_plan[:consumed_steps])
+
+
+def plan_instance_counts(info: DatasetInfo, rows: np.ndarray) -> Dict[str, int]:
+    """Instances per class over the corpus rows ``rows`` of an epoch plan."""
+    per_image = np.zeros((len(info.samples), len(info.classes)), np.int64)
+    index = {c: i for i, c in enumerate(info.classes)}
+    for i, s in enumerate(info.samples):
+        for t in s.targets:
+            per_image[i, index[t.class_name]] += 1
+    total = per_image[np.asarray(rows, np.int64).ravel()].sum(0)
+    return {c: int(total[i]) for i, c in enumerate(info.classes)}

@@ -13,6 +13,14 @@ Tolerances:
   * ``mosaic_affine_batch``: pixels <= 2 units and > 85% equal (the class
     of tests/test_pallas_warp.py:92-93: M is inverted by two libraries and
     a tap can move by an ulp), boxes 1e-4, masks and labels exact.
+  * the composed path (the JAX functions are NHWC, the port's planar; the
+    tests transpose): ``mosaic4_batch``, ``flip_batch`` and ``_tap_matrix``
+    exact; ``_bilinear_sample``, ``_axis_aligned_warp``, ``affine_batch``
+    and ``mosaic_affine_batch(precision="exact")`` <= 1 unit with >= 99% of
+    pixels equal (the class of tests/test_device_augment.py:140, :305, :338:
+    two libraries invert M, so a sample coordinate can fall on the other
+    side of a .5 blend boundary), boxes 1e-4, masks exact; ``mixup_batch``
+    with JAX's ratio 1e-5, targets exact.
 """
 
 import jax
@@ -350,3 +358,251 @@ def test_to_batch_matches_jax(max_targets, feed):
     assert tb.images.dtype == tfeed and tb.images.is_contiguous()
     for got, want in zip(tb, jb):
         np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+
+
+# ------------------------------------------------------- the composed path
+
+def nhwc(a):
+    return np.ascontiguousarray(np.asarray(a).transpose(0, 2, 3, 1))
+
+
+def assert_warp_close(got_planar, want_nhwc, min_equal=0.99):
+    """At most 1 unit apart, at least ``min_equal`` of the pixels equal."""
+    diff = np.abs(nhwc(got_planar) - np.asarray(want_nhwc, np.float32))
+    assert diff.max() <= 1.0, diff.max()
+    assert (diff == 0).mean() >= min_equal, (diff == 0).mean()
+
+
+def _jsample(arrs):
+    imgs, sizes, boxes, labels, mask = arrs
+    return ja.DeviceSample(jnp.asarray(nhwc(imgs)), *map(jnp.asarray, (sizes, boxes, labels, mask)))
+
+
+def _content_sample(B=8, S=64, seed=0):
+    """Like a corpus batch: content in the top-left (h, w) window, FILL elsewhere."""
+    imgs, sizes, boxes, labels, mask = _sample(B=B, S=S, seed=seed)
+    yy, xx = np.mgrid[:S, :S]
+    outside = (yy[None] >= sizes[:, 0, None, None]) | (xx[None] >= sizes[:, 1, None, None])
+    imgs = np.where(outside[:, None], np.uint8(114), imgs)
+    return imgs, sizes, boxes, labels, mask
+
+
+def _values(seed, B, **kw):
+    jv = ja.sample_affine_values_batch(jax.random.PRNGKey(seed), B, **kw)
+    return jv, ta.AffineBatchValues(*(T(v) for v in jv))
+
+
+GENERAL = dict(degrees=10.0, translate=0.1, scale=0.5, shear=2.0, perspective=5e-4)
+IDENTITY = dict(degrees=0.0, translate=0.0, scale=0.0, shear=0.0, perspective=0.0)
+AXIS = dict(degrees=0.0, translate=0.1, scale=0.5, shear=0.0, perspective=0.0)
+
+
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_mosaic4_matches_jax(seed, dtype):
+    S = 64
+    arrs = _content_sample(seed=seed)
+    if dtype == "f32":
+        arrs = (arrs[0].astype(np.float32),) + arrs[1:]
+    key = jax.random.PRNGKey(seed)
+    centers = jax.random.randint(key, (2, 2), S // 2, 2 * S - S // 2)
+    want = ja.mosaic4_batch(_jsample(arrs), key, S)
+    got = ta.mosaic4_batch(ta.DeviceSample(*map(T, arrs)), T(centers).int(), S)
+    assert got.images.shape == (2, 3, 2 * S, 2 * S) and got.images.dtype == T(arrs[0]).dtype
+    np.testing.assert_array_equal(nhwc(got.images), np.asarray(want.images))
+    assert (got.images != 114).any() and (got.images == 114).any()
+    for name in ("sizes", "boxes", "labels", "mask"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)))
+
+
+def test_mosaic4_quadrants_hold_their_sources():
+    """Each quadrant's rectangle shows the source shifted by its integer offset."""
+    S = 32
+    imgs, sizes, boxes, labels, mask = _content_sample(B=4, S=S, seed=5)
+    center = np.asarray([[S - 3, S + 5]], np.int32)
+    got = ta.mosaic4_batch(ta.DeviceSample(*map(T, (imgs, sizes, boxes, labels, mask))), T(center), S)
+    x1a, y1a, x2a, y2a, x1b, y1b = (t[0].numpy() for t in
+                                    ta._mosaic_placement(T(sizes)[None], T(center), S))
+    canvas = got.images[0].numpy()
+    covered = np.zeros((2 * S, 2 * S), bool)
+    for q in range(4):
+        h, w = y2a[q] - y1a[q], x2a[q] - x1a[q]
+        np.testing.assert_array_equal(canvas[:, y1a[q]:y2a[q], x1a[q]:x2a[q]],
+                                      imgs[q][:, y1b[q]:y1b[q] + h, x1b[q]:x1b[q] + w])
+        covered[y1a[q]:y2a[q], x1a[q]:x2a[q]] = True
+    assert (canvas[:, ~covered] == 114).all()
+
+
+@pytest.mark.parametrize("seed,prob", [(0, 0.5), (1, 0.5), (2, 1.0), (3, 0.0)])
+def test_flip_batch_matches_jax(seed, prob):
+    arrs = _sample(B=6, S=32, seed=seed)
+    arrs = (arrs[0].astype(np.float32),) + arrs[1:]
+    key = jax.random.PRNGKey(seed)
+    do = np.asarray(jax.random.uniform(key, (6,)) < prob)
+    want = ja.flip_batch(_jsample(arrs), key, prob)
+    got = ta.flip_batch(ta.DeviceSample(*map(T, arrs)), T(do))
+    np.testing.assert_array_equal(nhwc(got.images), np.asarray(want.images))
+    np.testing.assert_array_equal(got.boxes.numpy(), np.asarray(want.boxes))
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bilinear_sample_matches_jax(seed):
+    rng = np.random.default_rng(seed)
+    B, H, W, h, w = 3, 40, 56, 32, 48
+    imgs = rng.integers(0, 256, (B, 3, H, W)).astype(np.float32)
+    xs = rng.uniform(-4, W + 3, (B, h, w)).astype(np.float32)
+    ys = rng.uniform(-4, H + 3, (B, h, w)).astype(np.float32)
+    xs[0, 0, :4] = [-1.0, 0.0, W - 1.0, W]  # taps exactly on and one off the border
+    ys[0, 0, :4] = [0.0, -1.0, H, H - 1.0]
+    got = ta._bilinear_sample(T(imgs), T(xs), T(ys))
+    want = np.stack([np.asarray(ja._bilinear_sample(jnp.asarray(nhwc(imgs)[b]), jnp.asarray(xs[b]),
+                                                    jnp.asarray(ys[b]))) for b in range(B)])
+    assert got.shape == (B, 3, h, w)
+    assert_warp_close(got.numpy(), want, min_equal=0.999)
+    assert float(got.min()) >= 0 and float(got.max()) <= 255
+    assert (got == got.round()).all()
+    far = ta._bilinear_sample(T(imgs), T(xs) + 1000.0, T(ys))
+    assert (far == 114.0).all()
+
+
+def test_tap_matrix_matches_jax():
+    s = np.random.default_rng(6).uniform(-3, 50, (4, 32)).astype(np.float32)
+    s[0, :3] = [-1.0, 0.0, 47.0]
+    A, cov = ta._tap_matrix(T(s), 48)
+    Aj, covj = ja._tap_matrix(jnp.asarray(s), 48)
+    np.testing.assert_array_equal(A.numpy(), np.asarray(Aj))
+    np.testing.assert_array_equal(cov.numpy(), np.asarray(covj))
+    assert (A != 0).sum(-1).max() <= 2 and float(cov.min()) == 0.0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_axis_aligned_warp_matches_jax_and_gather_path(seed):
+    S = 48
+    rng = np.random.default_rng(seed)
+    imgs = rng.integers(0, 256, (4, 3, S, S)).astype(np.float32)
+    jv, tv = _values(seed, 4, **AXIS)
+    Mj = ja._affine_matrices(jv, S, S, S, S)
+    minv = np.asarray(jnp.linalg.inv(Mj))
+    got = ta._axis_aligned_warp(T(imgs), T(minv), S)
+    want = ja._axis_aligned_warp(jnp.asarray(nhwc(imgs)), jnp.asarray(minv), S)
+    assert_warp_close(got.numpy(), want, min_equal=0.999)
+    # the port's own per-pixel path computes the same warp
+    sample = ta.DeviceSample(T(imgs), torch.full((4, 2), S, dtype=torch.int32),
+                             torch.zeros(4, 1, 4), torch.zeros(4, 1, dtype=torch.int32),
+                             torch.zeros(4, 1, dtype=torch.bool))
+    dense = ta.affine_batch(sample, tv, S, axis_aligned=True)
+    gathered = ta.affine_batch(sample, tv, S, axis_aligned=False)
+    assert_warp_close(dense.images.numpy(), nhwc(gathered.images), min_equal=0.999)
+
+
+# a rotating affine never takes the separable warp
+@pytest.mark.parametrize("recipe,axis_aligned", [("general", False), ("axis", False), ("axis", True),
+                                                 ("identity", False), ("identity", True)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_affine_batch_matches_jax(seed, recipe, axis_aligned):
+    S = 64
+    imgs, sizes, boxes, labels, mask = _sample(B=4, S=S, Tn=6, seed=seed)
+    arrs = (imgs.astype(np.float32), sizes, boxes, labels, mask)
+    jv, tv = _values(seed + 10, 4, **{"general": GENERAL, "axis": AXIS, "identity": IDENTITY}[recipe])
+    want = ja.affine_batch(_jsample(arrs), jv, S, axis_aligned=axis_aligned)
+    got = ta.affine_batch(ta.DeviceSample(*map(T, arrs)), tv, S, axis_aligned=axis_aligned)
+    assert_warp_close(got.images.numpy(), want.images)
+    assert got.images.is_contiguous()  # the HSV kernel takes contiguous planes
+    np.testing.assert_allclose(got.boxes.numpy(), np.asarray(want.boxes), atol=1e-4)
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+    np.testing.assert_array_equal(got.labels.numpy(), np.asarray(want.labels))
+    np.testing.assert_array_equal(got.sizes.numpy(), np.asarray(want.sizes))
+    if recipe == "identity":
+        np.testing.assert_array_equal(got.images.numpy(), arrs[0])
+        np.testing.assert_allclose(got.boxes.numpy(), boxes, atol=1e-4)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_affine_batch_on_mosaic_canvas_matches_jax(seed):
+    """The general-affine recipe: 2S canvas, border (-S//2, -S//2), S out."""
+    S = 48
+    arrs = _content_sample(B=8, S=S, seed=seed)
+    key = jax.random.PRNGKey(seed)
+    centers = jax.random.randint(key, (2, 2), S // 2, 2 * S - S // 2)
+    jv, tv = _values(seed + 20, 2, **GENERAL)
+    jm = ja.mosaic4_batch(_jsample(arrs), key, S)
+    want = ja.affine_batch(jm._replace(images=jm.images.astype(jnp.float32)), jv, S,
+                           border=(-S // 2, -S // 2))
+    tm = ta.mosaic4_batch(ta.DeviceSample(*map(T, arrs)), T(centers).int(), S)
+    got = ta.affine_batch(tm._replace(images=tm.images.float()), tv, S, border=(-S // 2, -S // 2))
+    assert got.images.shape == (2, 3, S, S)
+    assert_warp_close(got.images.numpy(), want.images)
+    np.testing.assert_allclose(got.boxes.numpy(), np.asarray(want.boxes), atol=1e-4)
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+    with pytest.raises(ValueError, match="border"):
+        ta.affine_batch(tm._replace(images=tm.images.float()), tv, S)
+
+
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_mosaic_affine_exact_matches_jax_and_composed_path(seed, flip):
+    S = 64
+    arrs = _content_sample(seed=seed)
+    km, values, do, centers = _jax_draws(seed, 2, S, flip)
+    tv = ta.AffineBatchValues(*(T(v) for v in values))
+    tsample = ta.DeviceSample(*map(T, arrs))
+    tdo = None if do is None else T(do)
+    got = ta.mosaic_affine_batch(tsample, T(centers).int(), tv, S, flip_do=tdo, precision="exact")
+    assert got.images.dtype == torch.float32 and got.images.shape == (2, 3, S, S)
+    assert got.images.is_contiguous()  # the HSV kernel takes contiguous planes
+    js = ja.mosaic_affine_batch(ja.DeviceSample(*map(jnp.asarray, arrs)), km, values, S,
+                                flip_do=do, precision="exact", planar=True)
+    assert_warp_close(got.images.numpy(), nhwc(js.images))
+    np.testing.assert_allclose(got.boxes.numpy(), np.asarray(js.boxes), atol=1e-4)
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(js.mask))
+    np.testing.assert_array_equal(got.labels.numpy(), np.asarray(js.labels))
+    # the port's composed path: canvas, dense separable warp, then the flip
+    canvas = ta.mosaic4_batch(tsample, T(centers).int(), S)
+    comp = ta.affine_batch(canvas._replace(images=canvas.images.float()), tv, S,
+                           border=(-S // 2, -S // 2), axis_aligned=True)
+    if tdo is not None:
+        comp = comp._replace(images=ta.flip_batch(comp, tdo).images)
+    assert_warp_close(got.images.numpy(), nhwc(comp.images), min_equal=0.999)
+    torch.testing.assert_close(got.boxes, comp.boxes, rtol=0, atol=0)
+    assert torch.equal(got.mask, comp.mask)
+    # and the fast path stays in its class around it (the JAX contract)
+    fast = ta.mosaic_affine_batch(tsample, T(centers).int(), tv, S, flip_do=tdo)
+    d = (fast.images - got.images).abs()
+    assert float(d.max()) <= 4.0 and float((d <= 1).float().mean()) > 0.99
+    assert torch.equal(fast.boxes, got.boxes) and torch.equal(fast.mask, got.mask)
+    with pytest.raises(ValueError, match="precision"):
+        ta.mosaic_affine_batch(tsample, T(centers).int(), tv, S, precision="bf16")
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_mixup_batch_matches_jax(seed, dtype):
+    jdt, tdt = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    a, b = _sample(B=4, S=32, seed=seed), _sample(B=4, S=32, seed=seed + 7)
+    key = jax.random.PRNGKey(seed)
+    r = np.asarray(jax.random.beta(key, 32.0, 32.0, (4, 1, 1, 1)))
+    ja_, jb_ = (s._replace(images=s.images.astype(jdt)) for s in (_jsample(a), _jsample(b)))
+    want = ja.mixup_batch(ja_, jb_, key)
+    ta_, tb_ = (ta.DeviceSample(T(s[0]).to(tdt), *map(T, s[1:])) for s in (a, b))
+    got = ta.mixup_batch(ta_, tb_, T(r))
+    assert got.images.dtype == torch.float32  # bf16 * f32 ratio: never blended in bf16
+    np.testing.assert_allclose(nhwc(got.images), np.asarray(want.images, np.float32), atol=1e-5)
+    assert got.boxes.shape == (4, 10, 4)
+    for name in ("sizes", "boxes", "labels", "mask"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)))
+
+
+def test_draw_mixup_is_a_beta_32_32_draw():
+    r, do = ta.draw_mixup(torch.Generator().manual_seed(0), 4096, 0.3)
+    assert r.shape == (4096, 1, 1, 1) and r.dtype == torch.float32
+    assert do.shape == (4096,) and do.dtype == torch.bool
+    assert 0.0 < float(r.min()) and float(r.max()) < 1.0
+    # beta(32, 32): mean 1/2, variance 1/(4 * 65)
+    assert abs(float(r.mean()) - 0.5) < 0.005
+    assert abs(float(r.var()) - 1 / 260) < 4e-4
+    assert abs(float(do.float().mean()) - 0.3) < 0.03
+    r2, do2 = ta.draw_mixup(torch.Generator().manual_seed(0), 4096, 0.3)
+    assert torch.equal(r, r2) and torch.equal(do, do2)
+    r3, _ = ta.draw_mixup(torch.Generator().manual_seed(1), 4096, 0.3)
+    assert not torch.equal(r, r3)

@@ -337,3 +337,100 @@ def test_warp_other_sizes_equal_plain(dev, S, So):
         got = warp_ops.warp_quadrants(*args, out_dtype=out_dtype)
         torch.cuda.synchronize()
         assert torch.equal(got, warp_ops.warp_quadrants_plain(*args, out_dtype=out_dtype))
+
+
+# ------------------------------------------------------------- the recipes
+
+def _small_pipes(dev, **kw):
+    """The same 64 px fake corpus and recipe on the CPU and on the card."""
+    from object_detection_cib_torch.data.device_pipeline import DeviceDataPipeline
+    from object_detection_cib_torch.data.host_augment import AugParams
+    from object_detection_cib_torch.data.synthetic import build_fake_manifest
+
+    info = build_fake_manifest(num_classes=3, num_images=24, image_size=64, seed=2)
+    aug = kw.pop("aug_params", AugParams())
+    return [DeviceDataPipeline(info, 64, 4, aug, max_targets=40, seed=0,
+                               feed_dtype=torch.float32, device=d, **kw) for d in ("cpu", dev)]
+
+
+def test_hsv_f32_on_composed_output_equals_plain(dev):
+    """K4's f32 instance on what the composed path hands it: the general
+    affine's output at 416, scaled off the integer grid."""
+    from object_detection_cib_torch.data.host_augment import AffineParams, AugParams
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    canvas = torch.randint(0, 256, (8, 3, 832, 832), generator=g, device=dev).float()
+    values = aug_ops.draw_affine_values(g, 8, **AffineParams(degrees=10.0, shear=2.0,
+                                                             perspective=5e-4)._asdict())
+    sample = aug_ops.DeviceSample(canvas, torch.full((8, 2), 832, dtype=torch.int32, device=dev),
+                                  torch.zeros(8, 1, 4, device=dev),
+                                  torch.zeros(8, 1, dtype=torch.int32, device=dev),
+                                  torch.zeros(8, 1, dtype=torch.bool, device=dev))
+    warped = aug_ops.affine_batch(sample, values, 416, border=(-208, -208)).images
+    assert warped.dtype == torch.float32 and (warped == warped.round()).all()
+    x = (warped * 0.77 + 3.3).contiguous()  # non-integral, as after a blend
+    r = aug_ops.hsv_gains(g, 8, *AugParams().hsv_params)
+    before = hsv_ops.hsv_planar.launches
+    got = hsv_ops.hsv_planar(x, r)
+    assert hsv_ops.hsv_planar.launches == before + 1
+    assert torch.equal(got, aug_ops.hsv_batch(x, r, channel_axis=1))
+    assert torch.equal(hsv_ops.hsv_planar(warped, r), aug_ops.hsv_batch(warped, r, channel_axis=1))
+
+
+def test_gather_64_rows_equals_plain(dev):
+    """K2 at the no-mosaic step's K = B = 64 rows of a 416 corpus."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    corpus = torch.randint(0, 256, (200, 3, 416, 416), generator=g, device=dev, dtype=torch.uint8)
+    idx = torch.randint(0, 200, (64,), generator=g, device=dev, dtype=torch.int32)
+    before = gather_ops.gather_rows_planar.launches
+    got = gather_ops.gather_rows_planar(corpus, idx)
+    assert gather_ops.gather_rows_planar.launches == before + 1
+    assert got.shape == (64, 3, 416, 416) and torch.equal(got, corpus[idx.long()])
+
+
+@pytest.mark.parametrize("recipe", ["mixup", "mixup_exact", "no_mosaic", "general_affine"])
+def test_recipe_step_on_card_matches_cpu(dev, recipe):
+    """One whole gather-and-augment step, same rows and draws on both devices:
+    pixels within 1/255, boxes within 1e-4, labels and masks equal; the
+    kernels launch as the recipe says."""
+    from object_detection_cib_torch.data.host_augment import AffineParams, AugParams, HSVParams
+
+    # HSV off: it turns the warp's one-unit differences into several
+    aug = AugParams(hsv_params=HSVParams.no_aug())
+    kw = {"mixup": dict(mixup_prob=0.5), "mixup_exact": dict(mixup_prob=0.5, warp_precision="exact"),
+          "no_mosaic": dict(use_mosaic=False),
+          "general_affine": dict(aug_params=aug._replace(
+              affine_params=AffineParams(degrees=10.0, shear=2.0, perspective=5e-4)))}[recipe]
+    kw.setdefault("aug_params", aug)
+    cpu, card = _small_pipes(dev, **kw)
+    groups, secs = cpu._epoch_plan()
+    draws = cpu.draw()
+    idx = torch.from_numpy(groups[0].astype(np.int32))
+    idx2 = torch.from_numpy(secs[0].astype(np.int32)) if secs.size else None
+    want, wovf = cpu.gather_augment(idx, draws, idx2)
+    counted = (gather_ops.gather_rows_planar, hsv_ops.hsv_planar, warp_ops.warp_quadrants)
+    before = [fn.launches for fn in counted]
+    got, govf = card.gather_augment(idx.to(dev), draws.to(dev), None if idx2 is None else idx2.to(dev))
+    launched = [fn.launches - b for fn, b in zip(counted, before)]
+    groups_n = 2 if recipe.startswith("mixup") else 1
+    assert launched == [groups_n, 0, groups_n if recipe == "mixup" else 0]
+    diff = (got.images.cpu() - want.images).abs()
+    assert float(diff.max()) <= 1.0 / 255 + 1e-6
+    assert float((diff > 1e-6).float().mean()) < 0.001 * groups_n
+    torch.testing.assert_close(got.boxes.cpu(), want.boxes, rtol=0, atol=1e-4)
+    assert torch.equal(got.labels.cpu(), want.labels) and torch.equal(got.mask.cpu(), want.mask)
+    assert int(govf) == int(wovf)
+
+
+def test_exact_warp_refuses_tf32(dev):
+    cpu, card = _small_pipes(dev, warp_precision="exact")
+    groups, _ = cpu._epoch_plan()
+    idx = torch.from_numpy(groups[0].astype(np.int32)).to(dev)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            card.gather_augment(idx, card.draw())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    card.gather_augment(idx, card.draw())

@@ -30,6 +30,15 @@ def _sources():
     return files
 
 
+@pytest.mark.parametrize("module", ["data/enums.py", "data/filter.py", "data/samplers.py"])
+def test_copied_data_modules_are_scanned_and_point_at_the_port(module):
+    path = PORT / module
+    assert path in _sources()
+    text = path.read_text()
+    assert not FORBIDDEN.search(text)
+    assert "object_detection_cib_tpu" not in re.sub(r'""".*?"""', "", text, flags=re.S)
+
+
 def test_no_jax_imports_in_port_sources():
     offenders = [
         f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
