@@ -95,7 +95,30 @@ result line):
    mixup). Each recipe prints
    img/s after a warm-up step, its augment stage's ms, the host's time to
    enqueue one step and its launches: observations, not claims;
-10. the ``kernels`` JSON line, the card line, and the result line last.
+10. jpeg: training and validation from JPEG files at the width of phase 8
+    (yolov5s, nc=10, 416x416, batch 64, bf16, ``aug_params.yaml``). First a
+    probe of the host libraries: cv2 and Pillow (the host pipeline) and
+    libjpeg (the native loader, built in a temporary directory). Where
+    Pillow is there, ``build_synthetic_dataset`` writes ``synthetic-hard-
+    zipf``, 640 train and 128 val JPEG files, into a temporary directory.
+    (a) ``Trainer(pipeline="device", device_cache=True)``: the corpus on
+    the card, decoded from the files (held byte for byte against the CPU's
+    ``pack_batch``, transposed) or, without libjpeg, built by
+    ``DeviceCorpus.from_canvases`` from canvases drawn from a seed;
+    ``fit`` over one epoch with its validation (K2, K4, K5 10 times each,
+    K1 twice). (b) ``device_cache=False``: 5 steps with the groups loaded
+    by a host thread (K2 never, K4 and K5 5 times), bitwise equal to the
+    device-cache pipeline's batches of the same seed, or, from fake groups
+    without libjpeg, step 1 against the same pipeline on the CPU; with the
+    RAM cache a second epoch decodes only images not seen before. (c)
+    ``pipeline="host"``, 8 worker threads, 5 steps and the host-fed
+    validation (no training kernel; K1 once per val batch). Last the two
+    validation feeds on the same canvases give the same mAP dict. Each part
+    prints img/s and the host's enqueue time, (c) the time the consumer
+    waited on its queue: observations, not claims. A part that needs a
+    library the machine lacks prints which, and does not run;
+11. the ``kernels`` JSON line (with each path's launches), the card line,
+    and the result line last.
 """
 
 from __future__ import annotations
@@ -107,6 +130,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -225,6 +249,308 @@ def nms_pairs_needed(keep, live) -> int:
     kept_before = k.cumsum(dim=1) - k
     pairs = (kept_before * k).sum() + (live & ~keep).sum()
     return int(pairs)
+
+
+JPEG_TRAIN_N, JPEG_VAL_N, JPEG_STEPS = 640, 128, 5
+
+
+def host_libraries(native_loader):
+    """({library: version}, {library: why it is missing}) for phase 10: cv2 and
+    Pillow for the host pipeline, libjpeg for the native loader (its build
+    in a temporary directory is the probe)."""
+    import importlib
+
+    have, missing = {}, {}
+    for mod, label in (("cv2", "cv2"), ("PIL", "Pillow")):
+        try:
+            have[label] = getattr(importlib.import_module(mod), "__version__", "?")
+        except ImportError as e:
+            missing[label] = f"{label} is not installed on this machine ({e})"
+    try:
+        have["libjpeg"] = str(native_loader.build())
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        why = ("jpeglib.h, libjpeg's header, is not installed on this machine" if "jpeglib.h" in str(e)
+               else f"the build failed: {str(e).strip().splitlines()[-1]}")
+        missing["libjpeg"] = f"the native JPEG loader (native/loader.cpp, -ljpeg) does not build: {why}"
+    return have, missing
+
+
+class CanvasReader:
+    """A sample reader that hands out a val cache's centered canvases and
+    targets: the host feed then validates on the cache's very pixels."""
+
+    def __init__(self, cache, info):
+        self.cache, self.index = cache, {s.id: j for j, s in enumerate(info.samples)}
+
+    def __call__(self, sample, letter_box=True):
+        from object_detection_cib_torch.data.reader import AugmentedSample
+
+        j = self.index[sample.id]
+        m = self.cache.gt_mask[j]
+        return AugmentedSample(self.cache.canvases[j], self.cache.gt_boxes[j][m],
+                               self.cache.gt_labels[j][m].astype("int64"))
+
+
+def finite_map(m) -> bool:
+    """Every summary of an mAP dict finite (a class without ground truth in
+    the val set reads NaN, as in the JAX package)."""
+    return all(math.isfinite(v) for k, v in m.items() if "_class_" not in k)
+
+
+def same_map(a, b) -> bool:
+    """Equal mAP dicts, NaN equal to NaN."""
+    return a.keys() == b.keys() and all(a[k] == b[k] or (math.isnan(a[k]) and math.isnan(b[k])) for k in a)
+
+
+def whole_steps_enqueue(step, reps: int = 5):
+    """Host ms to enqueue ``step()`` from an idle card: median and runs."""
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(runs), [round(t, 4) for t in runs]
+
+
+def phase_jpeg(card, dev, aug, counted, zero_counts, read_counts):
+    """Phase 10: train and validate from JPEG files at the training width
+    (yolov5s, nc=10, 416, batch 64, bf16) through the three feeds. Returns
+    each part's launch counts. A part that needs a host library the machine
+    lacks says so and does not run; everything else raises on failure."""
+    import numpy as np
+
+    from object_detection_cib_torch.data import native_loader
+    from object_detection_cib_torch.data.device_pipeline import (
+        DeviceCorpus,
+        DeviceDataPipeline,
+        fake_canvases,
+    )
+    from object_detection_cib_torch.data.host_augment import ValidationSampleAugmentor
+    from object_detection_cib_torch.data.pipeline import DetectionDataset, Prefetcher
+    from object_detection_cib_torch.data.synthetic import build_fake_manifest, build_synthetic_dataset
+    from object_detection_cib_torch.train.trainer import Trainer
+
+    have, missing = host_libraries(native_loader)
+    log("[jpeg] probe: " + "; ".join([f"{k} {v}" for k, v in have.items()] + list(missing.values())))
+    host_ok = not ({"cv2", "Pillow"} & set(missing))
+    jpeg_ok = host_ok and "libjpeg" not in missing
+    kw = dict(size="s", image_size=TRAIN_S, batch_size=TRAIN_B, aug_params=aug, max_targets=MAX_TARGETS,
+              seed=0, dtype=torch.bfloat16, device=dev, max_epochs=1)
+    steps = JPEG_TRAIN_N // TRAIN_B
+    counts = {}
+
+    def expect(part, got, want):
+        for k, n in want.items():
+            if got[k] != n:
+                fail(f"[jpeg] ({part}) launched {k} {got[k]} times, want {n}")
+
+    with tempfile.TemporaryDirectory(prefix="jpeg-corpus-") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        if "Pillow" in missing:
+            log(f"[jpeg] no JPEG corpus written: {missing['Pillow']}; (a) and (b) run on a fake manifest")
+            train_info = build_fake_manifest(num_classes=NC, num_images=JPEG_TRAIN_N, image_size=TRAIN_S,
+                                             seed=0, zipf_a=1.01)
+            val_info = build_fake_manifest(num_classes=NC, num_images=JPEG_VAL_N, image_size=TRAIN_S, seed=1)
+        else:
+            train_info = build_synthetic_dataset(root, "synthetic-hard-zipf", num_images=JPEG_TRAIN_N,
+                                                 image_size=TRAIN_S, seed=0)
+            val_info = build_synthetic_dataset(root, "synthetic-hard-zipf-val", num_images=JPEG_VAL_N,
+                                               image_size=TRAIN_S, seed=1)
+            n_bytes = sum((root / s.image_path).stat().st_size for s in train_info.samples + val_info.samples)
+            log(f"[jpeg] setup: synthetic-hard-zipf {JPEG_TRAIN_N} train + {JPEG_VAL_N} val JPEG files at "
+                f"{TRAIN_S} px ({n_bytes} B) written by build_synthetic_dataset in "
+                f"{time.perf_counter() - t0:.2f} s")
+
+        # (a) the corpus on the card, fit over one epoch
+        t0 = time.perf_counter()
+        if jpeg_ok:
+            tr_a = Trainer(train_info, val_info, fake_mode=False, root_dir=root, **kw)
+            corpus = tr_a.pipeline.device_corpus
+            canv, sizes, fails = native_loader.pack_batch(
+                [(root / s.image_path).read_bytes() for s in train_info.samples], TRAIN_S)
+            if fails:
+                fail(f"[jpeg] the CPU's pack_batch failed on {fails} files")
+            source = "the CPU's pack_batch of the JPEG files"
+        else:
+            log(f"[jpeg] (a) JPEG decode into the corpus on the card not run: {missing.get('libjpeg')}; "
+                f"the corpus is built from seeded canvases instead")
+            canv, sizes = fake_canvases(train_info, TRAIN_S, seed=5)
+            corpus = DeviceCorpus.from_canvases(train_info, canv, sizes, dev)
+            tr_a = Trainer(train_info, val_info, fake_mode=True, corpus=corpus, root_dir=root, **kw)
+            source = "top-left packed canvases drawn from seed 5"
+        setup_s = time.perf_counter() - t0
+        if not (torch.equal(corpus.images, torch.from_numpy(canv).to(dev).permute(0, 3, 1, 2))
+                and torch.equal(corpus.sizes.cpu(), torch.from_numpy(sizes))):
+            fail(f"[jpeg] (a) the corpus on the card differs from {source}")
+        log(f"[jpeg] (a) corpus {tuple(corpus.images.shape)} uint8 = {corpus.images.numel()} B on the card "
+            f"equals {source}, transposed, byte for byte; trainer set-up {setup_s:.2f} s")
+        del canv
+        before = [p.detach().clone() for p in tr_a.net.parameters()]
+        marks = {}
+
+        def on_step(epoch, i, m):
+            if i in (0, steps - 1):
+                torch.cuda.synchronize()
+                marks[i] = time.perf_counter()
+
+        zero_counts()
+        m_a = tr_a.fit(max_epochs=1, on_step=on_step)
+        counts["a"] = read_counts()
+        n_val = math.ceil(JPEG_VAL_N / TRAIN_B)
+        expect("a", counts["a"], {"gather_rows_planar": steps, "hsv_planar": steps, "warp_quadrants": steps,
+                                  "greedy_nms_mask": n_val})
+        em = tr_a.epoch_metrics[-1]
+        if not np.isfinite(em["total"]).all() or not finite_map(m_a):
+            fail(f"[jpeg] (a) losses or mAP not finite: {em['total']}, {m_a}")
+        unmoved = sum(torch.equal(a, b) for a, b in zip(before, tr_a.net.parameters()))
+        if unmoved:
+            fail(f"[jpeg] (a) {unmoved} of {len(before)} parameters did not move")
+        del before
+        pa = tr_a.pipeline
+        idx = torch.from_numpy(pa._epoch_plan()[0][0].astype(np.int32)).to(dev)
+        pa.consumed_plan_log.pop()  # drawn for timing only
+        enq, runs = whole_steps_enqueue(lambda: tr_a.train_step(pa.gather_augment(idx, pa.draw())[0]))
+        ips = (steps - 1) * TRAIN_B / (marks[steps - 1] - marks[0])
+        log(f"[jpeg] (a) device_cache=True: fit over one epoch ({steps} steps) and validation of "
+            f"{JPEG_VAL_N} images; launches {counts['a']}; losses {em['total'][0]:.4f}->{em['total'][-1]:.4f}, "
+            f"all parameters moved, targets dropped {int(em['targets_dropped'])}; {ips:.2f} img/s over steps "
+            f"2-{steps}; host enqueue of one whole step (median of 5) {enq:.4f} ms (runs {runs}) | {card}")
+        log("[jpeg] (a) validation " + json.dumps(m_a))
+
+        # (b) host-fed: the same augment on the card, the groups loaded by a host thread
+        tr_b = Trainer(train_info, val_info, device_cache=False, fake_mode=not jpeg_ok, root_dir=root,
+                       enable_ram_cache=True, **kw)
+        pb = tr_b.pipeline
+        decoded = []
+        real_pack = native_loader.pack_batch
+
+        def counting_pack(bufs, *a, **k):
+            decoded.append(len(bufs))
+            return real_pack(bufs, *a, **k)
+
+        native_loader.pack_batch = counting_pack
+        try:
+            kept, totals = [], []
+            zero_counts()
+            for i, (batch, _) in enumerate(pb.epoch(JPEG_STEPS)):
+                totals.append(tr_b.train_step(batch).total)
+                kept.append(batch)
+                if i == 0:
+                    torch.cuda.synchronize()
+                    t_first = time.perf_counter()
+            torch.cuda.synchronize()
+            t_last = time.perf_counter()
+            counts["b"] = read_counts()
+            first_decoded = sum(decoded)
+            if jpeg_ok:  # a second epoch decodes only the images the first did not
+                seen = set(pb.consumed_plan_log[-1][:JPEG_STEPS].ravel().tolist())
+                decoded.clear()
+                for _ in pb.epoch(JPEG_STEPS):
+                    pass
+                new = set(pb.consumed_plan_log[-1][:JPEG_STEPS].ravel().tolist()) - seen
+                if sum(decoded) != len(new):
+                    fail(f"[jpeg] (b) the second epoch decoded {sum(decoded)} images, want the {len(new)} "
+                         f"its first {JPEG_STEPS} steps had not seen")
+                cache_note = (f"RAM cache: epoch 1 decoded {first_decoded} images in {JPEG_STEPS} steps, "
+                              f"epoch 2 decoded {sum(decoded)}, exactly the {len(new)} not seen before")
+            else:
+                cache_note = f"fake groups: {first_decoded} images decoded"
+        finally:
+            native_loader.pack_batch = real_pack
+        expect("b", counts["b"], {"gather_rows_planar": 0, "hsv_planar": JPEG_STEPS,
+                                  "warp_quadrants": JPEG_STEPS})
+        losses = torch.stack(totals).tolist()
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"[jpeg] (b) losses not finite: {losses}")
+        if jpeg_ok:
+            ref = DeviceDataPipeline(train_info, TRAIN_S, TRAIN_B, aug, max_targets=MAX_TARGETS, seed=0,
+                                     device=dev, corpus=corpus)
+            for i, (want, _) in enumerate(ref.epoch(JPEG_STEPS)):
+                if not all(torch.equal(x, y) for x, y in zip(kept[i], want)):
+                    fail(f"[jpeg] (b) step {i}: the host-fed batch differs from the device-cache one")
+            equal_note = f"all {JPEG_STEPS} batches bitwise equal to the device-cache pipeline's (same seed)"
+        else:
+            cpu = DeviceDataPipeline(train_info, TRAIN_S, TRAIN_B, aug, max_targets=MAX_TARGETS, seed=0,
+                                     device="cpu", device_cache=False)
+            first_draws = DeviceDataPipeline(train_info, TRAIN_S, TRAIN_B, aug, seed=0, device=dev,
+                                             device_cache=False).draw()
+            t0 = time.perf_counter()
+            want, _ = cpu.load_augment(cpu._epoch_plan()[0][0], first_draws.to("cpu"))
+            diff = (kept[0].images.float().cpu() - want.images.float()).abs() * 255.0
+            worst, share = float(diff.max()), float((diff > 1e-3).float().mean())
+            box_err = float((kept[0].boxes.cpu() - want.boxes).abs().max())
+            if (worst > 9.0 + 1e-3 or share >= 0.001 or box_err > 1e-4
+                    or not torch.equal(kept[0].mask.cpu(), want.mask)
+                    or not torch.equal(kept[0].labels.cpu(), want.labels)):
+                fail(f"[jpeg] (b) step 1 on the card against the CPU: pixels {worst}/255 on {share}, "
+                     f"boxes {box_err}, or labels/mask differ")
+            equal_note = (f"step 1 against the same pipeline on the CPU ({time.perf_counter() - t0:.2f} s "
+                          f"there): max pixel difference {worst:.4f}/255 on {share:.6f} of pixels, boxes "
+                          f"{box_err:.2e}, labels and masks equal")
+        g0 = pb._epoch_plan()[0][0]
+        pb.consumed_plan_log.pop()  # drawn for timing only
+        enq, runs = whole_steps_enqueue(lambda: tr_b.train_step(pb.load_augment(g0, pb.draw())[0]))
+        log(f"[jpeg] (b) device_cache=False, {JPEG_STEPS} steps: launches {counts['b']}; losses "
+            f"{losses[0]:.4f}->{losses[-1]:.4f}; {(JPEG_STEPS - 1) * TRAIN_B / (t_last - t_first):.2f} img/s "
+            f"over steps 2-{JPEG_STEPS}; host enqueue of one whole step, its group loaded on the host "
+            f"(median of 5) {enq:.4f} ms (runs {runs}); {cache_note}; {equal_note} | {card}")
+        del kept, tr_b, pb
+
+        # (c) the host pipeline (the repo's default config), and its validation feed
+        if not host_ok:
+            log(f"[jpeg] (c) host pipeline not run: {'; '.join(missing[k] for k in ('cv2', 'Pillow') if k in missing)}")
+        else:
+            # the host augmentor also runs aug_params.yaml's colour extras (p=0.01 each),
+            # which the device augment has not
+            tr_c = Trainer(train_info, val_info, pipeline="host", num_workers=8, fake_mode=False,
+                           root_dir=root, **{**kw, "aug_params": aug._replace(image_color_transforms=True)})
+            marks.clear()
+
+            def on_step_c(epoch, i, m):
+                if i in (0, JPEG_STEPS - 1):
+                    torch.cuda.synchronize()
+                    marks[i] = time.perf_counter()
+
+            zero_counts()
+            m_c = tr_c.fit(max_epochs=1, limit_train_batches=JPEG_STEPS, on_step=on_step_c)
+            counts["c"] = read_counts()
+            expect("c", counts["c"], {"gather_rows_planar": 0, "hsv_planar": 0, "warp_quadrants": 0,
+                                      "greedy_nms_mask": n_val})
+            em = tr_c.epoch_metrics[-1]
+            if not np.isfinite(em["total"]).all() or not finite_map(m_c):
+                fail(f"[jpeg] (c) losses or mAP not finite: {em['total']}, {m_c}")
+            wait = tr_c.prefetcher.wait_seconds
+            feed = iter(tr_c.prefetcher)
+            batch = next(feed)
+            feed.close()
+            enq, runs = whole_steps_enqueue(lambda: tr_c.train_step(batch))
+            log(f"[jpeg] (c) pipeline='host', num_workers=8, {JPEG_STEPS} steps and validation over "
+                f"{JPEG_VAL_N} JPEG files: launches {counts['c']}; losses {em['total'][0]:.4f}->"
+                f"{em['total'][-1]:.4f}, targets dropped {int(em['targets_dropped'])}; "
+                f"{(JPEG_STEPS - 1) * TRAIN_B / (marks[JPEG_STEPS - 1] - marks[0]):.2f} img/s over steps "
+                f"2-{JPEG_STEPS}; consumer waited on the queue {wait:.4f} s in all "
+                f"({wait / JPEG_STEPS * 1e3:.4f} ms a step); host enqueue of one train step (median of 5) "
+                f"{enq:.4f} ms (runs {runs}) | {card}")
+            log("[jpeg] (c) validation " + json.dumps(m_c))
+            del tr_c, batch
+
+        # the two validation feeds on the same canvases
+        vcache = tr_a.val_cache
+        ds = DetectionDataset(val_info, CanvasReader(vcache, val_info), ValidationSampleAugmentor())
+        host_feed = Prefetcher(ds, TRAIN_B, MAX_TARGETS, num_threads=8, drop_last=False, device=None)
+        zero_counts()
+        m_dev = tr_a.evaluator.validate(vcache)
+        m_host = tr_a.evaluator.validate_batches(host_feed)
+        val_counts = read_counts()["greedy_nms_mask"]
+        if not same_map(m_dev, m_host) or val_counts != 2 * n_val:
+            fail(f"[jpeg] validation feeds differ on the same canvases: {m_dev} against {m_host} "
+                 f"(NMS launches {val_counts}, want {2 * n_val})")
+        log(f"[jpeg] ValDeviceCache and the host feed over the same {len(vcache)} canvases: the same mAP "
+            f"dict (map {m_dev['map']:.6g}); NMS launches {val_counts}")
+    return counts
 
 
 def main() -> None:
@@ -776,6 +1102,8 @@ def main() -> None:
     em = trainer.epoch_metrics[-1]
     if not all(np.isfinite(v).all() for v in em.values()):
         fail(f"training losses not finite: {em}")
+    if pipe._overflow_pending:
+        fail(f"fit left {len(pipe._overflow_pending)} overflow counts pending on the pipeline")
     unmoved = sum(torch.equal(a, b) for a, b in zip(before, net.parameters()))
     if unmoved:
         fail(f"{unmoved} of {len(before)} parameters did not move in {TRAIN_STEPS} steps")
@@ -786,9 +1114,11 @@ def main() -> None:
     log(f"[train] yolov5s nc={NC} {TRAIN_S}x{TRAIN_S} B={TRAIN_B} bf16: {TIMED_STEPS} steps "
         f"(steps {TRAIN_STEPS - TIMED_STEPS + 1}-{TRAIN_STEPS}) in {t_hi - t_lo:.4f} s = {train_ips:.2f} img/s; "
         f"epoch wall {trainer.epoch_walls[-1]:.3f} s for {trainer.epoch_imgs[-1]} images | {card}")
-    log("[train] losses per step: " + ", ".join(f"{k} {v[0]:.4f}->{v[-1]:.4f}" for k, v in em.items())
+    log("[train] per step: " + ", ".join(f"{k} {em[k][0]:.4g}->{em[k][-1]:.4g}"
+                                         for k in ("total", "box", "obj", "cls", "lr"))
         + f"; all {len(before)} parameters moved; assign_drop total {em['assign_drop'].sum():.0f}; "
-        f"targets dropped by max_targets {pipe.overflow_total}")
+        f"targets dropped by max_targets {int(em['targets_dropped'])} (pipeline total "
+        f"{pipe.overflow_total}, none pending)")
     log("[train] epoch-end validation " + json.dumps(train_map))
 
     plan_idx = torch.from_numpy(pipe._epoch_plan()[0][1].astype(np.int32)).to(dev)
@@ -1052,7 +1382,10 @@ def main() -> None:
                     and torch.equal(outs[0].mask, outs[1].mask.cpu())):
                 fail(f"CPU vs card, {name}: labels or mask differ")
 
-    # -------------------------------------------------------------- 10 report
+    # ---------------------------------------------------------------- 10 jpeg
+    jpeg = phase_jpeg(card, dev, aug, counted, zero_counts, read_counts)
+
+    # -------------------------------------------------------------- 11 report
     src = "object_detection_cib_torch/ops/csrc/"
     rows = [
         ("greedy_nms_mask", "nms.cu", "object_detection_cib_tpu/ops/pallas_nms.py:131", serve_launches),
@@ -1073,6 +1406,10 @@ def main() -> None:
             "launches": launches, "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "call_ms": call_ms[name][0], "library_call_ms": call_ms[name][1],
+            "launches_by_path": {"serving": serve_launches if name == "greedy_nms_mask" else 0,
+                                 "validation": val_launches if name == "greedy_nms_mask" else 0,
+                                 "train": train_launches[name],
+                                 **{f"jpeg_{part}": n[name] for part, n in jpeg.items()}},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -5,8 +5,9 @@ names so each module's counterpart is found at the same relative path. It
 imports ``torch`` and never JAX, flax or the JAX package.
 
 Ported so far (the serving and validation path, the production training
-path, and the imbalance recipes on it: samplers, mixup, the no-mosaic
-letterbox, a general affine, the exact warp):
+path, the imbalance recipes on it: samplers, mixup, the no-mosaic
+letterbox, a general affine, the exact warp; and training and validation
+from JPEG files through the three feeds, with the data CLI):
 
 - ``core``    box math, the IoU family, batched NMS (``non_max_suppression``)
               and the YOLOv5 label assigner
@@ -19,10 +20,14 @@ letterbox, a general affine, the exact warp):
               fused mosaic warp (``warp.py``); and the device augment
               (``augment.py``: the fused and the composed path, mixup)
 - ``eval``    head decode and the numpy COCO-style mAP evaluator
-- ``data``    dataset manifests, the fake manifest builder, the native JPEG
-              loader bindings, the device-resident validation cache, the
-              augmentation parameters, the imbalance-aware samplers
-              (``samplers.py``) and the device training pipeline
+- ``data``    dataset manifests and their builders (fake, synthetic JPEG,
+              COCO JSON), the native JPEG loader bindings, the
+              device-resident validation cache, the imbalance-aware
+              samplers (``samplers.py``), the device training pipeline
+              (corpus on the card or host-fed) and the host pipeline
+              (``reader.py``, ``host_augment.py``, ``augmentor.py``,
+              ``pipeline.py``; cv2 and Pillow imported where used)
+- ``cli``     ``python -m object_detection_cib_torch.cli.data``
 - ``train``   loss, SmartSGD, the train and eval steps, the ``Evaluator``
               (validate / predict) and the ``Trainer`` (``fit``)
 

@@ -1,16 +1,34 @@
-"""The production training feed: a planar uint8 corpus on the card, gathered
-and augmented on the card every step.
+"""The production training feed: uint8 images augmented on the card every
+step, from a planar corpus held on the card or loaded per step by the host.
 
-Counterpart of ``object_detection_cib_tpu/data/device_pipeline.py`` in its
-device-cache form (``data.pipeline=device``, ``data.device_cache=True``).
+Counterpart of ``object_detection_cib_tpu/data/device_pipeline.py``
+(``data.pipeline=device``). The images come from fake draws (``fake_mode``)
+or from JPEG files decoded by the native loader (``native_loader.
+pack_batch``; a file that fails to decode raises ``ValueError``), and reach
+the card one of two ways:
+
+  * ``device_cache=True``: the whole corpus is decoded once into a
+    ``DeviceCorpus`` (N, 3, S, S) uint8 on the card, and K2 gathers each
+    step's rows;
+  * ``device_cache=False`` (host-fed, the JAX package's ``_load_group`` and
+    iterator): a producer thread loads each step's groups into pinned host
+    memory, up to ``prefetch`` steps ahead (with ``enable_ram_cache`` each
+    JPEG is decoded once in all), and the consumer copies them up and
+    transposes them to planar on the card. The JAX package augments this
+    feed in NHWC; the port augments it planar with the same function as
+    the corpus on the card (the two layouts give the same bytes,
+    ``tests/test_planar_corpus.py``), so the fused path launches K5 and K4,
+    not K2. With the same seed and the same JPEG corpus both ways give the
+    same batches, bit for bit.
+
 Per step of batch B:
 
   1. the epoch plan gives the corpus rows: with mosaic 4B (each primary
      image, from the sampler's epoch stream or a permutation, and three
      co-samples, shuffled within their quad), without mosaic B; under mixup
      4B more for the secondary mosaic group;
-  2. K2 gathers the planar images (``ops/gather.py``), once per group, and
-     their sizes and per-image targets are gathered from arrays on the card;
+  2. the group's images (K2 on the card, or the host-fed upload), their
+     sizes, and their per-image targets gathered from arrays on the card;
   3. ``augment_group``. With mosaic and an axis-aligned affine, the fused
      mosaic + warp (``ops/augment.py``: K5 at ``warp_precision="fast"``, two
      f32 matrix products at ``"exact"``) with the horizontal flip folded
@@ -26,25 +44,29 @@ Per step of batch B:
 The epoch plan uses the sampler, ``random.Random`` and numpy exactly as the
 JAX package does, so the same seed gives the same groups. The per-step
 ``jax.random`` keys become draws from one ``torch.Generator`` on the card
-(``draw_augment``), so augmentation is reproducible within the port only.
+(``draw_augment``), made in step order by the consumer, so augmentation is
+reproducible within the port only.
 
-Settings not ported raise ``NotImplementedError`` naming the ROADMAP item
-that will port them, never switching path quietly: real JPEG decode and the
-host-fed pipeline (A3). The flat (N, 8, D/8) corpus layout is a TPU tiling
-workaround and is not ported (K3's kernel still exists, in
-``ops/gather.py``). Not ported either: ``device_put_row_major`` (a TPU
-layout pin) and the multi-host and sharded-corpus modes (A7).
+Not ported: the flat (N, 8, D/8) corpus layout, a TPU tiling workaround
+(it raises ``NotImplementedError``; K3's kernel still exists, in
+``ops/gather.py``), ``device_put_row_major`` (a TPU layout pin), the fused
+epoch program (ROADMAP A5) and the multi-host and sharded-corpus modes (A7).
 """
 
 from __future__ import annotations
 
+import itertools
+import queue
 import random as pyrandom
+import threading
 from collections import deque
-from typing import Iterator, NamedTuple, Optional, Tuple, Union
+from pathlib import Path
+from typing import Iterator, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from object_detection_cib_torch.data import native_loader
 from object_detection_cib_torch.data.cache import DatasetInfo
 from object_detection_cib_torch.data.host_augment import AugParams
 from object_detection_cib_torch.ops.augment import (
@@ -67,7 +89,9 @@ from object_detection_cib_torch.ops.gather import gather_rows_planar
 from object_detection_cib_torch.ops.hsv import hsv_planar
 from object_detection_cib_torch.ops.warp import FILL
 from object_detection_cib_torch.train.steps import Batch
-from object_detection_cib_torch.utils.device import resolve_device
+from object_detection_cib_torch.utils.device import resolve_device, to_unit
+from object_detection_cib_torch.utils.fs import get_root_dir
+from object_detection_cib_torch.utils.threads import put_unless_stopped
 
 
 class AugmentDraws(NamedTuple):
@@ -219,7 +243,7 @@ def to_batch(s: DeviceSample, max_targets: int,
         overflow = torch.zeros((), dtype=torch.int32, device=s.boxes.device)
     images = s.images.permute(0, 2, 3, 1).contiguous()
     batch = Batch(
-        images=(images.float() / 255.0).to(feed_dtype),
+        images=to_unit(images).to(feed_dtype),
         boxes=boxes,
         labels=torch.where(mask, labels, torch.zeros_like(labels)),
         mask=mask,
@@ -258,55 +282,133 @@ def build_device_augment_fn(
     return fn
 
 
+class HostGroup(NamedTuple):
+    """One step's group as the host-fed pipeline's producer loads it."""
+
+    images: torch.Tensor  # (n, S, S, 3) uint8 canvases, content top-left; pinned on a card machine
+    sizes: torch.Tensor  # (n, 2) int32 content (h, w)
+
+
+def content_size(meta, target_size: int) -> Tuple[int, int]:
+    """(h, w) of an image resized to longest side S (the native loader's rounding)."""
+    S = target_size
+    scale = S / max(meta.height, meta.width)
+    return (min(max(int(round(meta.height * scale)), 1), S),
+            min(max(int(round(meta.width * scale)), 1), S))
+
+
+def target_arrays(info: DatasetInfo, target_size: int):
+    """Per-image targets in resized-content coordinates, capacity ``src_T``:
+    ``(src_T, boxes (N, src_T, 4) f32, labels (N, src_T) int32, mask bool)``.
+
+    Boxes use the uniform scale S / max(h, w), the host reader's math
+    (albumentations LongestMaxSize), not the rounded ratios; degenerate
+    boxes are dropped (the JAX package's ``_targets_arrays``).
+    """
+    n, S = len(info.samples), target_size
+    src_T = max(max((len(s.targets) for s in info.samples), default=1), 1)
+    label_to_index = {c: i for i, c in enumerate(info.classes)}
+    tb = np.zeros((n, src_T, 4), np.float32)
+    tl = np.zeros((n, src_T), np.int32)
+    tm = np.zeros((n, src_T), bool)
+    for i, s in enumerate(info.samples):
+        meta = s.image_metadata
+        scale = S / max(meta.height, meta.width)
+        k = 0
+        for t in s.targets:
+            bb = t.bounding_box
+            if bb.x_max <= bb.x_min or bb.y_max <= bb.y_min or k >= src_T:
+                continue
+            tb[i, k] = [bb.x_min * scale, bb.y_min * scale, bb.x_max * scale, bb.y_max * scale]
+            tl[i, k] = label_to_index[t.class_name]
+            tm[i, k] = True
+            k += 1
+    return src_T, tb, tl, tm
+
+
+def fake_canvases(info: DatasetInfo, target_size: int, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """The fake corpus: (N, S, S, 3) uint8 canvases with random content in the
+    top-left (h, w) window and FILL elsewhere, drawn from ``default_rng(seed)``
+    in corpus order (seed 0: the JAX package's ``_build_device_cache``), and
+    (N, 2) int32 content sizes."""
+    n, S = len(info.samples), target_size
+    canvases = np.full((n, S, S, 3), int(FILL), np.uint8)
+    sizes = np.zeros((n, 2), np.int32)
+    rng = np.random.default_rng(seed)
+    for i, s in enumerate(info.samples):
+        h, w = content_size(s.image_metadata, S)
+        canvases[i, :h, :w] = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        sizes[i] = (h, w)
+    return canvases, sizes
+
+
+def decode_canvases(info: DatasetInfo, indices: Sequence[int], target_size: int, root_dir: Path,
+                    out: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
+    """The JPEG files of samples ``indices`` decoded, resized to longest side S
+    and packed top-left on FILL by the native loader (``pack_batch``, into
+    ``out`` when given): (n, S, S, 3) uint8 canvases and (n, 2) int32 sizes.
+    Any decode failure raises ``ValueError``."""
+    bufs = [(root_dir / info.samples[int(i)].image_path).read_bytes() for i in indices]
+    canvases, sizes, fails = native_loader.pack_batch(bufs, target_size, out=out)
+    if fails:
+        raise ValueError(f"{fails} of {len(bufs)} JPEG files failed to decode")
+    return canvases, sizes
+
+
 class DeviceCorpus:
-    """The fake corpus and its per-image targets as tensors on one device.
+    """A corpus and its per-image targets as tensors on one device.
 
     Built once and shared by every pipeline over the same dataset, image
     size and device (``DeviceDataPipeline(corpus=...)``): images (N, 3, S, S)
     uint8 planar with the content in the top-left (h, w) window and FILL
-    elsewhere (the JAX package's draws), sizes (N, 2) int32, and target
-    arrays of capacity ``src_T`` in resized-content coordinates.
+    elsewhere, sizes (N, 2) int32, and target arrays of capacity ``src_T``
+    in resized-content coordinates. ``from_canvases`` is the one
+    constructor; ``fake`` draws the canvases, ``decode`` reads the JPEG
+    files.
     """
 
-    def __init__(self, info: DatasetInfo, target_size: int, device: torch.device):
-        n, S = len(info.samples), target_size
-        self.info, self.S, self.device = info, S, device
-        # per-source-image target capacity before the mosaic merge
-        self.src_T = max(max((len(s.targets) for s in info.samples), default=1), 1)
-        label_to_index = {c: i for i, c in enumerate(info.classes)}
-        images = np.full((n, 3, S, S), FILL, np.uint8)
-        sizes = np.zeros((n, 2), np.int32)
-        tb = np.zeros((n, self.src_T, 4), np.float32)
-        tl = np.zeros((n, self.src_T), np.int32)
-        tm = np.zeros((n, self.src_T), bool)
-        rng = np.random.default_rng(0)
-        for i, s in enumerate(info.samples):
-            meta = s.image_metadata
-            # boxes use the uniform scale S / max(h, w), the host reader's
-            # math (albumentations LongestMaxSize), not the rounded ratios
-            scale = S / max(meta.height, meta.width)
-            h = min(max(int(round(meta.height * scale)), 1), S)
-            w = min(max(int(round(meta.width * scale)), 1), S)
-            images[i, :, :h, :w] = rng.integers(0, 256, (h, w, 3), dtype=np.uint8).transpose(2, 0, 1)
-            sizes[i] = (h, w)
-            k = 0
-            for t in s.targets:
-                bb = t.bounding_box
-                if bb.x_max <= bb.x_min or bb.y_max <= bb.y_min or k >= self.src_T:
-                    continue
-                tb[i, k] = [bb.x_min * scale, bb.y_min * scale, bb.x_max * scale, bb.y_max * scale]
-                tl[i, k] = label_to_index[t.class_name]
-                tm[i, k] = True
-                k += 1
-        self.images = torch.from_numpy(images).to(device)
-        self.sizes = torch.from_numpy(sizes).to(device)
-        self.t_boxes = torch.from_numpy(tb).to(device)
-        self.t_labels = torch.from_numpy(tl).to(device)
-        self.t_mask = torch.from_numpy(tm).to(device)
+    UPLOAD_ROWS = 256  # canvases per host->device copy: bounds the staging
+
+    def __init__(self, info: DatasetInfo, images: torch.Tensor, sizes: torch.Tensor,
+                 device: torch.device):
+        self.info, self.S, self.device = info, images.shape[-1], device
+        self.images, self.sizes = images, sizes
+        self.src_T, *targets = target_arrays(info, self.S)
+        self.t_boxes, self.t_labels, self.t_mask = (torch.from_numpy(a).to(device) for a in targets)
+
+    @classmethod
+    def from_canvases(cls, info: DatasetInfo, canvases: np.ndarray, sizes: np.ndarray,
+                      device: Union[str, torch.device]) -> "DeviceCorpus":
+        """(N, S, S, 3) uint8 canvases and (N, 2) sizes, as ``pack_batch``
+        gives them, to the device; the transpose to planar runs there, a
+        chunk of rows at a time."""
+        device = torch.device(device)
+        n, S = canvases.shape[:2]
+        if canvases.shape != (n, S, S, 3) or canvases.dtype != np.uint8 or n != len(info.samples):
+            raise ValueError(f"want ({len(info.samples)}, S, S, 3) uint8 canvases, got "
+                             f"{canvases.shape} {canvases.dtype}")
+        images = torch.empty((n, 3, S, S), dtype=torch.uint8, device=device)
+        for i in range(0, n, cls.UPLOAD_ROWS):
+            chunk = torch.from_numpy(np.ascontiguousarray(canvases[i:i + cls.UPLOAD_ROWS]))
+            images[i:i + cls.UPLOAD_ROWS] = chunk.to(device).permute(0, 3, 1, 2)
+        return cls(info, images, torch.from_numpy(np.asarray(sizes, np.int32)).to(device), device)
+
+    @classmethod
+    def fake(cls, info: DatasetInfo, target_size: int, device) -> "DeviceCorpus":
+        return cls.from_canvases(info, *fake_canvases(info, target_size), device)
+
+    @classmethod
+    def decode(cls, info: DatasetInfo, target_size: int, device, root_dir: Optional[Path] = None
+               ) -> "DeviceCorpus":
+        root = Path(root_dir) if root_dir else get_root_dir()
+        return cls.from_canvases(
+            info, *decode_canvases(info, range(len(info.samples)), target_size, root), device)
 
 
 class DeviceDataPipeline:
-    """Train batches from a corpus held on the card (fake mode, planar)."""
+    """Train batches augmented on the card, from a corpus held there
+    (``device_cache=True``) or loaded per step by a host thread
+    (``device_cache=False``); fake draws or JPEG files (``fake_mode``)."""
 
     def __init__(
         self,
@@ -326,11 +428,10 @@ class DeviceDataPipeline:
         feed_dtype: torch.dtype = torch.bfloat16,
         device: Union[str, torch.device] = "cuda",
         corpus: Optional[DeviceCorpus] = None,
+        root_dir: Optional[Path] = None,
+        enable_ram_cache: bool = False,
+        prefetch: int = 2,
     ):
-        if not fake_mode:
-            raise NotImplementedError("JPEG corpora (native decode into the cache) are ROADMAP item A3")
-        if not device_cache:
-            raise NotImplementedError("the host-fed pipeline is ROADMAP item A3")
         if corpus_layout != "planar":
             raise NotImplementedError(
                 f"corpus_layout={corpus_layout!r}: the flat layout is a TPU tiling "
@@ -344,6 +445,11 @@ class DeviceDataPipeline:
         self.mixup_prob = mixup_prob
         self.use_mosaic = use_mosaic
         self.sampler = sampler
+        self.fake_mode = fake_mode
+        self.device_cache = device_cache
+        self.root_dir = Path(root_dir) if root_dir else get_root_dir()
+        self.enable_ram_cache = enable_ram_cache
+        self.prefetch = prefetch
         self.image_repeat_factors = getattr(sampler, "image_repeat_factors", None)
         self.pyrng = pyrandom.Random(seed)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -356,8 +462,19 @@ class DeviceDataPipeline:
         # every epoch plan drawn, rows per step (FIFO): the trainer counts
         # the instances of the epoch it trained without drawing the sampler
         self.consumed_plan_log: deque = deque(maxlen=8)
+        # host-fed JPEG canvases decoded so far (one decode per image in all)
+        self._canvas_cache: dict = {}
+        if not device_cache:
+            if corpus is not None:
+                raise ValueError("corpus is the card-resident corpus of device_cache=True")
+            self.device_corpus = self.corpus = self.sizes = None
+            self.src_T, *targets = target_arrays(dataset_info, target_size)
+            self.t_boxes, self.t_labels, self.t_mask = (
+                torch.from_numpy(a).to(self.device) for a in targets)
+            return
         if corpus is None:
-            corpus = DeviceCorpus(dataset_info, target_size, self.device)
+            corpus = (DeviceCorpus.fake(dataset_info, target_size, self.device) if fake_mode
+                      else DeviceCorpus.decode(dataset_info, target_size, self.device, self.root_dir))
         elif (corpus.info is not dataset_info or corpus.S != target_size
               or corpus.device != self.device):
             raise ValueError("corpus was built for another dataset, image size or device")
@@ -376,6 +493,11 @@ class DeviceDataPipeline:
             pending, self._overflow_pending = self._overflow_pending, []
             self._overflow_done += int(torch.stack(pending).sum())
         return self._overflow_done
+
+    def add_overflow(self, n: int) -> None:
+        """Count ``n`` dropped targets of steps run with ``track_overflow=False``,
+        fetched by the caller (the trainer, with its per-epoch metrics)."""
+        self._overflow_done += int(n)
 
     # -------------------------- the epoch --------------------------
     def _epoch_plan(self) -> Tuple[np.ndarray, np.ndarray]:
@@ -424,9 +546,53 @@ class DeviceDataPipeline:
 
     def gather(self, idx: torch.Tensor) -> DeviceSample:
         """Corpus rows ``idx`` (one K2 launch) and their sizes and targets."""
+        if self.corpus is None:
+            raise RuntimeError("gather reads the corpus on the card: device_cache=True")
         rows = idx.long()
         return DeviceSample(gather_rows_planar(self.corpus, idx), self.sizes[rows],
                             self.t_boxes[rows], self.t_labels[rows], self.t_mask[rows])
+
+    def _load_group(self, indices) -> HostGroup:
+        """The canvases and sizes of corpus rows ``indices``, on the host (the
+        JAX package's ``_load_group``; targets stay on the device). Fake mode
+        draws each row's content from a generator seeded by
+        ``hash(tuple(indices))``, which is deterministic for integers; JPEG
+        mode decodes by ``pack_batch``, straight into pinned memory, or,
+        with ``enable_ram_cache``, decodes each image once and copies it from
+        the cache after that."""
+        n, S = len(indices), self.S
+        pin = self.device.type == "cuda"
+        images = torch.empty((n, S, S, 3), dtype=torch.uint8, pin_memory=pin)
+        sizes = torch.empty((n, 2), dtype=torch.int32, pin_memory=pin)
+        canv, sz = images.numpy(), sizes.numpy()
+        if self.fake_mode:
+            canv.fill(int(FILL))
+            rng = np.random.default_rng(abs(hash(tuple(indices))) % (2**31))
+            for i, idx in enumerate(indices):
+                h, w = content_size(self.info.samples[idx].image_metadata, S)
+                canv[i, :h, :w] = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+                sz[i] = (h, w)
+        elif self.enable_ram_cache:
+            missing = [i for i in dict.fromkeys(int(i) for i in indices) if i not in self._canvas_cache]
+            if missing:
+                cv, msz = decode_canvases(self.info, missing, S, self.root_dir)
+                for j, i in enumerate(missing):
+                    self._canvas_cache[i] = (cv[j], msz[j])
+            for j, i in enumerate(indices):
+                canv[j], sz[j] = self._canvas_cache[int(i)]
+        else:
+            sz[:] = decode_canvases(self.info, indices, S, self.root_dir, out=canv)[1]
+        return HostGroup(images, sizes)
+
+    def upload(self, group: HostGroup, rows: torch.Tensor) -> DeviceSample:
+        """A loaded group on the device, planar by a transpose there, with the
+        targets of corpus rows ``rows`` gathered from the arrays on the device.
+        The copy from pinned memory does not block the host; torch's pinned
+        allocator does not hand the buffer out again before the copy ends."""
+        images = group.images.to(self.device, non_blocking=True).permute(0, 3, 1, 2).contiguous()
+        r = rows.long()
+        return DeviceSample(images, group.sizes.to(self.device, non_blocking=True),
+                            self.t_boxes[r], self.t_labels[r], self.t_mask[r])
 
     def draw(self) -> AugmentDraws:
         """One step's draws from the pipeline's generator."""
@@ -439,19 +605,72 @@ class DeviceDataPipeline:
         Under mixup ``idx2`` (4B,) names the secondary group's rows, gathered
         by a second K2 launch.
         """
-        if (idx2 is not None) != (self.mixup_prob > 0.0):
-            raise ValueError("idx2 is given exactly when mixup_prob > 0")
+        self._check_secondary(idx2)
         secondary = self.gather(idx2) if idx2 is not None else None
         return self.augment_fn(self.gather(idx), draws, secondary)
 
-    def epoch(self, max_steps: Optional[int] = None) -> Iterator[Tuple[Batch, torch.Tensor]]:
+    def load_augment(self, group: np.ndarray, draws: AugmentDraws,
+                     group2: Optional[np.ndarray] = None) -> Tuple[Batch, torch.Tensor]:
+        """The host-fed form of ``gather_augment``: corpus rows ``group`` (and
+        ``group2`` under mixup), a numpy int array, loaded on the host,
+        uploaded, augmented."""
+        self._check_secondary(group2)
+
+        def sample(rows):
+            idx = torch.from_numpy(np.asarray(rows, np.int64)).to(self.device)
+            return self.upload(self._load_group(rows), idx)
+
+        return self.augment_fn(sample(group), draws, None if group2 is None else sample(group2))
+
+    def _check_secondary(self, second) -> None:
+        if (second is not None) != (self.mixup_prob > 0.0):
+            raise ValueError("idx2 is given exactly when mixup_prob > 0")
+
+    def _host_fed(self, groups: np.ndarray, secs: np.ndarray, plan: torch.Tensor,
+                  plan2: Optional[torch.Tensor]) -> Iterator[Tuple[DeviceSample, Optional[DeviceSample]]]:
+        """Per step, the (primary, secondary) samples on the device: a producer
+        thread loads the step's groups on the host up to ``prefetch`` steps
+        ahead; this generator uploads them in step order. A producer's
+        exception is raised here."""
+        q: queue.Queue = queue.Queue(maxsize=max(self.prefetch, 1))
+        stop = threading.Event()
+
+        def producer():
+            try:
+                for i in range(len(groups)):
+                    item = (self._load_group(groups[i]), self._load_group(secs[i]) if secs.size else None)
+                    if not put_unless_stopped(q, item, stop):
+                        return
+            except Exception as e:  # handed to the consumer, which raises it
+                put_unless_stopped(q, e, stop)
+            finally:
+                put_unless_stopped(q, None, stop)
+
+        threading.Thread(target=producer, daemon=True, name="host-fed-loader").start()
+        try:
+            for i in itertools.count():
+                item = q.get()
+                if item is None:
+                    return
+                if isinstance(item, Exception):
+                    raise item
+                prim, sec = item
+                yield self.upload(prim, plan[i]), None if sec is None else self.upload(sec, plan2[i])
+        finally:
+            stop.set()
+
+    def epoch(self, max_steps: Optional[int] = None,
+              track_overflow: bool = True) -> Iterator[Tuple[Batch, torch.Tensor]]:
         """Yield ``(Batch, overflow)`` per step of one epoch.
 
         The whole epoch's plan goes to the card in one copy after a range
-        check on the host; each step then draws its randoms on the card and
-        launches K2 and K4 once per group (two groups under mixup) and K5
-        once per group on the fused fast path. Overflow counts stay on the
-        card until ``overflow_total`` is read.
+        check on the host. Each step draws its randoms on the card, in step
+        order, and augments its groups (two under mixup): with the corpus on
+        the card K2 gathers each group; host-fed, a thread loads the groups
+        (``_host_fed``) and each is copied up. Then K5 (on the fused fast
+        path) and K4 once per group. Overflow counts stay on the card until
+        ``overflow_total`` is read; with ``track_overflow=False`` they are
+        only yielded, and the caller adds them (``add_overflow``).
         """
         groups, secs = self._epoch_plan()
         if max_steps is not None:
@@ -462,7 +681,13 @@ class DeviceDataPipeline:
                 raise IndexError(f"epoch plan row outside [0, {n})")
         plan = torch.from_numpy(groups.astype(np.int32)).to(self.device)
         plan2 = torch.from_numpy(secs.astype(np.int32)).to(self.device) if secs.size else None
-        for i in range(plan.shape[0]):
-            batch, ovf = self.gather_augment(plan[i], self.draw(), None if plan2 is None else plan2[i])
-            self._overflow_pending.append(ovf)
+        if self.device_cache:
+            steps = ((self.gather(plan[i]), None if plan2 is None else self.gather(plan2[i]))
+                     for i in range(plan.shape[0]))
+        else:
+            steps = self._host_fed(groups, secs, plan, plan2)
+        for primary, secondary in steps:
+            batch, ovf = self.augment_fn(primary, self.draw(), secondary)
+            if track_overflow:
+                self._overflow_pending.append(ovf)
             yield batch, ovf

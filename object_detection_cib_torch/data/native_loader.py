@@ -130,10 +130,13 @@ def resize_pad_raw(img: np.ndarray, target: int) -> Tuple[np.ndarray, int, int]:
 
 
 def pack_batch(
-    jpeg_buffers: Sequence[bytes], target: int, num_threads: int = 0
+    jpeg_buffers: Sequence[bytes], target: int, num_threads: int = 0,
+    out: Optional[np.ndarray] = None,
 ) -> Tuple[np.ndarray, np.ndarray, int]:
     """N JPEGs -> (N, S, S, 3) canvases + (N, 2) content sizes, parallel.
 
+    ``out``, a C-contiguous (N, S, S, 3) uint8 array (for example the numpy
+    view of a pinned tensor), receives the canvases in place of a new one.
     Returns (canvases, sizes_hw, num_failures).
     """
     lib = get_lib()
@@ -142,7 +145,13 @@ def pack_batch(
     offsets = np.zeros(n, np.int64)
     lengths = np.asarray([len(b) for b in jpeg_buffers], np.int64)
     np.cumsum(lengths[:-1], out=offsets[1:])
-    canvases = np.empty((n, target, target, 3), np.uint8)
+    if out is None:
+        canvases = np.empty((n, target, target, 3), np.uint8)
+    elif out.shape != (n, target, target, 3) or out.dtype != np.uint8 or not out.flags.c_contiguous:
+        raise ValueError(f"out must be a C-contiguous ({n}, {target}, {target}, 3) uint8 array, "
+                         f"got {out.shape} {out.dtype}")
+    else:
+        canvases = out
     sizes = np.zeros((n, 2), np.int32)
     if num_threads <= 0:
         num_threads = min(os.cpu_count() or 1, 16)

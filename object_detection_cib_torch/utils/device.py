@@ -20,3 +20,14 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def to_unit(images: torch.Tensor) -> torch.Tensor:
+    """Pixel values in [0, 255] -> f32 in [0, 1], by an IEEE f32 division.
+
+    The divisor is a tensor on the images' device: CUDA divides by a Python
+    scalar as a multiply by its reciprocal, which differs in the last bit
+    for some values, while this division is bitwise the CPU's and the JAX
+    package's host ``x / 255.0``.
+    """
+    return images.float() / torch.full((), 255.0, device=images.device)

@@ -434,3 +434,129 @@ def test_exact_warp_refuses_tf32(dev):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
     card.gather_augment(idx, card.draw())
+
+
+# ------------------------------------------------------- the host feeds
+
+def test_corpus_from_canvases_on_card_equals_cpu(dev):
+    """The corpus built from seeded canvases (the JPEG corpus's constructor):
+    the transpose on the card gives the CPU's bytes, chunk edges included."""
+    from object_detection_cib_torch.data.device_pipeline import DeviceCorpus, fake_canvases
+    from object_detection_cib_torch.data.synthetic import build_fake_manifest
+
+    info = build_fake_manifest(num_classes=3, num_images=DeviceCorpus.UPLOAD_ROWS + 5,
+                               image_size=96, seed=1)
+    canv, sizes = fake_canvases(info, 96, seed=2)
+    cpu = DeviceCorpus.from_canvases(info, canv, sizes, "cpu")
+    card = DeviceCorpus.from_canvases(info, canv, sizes, dev)
+    assert card.images.is_cuda and card.images.is_contiguous()
+    for name in ("images", "sizes", "t_boxes", "t_labels", "t_mask"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name)), name
+    assert torch.equal(cpu.images, torch.from_numpy(canv).permute(0, 3, 1, 2))
+
+
+@pytest.mark.parametrize("recipe", ["mosaic", "no_mosaic"])
+def test_host_fed_step_on_card_matches_cpu(dev, recipe):
+    """One host-fed step (fake groups, loaded on the host and copied up), the
+    same rows and draws on both devices, at the gates of the recipes' CPU
+    against card check (HSV off: 1/255 on under 0.1% of pixels)."""
+    from object_detection_cib_torch.data.host_augment import AugParams, HSVParams
+
+    kw = dict(aug_params=AugParams(hsv_params=HSVParams.no_aug()), device_cache=False)
+    if recipe == "no_mosaic":
+        kw["use_mosaic"] = False
+    cpu, card = _small_pipes(dev, **kw)
+    groups, _ = cpu._epoch_plan()
+    draws = cpu.draw()
+    want, wovf = cpu.load_augment(groups[0], draws)
+    counted = (gather_ops.gather_rows_planar, hsv_ops.hsv_planar, warp_ops.warp_quadrants)
+    before = [fn.launches for fn in counted]
+    got, govf = card.load_augment(groups[0], draws.to(dev))
+    assert [fn.launches - b for fn, b in zip(counted, before)] == [0, 0, int(recipe == "mosaic")]
+    diff = (got.images.cpu() - want.images).abs()
+    assert float(diff.max()) <= 1.0 / 255 + 1e-6
+    assert float((diff > 1e-6).float().mean()) < 0.001
+    torch.testing.assert_close(got.boxes.cpu(), want.boxes, rtol=0, atol=1e-4)
+    assert torch.equal(got.labels.cpu(), want.labels) and torch.equal(got.mask.cpu(), want.mask)
+    assert int(govf) == int(wovf)
+
+
+def test_host_fed_pinned_groups_survive_a_slow_consumer(dev):
+    """prefetch=1, the card kept busy before each copy and the host slow after
+    it: the producer loads the next groups into pinned memory while earlier
+    copies may still be queued. Every group reaches the card as the CPU
+    loads it."""
+    import time
+
+    from object_detection_cib_torch.data.host_augment import AugParams
+    from object_detection_cib_torch.data.synthetic import build_fake_manifest
+    from object_detection_cib_torch.data.device_pipeline import DeviceDataPipeline
+
+    info = build_fake_manifest(num_classes=3, num_images=48, image_size=96, seed=3)  # 12 steps
+    mk = lambda d: DeviceDataPipeline(info, 96, 4, AugParams(), mixup_prob=0.5, seed=1, device=d,
+                                      device_cache=False, prefetch=1)
+    cpu, card = mk("cpu"), mk(dev)
+    groups, secs = card._epoch_plan()
+    plan = torch.from_numpy(groups.astype(np.int32)).to(dev)
+    plan2 = torch.from_numpy(secs.astype(np.int32)).to(dev)
+    got = []
+    for prim, sec in card._host_fed(groups, secs, plan, plan2):
+        torch.cuda._sleep(20_000_000)  # the next group's copy waits behind this
+        got.append((prim, sec))
+        time.sleep(0.02)
+    torch.cuda.synchronize()
+    assert len(got) == len(groups) == 12
+    for i, (prim, sec) in enumerate(got):
+        for sample, rows in ((prim, groups[i]), (sec, secs[i])):
+            want = cpu.upload(cpu._load_group(rows), torch.from_numpy(rows))
+            assert sample.images.is_cuda
+            for x, y in zip(sample, want):
+                assert torch.equal(x.cpu(), y)
+
+
+def test_prefetcher_batches_on_card_equal_cpu(dev):
+    """The host pipeline's batches copied up (pinned, non-blocking) and
+    normalized on the card equal the CPU's, bit for bit, with a slow consumer
+    and prefetch=1."""
+    import time
+
+    from object_detection_cib_torch.data.host_augment import AugParams, TrainSampleAugmentor
+    from object_detection_cib_torch.data.pipeline import DetectionDataset, Prefetcher
+    from object_detection_cib_torch.data.reader import SampleReader
+    from object_detection_cib_torch.data.samplers import ShuffleSampler
+    from object_detection_cib_torch.data.synthetic import build_fake_manifest
+
+    info = build_fake_manifest(num_classes=3, num_images=24, image_size=96, seed=4)
+
+    def batches(d):
+        ds = DetectionDataset(info, SampleReader(64, info.classes, fake_mode=True),
+                              TrainSampleAugmentor(AugParams()), use_mosaic=True,
+                              mosaic_target_size=64, mixup_prob=0.5, seed=0)
+        pf = Prefetcher(ds, 4, 30, sampler=ShuffleSampler(info, seed=0), num_threads=1, prefetch=1,
+                        device=d)
+        out = []
+        for b in pf:
+            if d != "cpu":
+                torch.cuda._sleep(20_000_000)
+                time.sleep(0.02)
+            out.append(b)
+        return out, pf.overflow_total
+
+    (want, wo), (got, go) = batches("cpu"), batches(dev)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 6 and go == wo
+    for a, b in zip(got, want):
+        assert a.images.is_cuda and a.images.dtype == torch.float32
+        for x, y in zip(a, b):
+            assert torch.equal(x.cpu(), y)
+
+
+def test_to_unit_on_card_is_the_cpu_division(dev):
+    """Every uint8 value, and bf16 integers, scaled on the card exactly as on
+    the CPU (a true f32 division, not a multiply by 1/255)."""
+    from object_detection_cib_torch.utils.device import to_unit
+
+    x = torch.arange(256, dtype=torch.uint8)
+    for src in (x, x.to(torch.bfloat16), x.float()):
+        assert torch.equal(to_unit(src.to(dev)).cpu(), to_unit(src))
+    assert torch.equal(to_unit(x), torch.from_numpy(np.arange(256, dtype=np.float32) / np.float32(255.0)))

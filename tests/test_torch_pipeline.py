@@ -197,8 +197,6 @@ def test_draws_shapes_and_ranges():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(fake_mode=False), "A3"),
-    (dict(device_cache=False), "A3"),
     (dict(corpus_layout="flat"), "not ported"),
 ])
 def test_unported_settings_raise(kw, item):

@@ -30,7 +30,12 @@ def _sources():
     return files
 
 
-@pytest.mark.parametrize("module", ["data/enums.py", "data/filter.py", "data/samplers.py"])
+COPIES = ["data/enums.py", "data/filter.py", "data/samplers.py", "data/reader.py",
+          "data/host_augment.py", "data/augmentor.py", "data/synthetic.py", "data/builder.py",
+          "data/pipeline.py", "utils/plots.py", "cli/data.py"]
+
+
+@pytest.mark.parametrize("module", COPIES)
 def test_copied_data_modules_are_scanned_and_point_at_the_port(module):
     path = PORT / module
     assert path in _sources()
@@ -71,6 +76,45 @@ def test_port_imports_with_jax_blocked():
     assert int(proc.stdout.split()[-1]) >= 20
 
 
+# what phases 1-9 of chip_smoke.py import: none of it may need cv2, Pillow or
+# matplotlib, or the host pipeline, to load (a card machine may lack them)
+CARD_PATH = ["train.trainer", "data.device_pipeline", "data.val_cache", "data.synthetic",
+             "data.samplers", "ops.augment", "ops.build", "ops.gather", "ops.hsv", "ops.nms",
+             "ops.warp", "models.yolov5", "eval.decode", "core.nms"]
+
+
+def test_card_path_imports_without_host_image_libraries():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('cv2', 'PIL', 'matplotlib'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {CARD_PATH!r}:\n"
+        "    importlib.import_module('object_detection_cib_torch.' + m)\n"
+        "assert 'object_detection_cib_torch.data.pipeline' not in sys.modules\n"
+        "import object_detection_cib_torch as pkg\n"
+        "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "assert not any(k.split('.')[0] in ('cv2', 'PIL', 'matplotlib') for k in sys.modules)\n"
+        "from object_detection_cib_torch.data.reader import longest_max_size\n"
+        "import numpy as np\n"
+        "try:\n"
+        "    longest_max_size(np.zeros((4, 8, 3), np.uint8), np.zeros((0, 4)), 16)\n"
+        "except ImportError as e:\n"
+        "    print('needs', e)\n"
+        "print(len(mods))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "needs blocked: cv2" in proc.stdout  # the rule holds because cv2 is imported late
+    assert int(proc.stdout.split()[-1]) >= 28
+
+
 def test_entry_points_refuse_the_cpu_without_asking(monkeypatch):
     from object_detection_cib_torch.core.types import default_anchors
     from object_detection_cib_torch.models.yolov5 import build_network
@@ -109,6 +153,14 @@ def test_training_entry_points_refuse_the_cpu_without_asking(monkeypatch):
         DeviceDataPipeline(info, 64, 2, AugParams())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(info, info, size="n", image_size=64, batch_size=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(info, info, size="n", image_size=64, batch_size=2, pipeline="host")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceDataPipeline(info, 64, 2, AugParams(), device_cache=False)
+    from object_detection_cib_torch.data.pipeline import Prefetcher
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Prefetcher(None, 2, 8)
 
 
 @pytest.mark.parametrize("kernel", ["gather_rows_planar", "gather_rows_flat", "hsv_planar",
