@@ -70,7 +70,7 @@ result line):
    plain versions on the card, then timed in turns against them (and the
    gather against ``torch.index_select``), with bounds from this run's
    inputs;
-8. training: ``Trainer.fit(max_epochs=1, limit_train_batches=40)`` with the
+8. training: ``Trainer.fit(max_epochs=1, epoch_steps=40)`` with the
    launch counts zeroed just before and read just after (K2, K4, K5 once
    per step; K1 five times in the epoch-end validation); finite losses,
    every parameter moved, a finite mAP; img/s over the last 30 steps, ms
@@ -117,7 +117,25 @@ result line):
     prints img/s and the host's enqueue time, (c) the time the consumer
     waited on its queue: observations, not claims. A part that needs a
     library the machine lacks prints which, and does not run;
-11. the ``kernels`` JSON line (with each path's launches), the card line,
+11. cli: the normal entry point, ``object_detection_cib_torch.cli.train.
+    main([...])`` on the card (``trainer.platform`` null), in a temporary
+    output directory with ``hydra=static``, ``extras.enforce_tags=False``,
+    no config print and ``logger=csv``. (a) ``experiment=yv5s`` (yolov5s@416,
+    B=64, bf16) over a fake 640-image set on the device pipeline with the
+    corpus on the card, two epochs validated once
+    (``check_val_every_n_epoch=2``): K2, K4, K5 20 times each, K1 10 (one
+    validation of 640 images); finite losses and mAP; ``checkpoints/{best,
+    last,meta.json}``, ``csv/metrics.csv``, ``hparams.json``; then ``train=
+    False test=True ckpt_path=<run>/checkpoints/last``: the restored
+    parameters, statistics and momentum buffers bitwise those saved, the
+    test mAP the last validation's within 1e-6. (b) the repo's default data
+    config (the host pipeline) under ``trainer.fast_dev_run``: no training
+    kernel, K1 once. (c) ``experiment=imbalance/class_aware/default`` with
+    mixup 0.5 on the device pipeline, ``limit_train_batches=0.5`` and
+    ``limit_val_batches=0.2``: K2, K4, K5 10 times each (5 steps, two groups
+    a step), K1 twice, and the sampler's instance counts. (a) and (b) print
+    img/s: observations, not claims;
+12. the ``kernels`` JSON line (with each path's launches), the card line,
     and the result line last.
 """
 
@@ -252,6 +270,7 @@ def nms_pairs_needed(keep, live) -> int:
 
 
 JPEG_TRAIN_N, JPEG_VAL_N, JPEG_STEPS = 640, 128, 5
+CLI_N = 640  # data.fake_num_images: the train and the val set of phase 11
 
 
 def host_libraries(native_loader):
@@ -515,7 +534,7 @@ def phase_jpeg(card, dev, aug, counted, zero_counts, read_counts):
                     marks[i] = time.perf_counter()
 
             zero_counts()
-            m_c = tr_c.fit(max_epochs=1, limit_train_batches=JPEG_STEPS, on_step=on_step_c)
+            m_c = tr_c.fit(max_epochs=1, epoch_steps=JPEG_STEPS, on_step=on_step_c)
             counts["c"] = read_counts()
             expect("c", counts["c"], {"gather_rows_planar": 0, "hsv_planar": 0, "warp_quadrants": 0,
                                       "greedy_nms_mask": n_val})
@@ -550,6 +569,134 @@ def phase_jpeg(card, dev, aug, counted, zero_counts, read_counts):
                  f"(NMS launches {val_counts}, want {2 * n_val})")
         log(f"[jpeg] ValDeviceCache and the host feed over the same {len(vcache)} canvases: the same mAP "
             f"dict (map {m_dev['map']:.6g}); NMS launches {val_counts}")
+    return counts
+
+
+def phase_cli(card, counted, zero_counts, read_counts):
+    """Phase 11: train, test and run recipes through ``cli.train.main`` on the
+    card. Returns each run's launch counts."""
+    import numpy as np
+
+    from object_detection_cib_torch.cli.train import main as cli_main
+    from object_detection_cib_torch.train import trainer as trainer_mod
+    from object_detection_cib_torch.train.checkpoint import load_state
+
+    made = []  # the Trainer of each run, to look inside
+    from_config = trainer_mod.Trainer.from_config.__func__
+
+    def recording(cls, cfg):
+        made.append(from_config(cls, cfg))
+        return made[-1]
+
+    trainer_mod.Trainer.from_config = classmethod(recording)
+    t_phase = time.perf_counter()
+    common = ["hydra=static", "extras.enforce_tags=False", "print_config=False", "extras.print_config=False",
+              "logger=csv"]
+    counts = {}
+
+    def run(part, out, *overrides):
+        zero_counts()
+        t0 = time.perf_counter()
+        metrics = cli_main([*common, f"paths.output_dir={out}", *overrides])
+        counts[part] = read_counts()
+        return metrics, made[-1], time.perf_counter() - t0
+
+    def expect(part, want):
+        got = counts[part]
+        for k, n in want.items():
+            if got[k] != n:
+                fail(f"[cli] ({part}) launched {k} {got[k]} times, want {n}")
+
+    def close(a, b, tol=1e-6):
+        return a.keys() == b.keys() and all(
+            abs(a[k] - b[k]) <= tol or (math.isnan(a[k]) and math.isnan(b[k])) for k in a)
+
+    try:
+        with tempfile.TemporaryDirectory(prefix="cli-runs-") as tmp:
+            # configs/logger/many_loggers.yaml (the default) adds TensorBoard:
+            # does its writer exist on this machine, or does it warn and no-op?
+            import warnings
+
+            from object_detection_cib_torch.utils.loggers import build_loggers, tensorboard_without_tensorflow
+
+            tensorboard_without_tensorflow()  # as the CLI's program entry does
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                (tb,) = build_loggers({"tensorboard": {"save_dir": str(Path(tmp) / "tb")}})
+            log(f"[cli] probe: logger 'tensorboard' -> {type(tb).__name__}"
+                + "".join(f"; warned: {w.message}" for w in caught))
+            getattr(tb, "finalize", lambda: None)()
+            run_a = Path(tmp) / "a"
+            device = ["data.pipeline=device", "data.device_cache=True", "dataset_name=fake",
+                      f"data.fake_num_images={CLI_N}"]
+            m_a, t_a, wall_a = run("a", run_a, "experiment=yv5s", *device, "trainer.max_epochs=2",
+                                   "trainer.check_val_every_n_epoch=2")
+            B = t_a.batch_size
+            steps, blocks = CLI_N // B, -(-CLI_N // B)
+            expect("a", {"gather_rows_planar": 2 * steps, "hsv_planar": 2 * steps, "warp_quadrants": 2 * steps,
+                         "greedy_nms_mask": blocks})
+            losses = np.concatenate([em["total"] for em in t_a.epoch_metrics])
+            if len(losses) != 2 * steps or not np.isfinite(losses).all() or not finite_map(m_a):
+                fail(f"[cli] (a) losses or mAP not finite: {losses}, {m_a}")
+            files = ["checkpoints/best", "checkpoints/last", "checkpoints/meta.json", "csv/metrics.csv",
+                     "hparams.json"]
+            missing = [f for f in files if not (run_a / f).is_file()]
+            if missing:
+                fail(f"[cli] (a) run files missing: {missing}")
+            ips_a = t_a.epoch_imgs[-1] / t_a.epoch_walls[-1]
+            log(f"[cli] (a) experiment=yv5s yolov5s@{t_a.image_shape.width} B={B} compute dtype {t_a.net.dtype}: "
+                f"{len(t_a.epoch_metrics)} epochs of {steps} "
+                f"steps, one validation of {CLI_N} images; launches {counts['a']}; losses {losses[0]:.4f}->"
+                f"{losses[-1]:.4f}; run files {files}; epoch 2: {ips_a:.2f} img/s ({t_a.epoch_imgs[-1]} images "
+                f"in {t_a.epoch_walls[-1]:.4f} s, host clock); whole command {wall_a:.2f} s | {card}")
+            log("[cli] (a) validation " + json.dumps(m_a))
+
+            last = run_a / "checkpoints" / "last"
+            saved = load_state(last)
+            m_t, t_t, _ = run("a_test", Path(tmp) / "a_test", "experiment=yv5s", *device, "train=False",
+                              "test=True", f"ckpt_path={last}")
+            expect("a_test", {"gather_rows_planar": 0, "hsv_planar": 0, "warp_quadrants": 0,
+                              "greedy_nms_mask": blocks})
+            net_ok = all(torch.equal(v.cpu(), saved["net"][k]) for k, v in t_t.net.state_dict().items())
+            mom_ok = all(torch.equal(v.cpu(), saved["optimizer"]["momentum"][k])
+                         for k, v in t_t.optimizer.buffers.items())
+            fit_val = {k: v for k, v in m_a.items() if k != "images_per_sec"}
+            if not (net_ok and mom_ok and t_t.optimizer.step_count == 2 * steps):
+                fail(f"[cli] (a) restored state differs from the checkpoint: net {net_ok}, momentum {mom_ok}, "
+                     f"step {t_t.optimizer.step_count}")
+            if not close(m_t, fit_val):
+                fail(f"[cli] (a) test mAP {m_t} differs from the last validation {fit_val}")
+            log(f"[cli] (a) train=False test=True ckpt_path=<run>/checkpoints/last: {len(saved['net'])} tensors "
+                f"and {len(saved['optimizer']['momentum'])} momentum buffers restored bitwise, step_count "
+                f"{t_t.optimizer.step_count}; test mAP equals the last validation's within 1e-6 (map "
+                f"{m_t['map']:.6g}); launches {counts['a_test']}")
+
+            m_b, t_b, wall_b = run("b", Path(tmp) / "b", "experiment=yv5s", "dataset_name=fake",
+                                   "trainer.fast_dev_run=True")
+            expect("b", {"gather_rows_planar": 0, "hsv_planar": 0, "warp_quadrants": 0, "greedy_nms_mask": 1})
+            if t_b.prefetcher is None or not finite_map(m_b) or not np.isfinite(t_b.epoch_metrics[0]["total"]).all():
+                fail(f"[cli] (b) not the host pipeline, or losses / mAP not finite: {m_b}")
+            log(f"[cli] (b) data.pipeline=host (configs/data/default.yaml), trainer.fast_dev_run=True: one step "
+                f"and one validation batch; launches {counts['b']}; loss {float(t_b.epoch_metrics[0]['total'][0]):.4f}; "
+                f"{t_b.epoch_imgs[0] / t_b.epoch_walls[0]:.2f} img/s over its one step ({t_b.epoch_imgs[0]} "
+                f"images in {t_b.epoch_walls[0]:.4f} s, the first host batch included); whole command "
+                f"{wall_b:.2f} s | {card}")
+
+            m_c, t_c, _ = run("c", Path(tmp) / "c", "experiment=imbalance/class_aware/default",
+                              "data.mixup_prob=0.5", *device, "trainer.max_epochs=1",
+                              "trainer.limit_train_batches=0.5", "trainer.limit_val_batches=0.2")
+            n_c = max(int(steps * 0.5), 1)
+            expect("c", {"gather_rows_planar": 2 * n_c, "hsv_planar": 2 * n_c, "warp_quadrants": 2 * n_c,
+                         "greedy_nms_mask": max(int(blocks * 0.2), 1)})
+            stats = t_c.sampler_stats(n_c)
+            if not finite_map(m_c) or not np.isfinite(t_c.epoch_metrics[0]["total"]).all() or not sum(stats.values()):
+                fail(f"[cli] (c) losses or mAP not finite, or no instance counted: {m_c}, {stats}")
+            log(f"[cli] (c) experiment=imbalance/class_aware/default data.mixup_prob=0.5, limit_train_batches=0.5, "
+                f"limit_val_batches=0.2: {len(t_c.epoch_metrics[0]['total'])} steps; launches {counts['c']}; "
+                f"sampler_stats over the steps trained {stats}")
+        log(f"[cli] phase 11: four commands in {time.perf_counter() - t_phase:.2f} s")
+    finally:
+        trainer_mod.Trainer.from_config = classmethod(from_config)
     return counts
 
 
@@ -1089,10 +1236,10 @@ def main() -> None:
     for fn in counted:
         fn.launches = 0
     t0 = time.perf_counter()
-    train_map = trainer.fit(max_epochs=1, limit_train_batches=TRAIN_STEPS, on_step=on_step)
+    train_map = trainer.fit(max_epochs=1, epoch_steps=TRAIN_STEPS, on_step=on_step)
     fit_s = time.perf_counter() - t0
     train_launches = {fn.__name__: fn.launches for fn in counted}
-    log(f"[train] fit(max_epochs=1, limit_train_batches={TRAIN_STEPS}) incl. validation: {fit_s:.2f} s; "
+    log(f"[train] fit(max_epochs=1, epoch_steps={TRAIN_STEPS}) incl. validation: {fit_s:.2f} s; "
         f"launches {train_launches}")
     for name in ("gather_rows_planar", "hsv_planar", "warp_quadrants"):
         if train_launches[name] != TRAIN_STEPS:
@@ -1385,7 +1532,10 @@ def main() -> None:
     # ---------------------------------------------------------------- 10 jpeg
     jpeg = phase_jpeg(card, dev, aug, counted, zero_counts, read_counts)
 
-    # -------------------------------------------------------------- 11 report
+    # ----------------------------------------------------------------- 11 cli
+    cli = phase_cli(card, counted, zero_counts, read_counts)
+
+    # -------------------------------------------------------------- 12 report
     src = "object_detection_cib_torch/ops/csrc/"
     rows = [
         ("greedy_nms_mask", "nms.cu", "object_detection_cib_tpu/ops/pallas_nms.py:131", serve_launches),
@@ -1409,7 +1559,8 @@ def main() -> None:
             "launches_by_path": {"serving": serve_launches if name == "greedy_nms_mask" else 0,
                                  "validation": val_launches if name == "greedy_nms_mask" else 0,
                                  "train": train_launches[name],
-                                 **{f"jpeg_{part}": n[name] for part, n in jpeg.items()}},
+                                 **{f"jpeg_{part}": n[name] for part, n in jpeg.items()},
+                                 "cli": {part: n[name] for part, n in cli.items()}},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

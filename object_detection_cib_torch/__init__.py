@@ -6,8 +6,10 @@ imports ``torch`` and never JAX, flax or the JAX package.
 
 Ported so far (the serving and validation path, the production training
 path, the imbalance recipes on it: samplers, mixup, the no-mosaic
-letterbox, a general affine, the exact warp; and training and validation
-from JPEG files through the three feeds, with the data CLI):
+letterbox, a general affine, the exact warp; training and validation
+from JPEG files through the three feeds, with the data CLI; and the
+runtime: config composition, the trainer from a config, checkpoints,
+loggers and the training CLI):
 
 - ``core``    box math, the IoU family, batched NMS (``non_max_suppression``)
               and the YOLOv5 label assigner
@@ -27,11 +29,18 @@ from JPEG files through the three feeds, with the data CLI):
               (corpus on the card or host-fed) and the host pipeline
               (``reader.py``, ``host_augment.py``, ``augmentor.py``,
               ``pipeline.py``; cv2 and Pillow imported where used)
-- ``cli``     ``python -m object_detection_cib_torch.cli.data``
+- ``config``  the YAML composition and ``instantiate`` engine over the repo's
+              ``configs/`` (a copy of the JAX package's)
+- ``cli``     ``python -m object_detection_cib_torch.cli.{train,data,
+              inspect_sampler,visualize}``
 - ``train``   loss, SmartSGD, the train and eval steps, the ``Evaluator``
-              (validate / predict) and the ``Trainer`` (``fit``)
+              (validate / predict), the ``Trainer`` (from arguments or
+              ``Trainer.from_config``; ``fit``), ``train(cfg)``, and
+              ``torch.save`` checkpoints (``checkpoint.py``)
+- ``utils``   the metric loggers (CSV, TensorBoard, W&B, MLflow)
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(``trainer=cpu`` for the CLI).
 """
 
 __version__ = "0.1.0"

@@ -8,7 +8,9 @@ filtering:
   1. targets in grid units: cxcywh / stride          (ref yv5.py:68-121)
   2. anchor filter: max(wh/a, a/wh) < THRESHOLD      (ref yv5.py:160-176)
   3. neighbour cells: self + up to 2 of 4 neighbours by the 0.5-offset rule
-                                                     (ref yv5.py:178-205)
+     (ref yv5.py:178-205), in ``offset_capacity`` slots per anchor: 3
+     (center, x- and y-neighbour; the JAX package's default) or 5 (the
+     reference's full table: self, right, down, left, up)
   4. (sample, anchor, gy, gx) indices (clamped), cell-relative gt boxes
      (cxcy - gij, wh) and per-match anchors          (ref yv5.py:254-296)
 
@@ -63,6 +65,7 @@ def _assign_level(
     stride: int,
     image_shape: FeatureShape,
     anchor_thr: float,
+    offset_capacity: int = 3,
 ) -> LevelAssignment:
     B, T, _ = boxes_xyxy.shape
     A = anchors_px.shape[0]
@@ -90,20 +93,34 @@ def _assign_level(
     l = (torch.remainder(inv_x, 1.0) < _OFF_BIAS) & (inv_x > 1.0)
     m = (torch.remainder(inv_y, 1.0) < _OFF_BIAS) & (inv_y > 1.0)
 
-    # three slots per anchor (center, x-neighbour, y-neighbour): j/l and k/m
-    # are exclusive except at exact integers, where the l/m cell duplicates
-    # the center match and is dropped (the JAX package's default capacity)
-    n_off = 3
+    n_off = offset_capacity
     half = torch.full_like(gx, _OFF_BIAS)
-    off_x = torch.where(j, half, -half)
-    off_y = torch.where(k, half, -half)
-    zeros = torch.zeros_like(off_x)
-    offsets = torch.stack([
-        torch.stack([zeros, zeros], -1),
-        torch.stack([off_x, zeros], -1),
-        torch.stack([zeros, off_y], -1),
-    ], -2)  # (B, T, 3, 2)
-    off_ok = torch.stack([torch.ones_like(j), j | l, k | m], -1)
+    zeros = torch.zeros_like(gx)
+    if offset_capacity == 3:
+        # three slots per anchor (center, x-neighbour, y-neighbour): j/l and
+        # k/m are exclusive except at exact integers, where the l/m cell
+        # duplicates the center match and is dropped
+        off_x = torch.where(j, half, -half)
+        off_y = torch.where(k, half, -half)
+        offsets = torch.stack([
+            torch.stack([zeros, zeros], -1),
+            torch.stack([off_x, zeros], -1),
+            torch.stack([zeros, off_y], -1),
+        ], -2)  # (B, T, 3, 2)
+        off_ok = torch.stack([torch.ones_like(j), j | l, k | m], -1)
+    elif offset_capacity == 5:
+        # the table (self, right, down, left, up) times 0.5, built on the
+        # boxes' device without a copy from the host
+        offsets = torch.stack([
+            torch.stack([zeros, zeros], -1),
+            torch.stack([half, zeros], -1),
+            torch.stack([zeros, half], -1),
+            torch.stack([-half, zeros], -1),
+            torch.stack([zeros, -half], -1),
+        ], -2)  # (B, T, 5, 2)
+        off_ok = torch.stack([torch.ones_like(j), j, k, l, m], -1)
+    else:
+        raise ValueError(f"offset_capacity must be 3 or 5, got {offset_capacity}")
 
     valid = anchor_ok[..., None] & off_ok[:, :, None, :]  # (B, T, A, n_off)
 
@@ -165,10 +182,12 @@ def assign_targets(
     image_shape: FeatureShape,
     anchors: LevelAnchors,
     anchor_tensors: Optional[Sequence[torch.Tensor]] = None,
+    threshold: float = THRESHOLD,
+    offset_capacity: int = 3,
 ) -> Assignment:
     """Assign padded GT (B, T, 4) pixels / (B, T) labels / (B, T) mask to the
-    three pyramid levels, at three offset slots per anchor and the wh-ratio
-    gate ``THRESHOLD``.
+    three pyramid levels, at ``offset_capacity`` (3 or 5) offset slots per
+    anchor and the wh-ratio gate ``threshold``.
 
     ``anchor_tensors``: each level's (A, 2) anchor pixels already on the
     boxes' device (a copy from host memory would wait for the device).
@@ -176,6 +195,6 @@ def assign_targets(
     if anchor_tensors is None:
         anchor_tensors = [info.as_array() for info in anchors.levels()]
     return Assignment(*(
-        _assign_level(boxes_xyxy, labels, mask, a, info.stride, image_shape, THRESHOLD)
+        _assign_level(boxes_xyxy, labels, mask, a, info.stride, image_shape, threshold, offset_capacity)
         for info, a in zip(anchors.levels(), anchor_tensors)
     ))

@@ -13,7 +13,8 @@ NHWC). The network's public contract stays NHWC (``models/yolov5.py``).
 Compute dtype is the dtype of the incoming activation: the network casts its
 input once (bf16 in production) and each conv casts its f32 weight to match,
 as flax's ``dtype=`` promotion does. BatchNorm statistics and its affine
-transform run in f32; its output goes back to the activation dtype.
+transform run in f32 (in f64 for an f64 activation); its output goes back to
+the activation dtype.
 
 Not ported: ``SpaceToDepthStem``. It computes the same function as the 6x6/2
 pad-2 stem conv from the same (6, 6, 3, C) parameter; it existed only to map
@@ -36,7 +37,7 @@ class BatchNorm(nn.Module):
     """BatchNorm over NCHW channels with flax's semantics.
 
     Eval: running statistics (``F.batch_norm``). Train: batch statistics
-    (biased variance, over N, H, W in f32), and the running statistics move
+    (biased two-pass variance, over N, H, W in f32, or f64 for f64 input), and the running statistics move
     as flax moves them: ``ra = (1 - momentum) * ra + momentum * batch`` with
     the BIASED batch variance (torch's ``BatchNorm2d`` would use the unbiased
     one). ``momentum`` is torch's convention: 0.03 here is flax's decay 0.97.
@@ -57,7 +58,7 @@ class BatchNorm(nn.Module):
                 x, self.running_mean, self.running_var, self.weight, self.bias,
                 training=False, eps=self.eps,
             )
-        x32 = x.float()
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
         with torch.no_grad():
             m = self.momentum

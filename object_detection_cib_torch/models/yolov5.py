@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import math
 from functools import partial
-from typing import NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -322,13 +322,16 @@ def init_weights(net: Yolov5Network, generator: torch.Generator) -> None:
 
 def build_network(
     num_classes: int,
-    size: str = "s",
+    size: Union[str, Mapping[str, float]] = "s",
     num_anchors_per_cell: int = 3,
     dtype: Optional[torch.dtype] = None,
     device: Union[str, torch.device] = "cuda",
     seed: int = 0,
 ) -> Yolov5Network:
     """A randomly initialised YOLOv5 (``seed``) on ``device``, channels_last.
+
+    ``size`` names a variant of ``SIZE_VARIANTS`` or gives its factors,
+    ``{"deepen_factor": d, "widen_factor": w}`` (``model.net`` of a config).
 
     Runs on CUDA unless ``device="cpu"`` is passed; raises if CUDA is asked
     for and there is no card.
@@ -338,7 +341,7 @@ def build_network(
         num_classes=num_classes,
         num_anchors_per_cell=num_anchors_per_cell,
         dtype=dtype,
-        **SIZE_VARIANTS[size],
+        **(SIZE_VARIANTS[size] if isinstance(size, str) else dict(size)),
     )
     init_weights(net, torch.Generator().manual_seed(seed))
     return net.to(device=dev, memory_format=torch.channels_last)

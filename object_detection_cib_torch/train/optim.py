@@ -112,6 +112,9 @@ class SmartSGD:
     Usage: ``opt = SmartSGD(net, config, steps_per_epoch)``; after
     ``backward()``, ``opt.step()`` updates the parameters in place with the
     hyperparameters of ``opt.step_count`` and then increments it.
+    ``state_dict()`` / ``load_state_dict()`` carry the momentum buffers (by
+    parameter name) and ``step_count``, what a checkpoint holds beside the
+    network's own ``state_dict`` (``train/checkpoint.py``).
     """
 
     def __init__(self, net: nn.Module, config: OptimizerConfig, steps_per_epoch: int):
@@ -126,11 +129,30 @@ class SmartSGD:
         labels = group_params(net)
         self.groups: List[Tuple[int, List[nn.Parameter], List[torch.Tensor]]] = []
         named = dict(net.named_parameters())
+        self.buffers: Dict[str, torch.Tensor] = {}  # the groups' buffers by parameter name
         for grp in (GROUP_BIAS, GROUP_NORM, GROUP_DECAY):
-            ps = [named[n] for n, g in labels.items() if g == grp]
-            if ps:
-                self.groups.append((grp, ps, [torch.zeros_like(p) for p in ps]))
+            names = [n for n, g in labels.items() if g == grp]
+            if names:
+                bufs = [torch.zeros_like(named[n]) for n in names]
+                self.buffers.update(zip(names, bufs))
+                self.groups.append((grp, [named[n] for n in names], bufs))
         self.step_count = 0
+
+    def state_dict(self) -> dict:
+        """``{"step_count": int, "momentum": {name: buffer}}``; the buffers
+        are the live tensors, which ``step`` updates in place."""
+        return {"step_count": self.step_count, "momentum": dict(self.buffers)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy momentum buffers (by name, the same set) and ``step_count`` in."""
+        mom = state["momentum"]
+        if set(mom) != set(self.buffers):
+            raise KeyError(f"momentum buffers differ: missing {sorted(set(self.buffers) - set(mom))}, "
+                           f"unexpected {sorted(set(mom) - set(self.buffers))}")
+        for name, buf in self.buffers.items():
+            buf.copy_(mom[name])
+        self.step_count = int(state["step_count"])
 
     def hyperparams(self, step: int) -> Tuple[float, float, float]:
         """(lr_bias, lr_other, momentum) at a global step, f32 values."""

@@ -3,8 +3,10 @@ eval step (forward -> decode -> NMS).
 
 Counterpart of ``object_detection_cib_tpu/train/steps.py`` (parity:
 kod/lightning/experiments/yv5_baseline/exp.py):
-  * training_step (exp.py:104-138): forward(train) -> assign -> compact the
-    assignment to ``ASSIGN_COMPACT_SLOTS * B`` slots per level -> loss ->
+  * training_step (exp.py:104-138): forward(train) -> assign (wh-ratio gate
+    ``assign_threshold``, ``assign_offset_capacity`` slots per anchor) ->
+    compact the assignment to ``assign_compact_slots * B`` slots per level
+    (``None`` or 0: no compaction) -> loss ->
     total = B * (box + obj + cls) -> backward -> SmartSGD; BatchNorm running
     statistics move in the forward;
   * validation_step (exp.py:140-154): forward(eval) -> decode -> NMS
@@ -23,6 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from object_detection_cib_torch.core.assigner import (
+    THRESHOLD,
     Assignment,
     assign_targets,
     compact_level_assignment,
@@ -32,9 +35,6 @@ from object_detection_cib_torch.core.types import FeatureShape, LevelAnchors
 from object_detection_cib_torch.eval.decode import decode_predictions
 from object_detection_cib_torch.train.loss import LossParams, yolov5_loss
 from object_detection_cib_torch.train.optim import SmartSGD
-
-# assignment slots kept per image and level (the JAX train step's default)
-ASSIGN_COMPACT_SLOTS = 128
 
 
 class Batch(NamedTuple):
@@ -65,8 +65,14 @@ def make_train_step(
     optimizer: SmartSGD,
     loss_params: LossParams = LossParams(),
     class_weights: Optional[torch.Tensor] = None,
+    assign_threshold: float = THRESHOLD,
+    assign_offset_capacity: int = 3,
+    assign_compact_slots: Optional[int] = 128,
 ):
     """Build ``train_step(batch) -> StepMetrics``, which updates ``net`` in place.
+
+    The assigner knobs and their defaults are the JAX ``make_train_step``'s
+    (``model.assign_compact_slots`` and ``configs/assigners/yv5.yaml``).
 
     The step makes no host-device synchronisation: its losses stay on the
     device, and the anchors are copied to the device once.
@@ -78,13 +84,14 @@ def make_train_step(
         net.train()
         out = net(batch.images)
         assignment = assign_targets(batch.boxes, batch.labels, batch.mask, image_shape,
-                                    anchors, anchor_tensors)
-        cap = ASSIGN_COMPACT_SLOTS * batch.images.shape[0]
+                                    anchors, anchor_tensors, assign_threshold, assign_offset_capacity)
         assign_drop = torch.zeros((), dtype=torch.int64, device=batch.boxes.device)
-        for lv in assignment.levels():
-            n_valid = lv.valid.sum()
-            assign_drop = assign_drop + (n_valid - min(cap, int(lv.valid.shape[0]))).clamp(min=0)
-        assignment = Assignment(*(compact_level_assignment(lv, cap) for lv in assignment.levels()))
+        if assign_compact_slots:
+            cap = assign_compact_slots * batch.images.shape[0]
+            for lv in assignment.levels():
+                n_valid = lv.valid.sum()
+                assign_drop = assign_drop + (n_valid - min(cap, int(lv.valid.shape[0]))).clamp(min=0)
+            assignment = Assignment(*(compact_level_assignment(lv, cap) for lv in assignment.levels()))
         lres = yolov5_loss(out, assignment, image_shape, loss_params, class_weights)
         total = batch.images.shape[0] * lres.total  # ref exp.py:126-130
         optimizer.zero_grad()

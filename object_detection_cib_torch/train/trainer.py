@@ -1,49 +1,85 @@
-"""The training loop, and validation and prediction over the val set.
+"""The training loop and its runtime, and validation and prediction.
 
-The counterpart of ``object_detection_cib_tpu/train/trainer.py`` in two
-parts. ``Trainer`` runs the training loop from plain arguments through one
-of the JAX package's three feeds (its ``__init__`` and
-``_train_prefetcher``, :263-284, :635-701): the device pipeline with the
-corpus on the card (per step K2, K5, K4 and the train step; the production
-loop), the device pipeline fed per step by the host (K5, K4), or the host
-pipeline (``data/pipeline.py``: reader, mosaic, affine, HSV and flip in
-numpy and cv2, a ``Prefetcher`` of worker threads), over fake draws or
-JPEG files. The imbalance recipes are arguments: a sampler, ``mixup_prob``,
-``use_mosaic``, ``warp_precision`` and, through ``aug_params``, a general
-affine. Per epoch it validates.
+The counterpart of ``object_detection_cib_tpu/train/trainer.py``.
+``Trainer`` runs the training loop through one of the JAX package's three
+feeds (its ``__init__`` and ``_train_prefetcher``, :263-284, :635-701): the
+device pipeline with the corpus on the card (per step K2, K5, K4 and the
+train step; the production loop), the device pipeline fed per step by the
+host (K5, K4), or the host pipeline (``data/pipeline.py``: reader, mosaic,
+affine, HSV and flip in numpy and cv2, a ``Prefetcher`` of worker threads),
+over fake draws or JPEG files. It is built from plain arguments, or by
+``Trainer.from_config`` from a composed config (``configs/``, through
+``object_detection_cib_torch.config``), reading what the JAX
+``Trainer.__init__`` reads (:224-512). ``train(cfg)`` is the JAX task:
+fit, then test, then predict, then finalize the loggers.
+
+``fit`` is the JAX ``fit`` (:974-1297) as a step loop: validation every
+``check_val_every_n_epoch`` epochs, ``limit_train_batches`` and
+``limit_val_batches`` as fractions (``max(int(n * f), 1)``),
+``fast_dev_run`` (one epoch, one train batch, one val batch),
+``overfit_batches`` (the first k batches replayed), the losses logged every
+``log_every_n_steps`` steps from the one per-epoch copy of the step metrics
+(no host sync per step), a ``torch.profiler`` trace of a window of steps,
+early stopping, best and last checkpoints (``train/checkpoint.py``) at the
+``every_n_epochs`` cadence, the sampler-statistics file, the overflow
+warnings, and resume from ``ckpt_path`` at ``step_count //
+steps_per_epoch``. The runtime's knobs are attributes with the defaults of
+a plain run (validate every epoch, no checkpoint, no logger), which
+``from_config`` sets from the config.
+
+Config keys the port does not act on are named at start-up, never dropped
+silently (``_KEYS_READ_NOT_ACTED_ON``): ``model.net.stem_space_to_depth``
+(the same function as the plain 6x6/2 stem), ``trainer.compile_cache``
+(XLA's), ``trainer.deterministic`` (the JAX trainer ignores it too),
+``data.fused_epoch``, ``fused_pipelined`` and ``fused_dispatch_ahead``: the
+port runs its step loop, which is the same training stream (the JAX
+package's own ``test_fused_dispatch_ahead_equivalence``); the fused,
+pipelined epoch is ROADMAP item A5. Keys it refuses raise, naming the key
+(``_refuse_unported``): ``model.remat_policy`` other than null,
+``trainer.num_devices`` above 1 and ``data.corpus_sharding=sharded`` (both
+multi-GPU, A7), ``data.warp_pallas=False`` (it pins the JAX package's dense
+bf16 einsum warp, which the port does not have; ``data.warp_precision=
+exact`` is the port's kernel-free warp), ``data.corpus_layout=flat`` (a TPU
+workaround). ``trainer.platform`` null means
+the card: there is no fallback to the CPU, which ``trainer=cpu`` selects.
 
 ``Evaluator.validate`` is the counterpart of ``Trainer._validate_device``
-(train/trainer.py:832-956 of the JAX package) and ``Evaluator.
-validate_batches`` of ``Trainer.validate``'s host feed (:787-830);
-``Evaluator.predict`` of ``Trainer.predict``'s per-image dicts
-(:1333-1382). The uint8 canvases of a ``ValDeviceCache`` go to the card
-once, as one (nb, B, S, S, 3) tensor padded with zero images; each block is
-sliced, scaled by 1/255 and run through the eval step. The host feed copies
-each batch up, the last one padded to B with zero images. Either way the
-host converts and scores batch i-1 while the card runs batch i (a one-deep
-pipeline: results come back by a non-blocking copy into pinned memory, and
-the host waits on that copy's event only).
+(:832-956) and ``Evaluator.validate_batches`` of ``Trainer.validate``'s
+host feed (:787-830); ``Evaluator.predict`` and ``predict_batches`` of
+``Trainer.predict``'s per-image dicts (:1333-1382). The uint8 canvases of a
+``ValDeviceCache`` go to the card once, as one (nb, B, S, S, 3) tensor
+padded with zero images; each block is sliced, scaled by 1/255 and run
+through the eval step. The host feed copies each batch up, the last one
+padded to B with zero images. Either way the host converts and scores batch
+i-1 while the card runs batch i (a one-deep pipeline: results come back by
+a non-blocking copy into pinned memory, and the host waits on that copy's
+event only).
 
-Not here yet: config composition and the CLI (ROADMAP A6), checkpoints,
-loggers, early stopping, ``check_val_every_n_epoch`` and
-``limit_val_batches``, the sampler-statistics file (``sampler_stats``
-returns the counts), the software-pipelined or CUDA-graph epoch (A5), and
-the multi-host feed and mAP merge (A7).
+Not here: the multi-host feed and mAP merge (A7).
 """
 
 from __future__ import annotations
 
 import json
+import math
+import sys
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterable, Iterator, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from object_detection_cib_torch.config.engine import instantiate
+from object_detection_cib_torch.core.assigner import THRESHOLD
 from object_detection_cib_torch.core.nms import NMSResult
-from object_detection_cib_torch.core.types import FeatureShape, LevelAnchors, default_anchors
-from object_detection_cib_torch.data.cache import DatasetInfo
+from object_detection_cib_torch.core.types import (
+    AnchorBoxInfo,
+    FeatureShape,
+    LevelAnchors,
+    default_anchors,
+)
+from object_detection_cib_torch.data.cache import DatasetInfo, deserialize_cached_dataset
 from object_detection_cib_torch.data.device_pipeline import DeviceCorpus, DeviceDataPipeline
 from object_detection_cib_torch.data.host_augment import (
     AugParams,
@@ -51,17 +87,22 @@ from object_detection_cib_torch.data.host_augment import (
     ValidationSampleAugmentor,
 )
 from object_detection_cib_torch.data.reader import SampleReader
+from object_detection_cib_torch.data.synthetic import build_fake_manifest, build_synthetic_dataset
 from object_detection_cib_torch.data.val_cache import ValDeviceCache
 from object_detection_cib_torch.eval.coco_map import MeanAveragePrecisionEvaluator
 from object_detection_cib_torch.models.yolov5 import build_network
+from object_detection_cib_torch.train.checkpoint import CheckpointManager, Snapshot, restore_checkpoint
 from object_detection_cib_torch.train.loss import LossParams
-from object_detection_cib_torch.train.optim import OptimizerConfig, SmartSGD
+from object_detection_cib_torch.train.optim import OptimizerConfig, SmartSGD, WarmupParams
 from object_detection_cib_torch.train.steps import Batch, StepMetrics, make_eval_step, make_train_step
 from object_detection_cib_torch.utils.device import resolve_device, to_unit
+from object_detection_cib_torch.utils.fs import get_default_dataset_cache_dir, get_default_datasets_dir
+from object_detection_cib_torch.utils.loggers import ProgressTable, build_loggers
 
 
 class Evaluator:
-    """Runs the eval step over a ``ValDeviceCache`` for mAP or predictions."""
+    """Runs the eval step over a ``ValDeviceCache`` or host batches, for mAP
+    or predictions."""
 
     def __init__(
         self,
@@ -81,6 +122,7 @@ class Evaluator:
             raise ValueError(f"net is on {net_device}, evaluator on {self.device}")
         self.classes = list(classes)
         self.batch_size = batch_size
+        self.nms = dict(conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det, max_nms=max_nms)
         self.eval_step = make_eval_step(
             net, anchors, conf_thres=conf_thres, iou_thres=iou_thres,
             max_det=max_det, max_nms=max_nms,
@@ -102,8 +144,10 @@ class Evaluator:
             self._blocks = (cache, ds)
         return self._blocks[1]
 
-    def run_blocks(self, cache: ValDeviceCache) -> Iterator[Tuple[int, NMSResult]]:
-        """Yield (block index, numpy NMSResult trimmed to the block's real rows).
+    def run_blocks(self, cache: ValDeviceCache,
+                   max_blocks: Optional[int] = None) -> Iterator[Tuple[int, NMSResult]]:
+        """Yield (block index, numpy NMSResult trimmed to the block's real
+        rows) for the first ``max_blocks`` blocks (all by default).
 
         Block i's result is yielded after block i+1 has been enqueued.
         """
@@ -111,7 +155,7 @@ class Evaluator:
         n = len(cache)
         B = self.batch_size
         pending = None
-        for bi in range(ds.shape[0]):
+        for bi in range(ds.shape[0] if max_blocks is None else min(max_blocks, ds.shape[0])):
             res = self.eval_step(to_unit(ds[bi]))
             fetched = _fetch(res)
             if pending is not None:
@@ -120,20 +164,20 @@ class Evaluator:
         if pending is not None:
             yield _trimmed(*pending, B, n)
 
-    def validate(self, cache: ValDeviceCache) -> Dict[str, float]:
-        """mAP over every image of the cache."""
+    def validate(self, cache: ValDeviceCache, max_blocks: Optional[int] = None) -> Dict[str, float]:
+        """mAP over every image of the cache, or of its first ``max_blocks`` blocks."""
         evaluator = MeanAveragePrecisionEvaluator(len(self.classes), class_names=self.classes)
         B = self.batch_size
-        for bi, res in self.run_blocks(cache):
+        for bi, res in self.run_blocks(cache, max_blocks):
             sl = slice(bi * B, bi * B + res.boxes.shape[0])
             evaluator.add_batch(res, cache.gt_boxes[sl], cache.gt_labels[sl], cache.gt_mask[sl])
         return evaluator.results_dict()
 
-    def validate_batches(self, batches: Iterable[Batch]) -> Dict[str, float]:
-        """mAP over host batches (uint8 images, as ``Prefetcher(device=None)``
-        yields them): each is copied up, the last padded to B with zero
-        images, and scored on the host while the card runs the next."""
-        evaluator = MeanAveragePrecisionEvaluator(len(self.classes), class_names=self.classes)
+    def _run_batches(self, batches: Iterable[Batch]) -> Iterator[Tuple[NMSResult, Batch]]:
+        """Per host batch (uint8 images, as ``Prefetcher(device=None)`` yields
+        them): the numpy result of its real rows, and the batch.
+        Each is copied up, the last padded to B with zero images, and handed
+        back while the card runs the next."""
         B = self.batch_size
         pending = None
         for batch in batches:
@@ -143,25 +187,39 @@ class Evaluator:
                 images = torch.cat([images, images.new_zeros((B - n,) + images.shape[1:])])
             fetched = _fetch(self.eval_step(to_unit(images)))
             if pending is not None:
-                _score(evaluator, *pending)
+                yield _waited(*pending[:2]), pending[2]
             pending = (fetched, n, batch)
         if pending is not None:
-            _score(evaluator, *pending)
+            yield _waited(*pending[:2]), pending[2]
+
+    def validate_batches(self, batches: Iterable[Batch]) -> Dict[str, float]:
+        """mAP over host batches, scored on the host while the card runs the next."""
+        evaluator = MeanAveragePrecisionEvaluator(len(self.classes), class_names=self.classes)
+        for res, batch in self._run_batches(batches):
+            evaluator.add_batch(res, batch.boxes.numpy(), batch.labels.numpy(), batch.mask.numpy())
         return evaluator.results_dict()
+
+    def _dicts(self, res: NMSResult) -> List[dict]:
+        out = []
+        for i in range(res.boxes.shape[0]):
+            n = int(res.num_valid[i])
+            out.append({
+                "boxes": res.boxes[i][:n].tolist(),
+                "scores": res.scores[i][:n].tolist(),
+                "classes": [self.classes[int(c)] for c in res.classes[i][:n]],
+            })
+        return out
 
     def predict(self, cache: ValDeviceCache, out_path: Optional[Path] = None) -> list:
         """Per-image {"boxes", "scores", "classes"} dicts, optionally dumped as JSON."""
-        results = []
-        for _, res in self.run_blocks(cache):
-            for i in range(res.boxes.shape[0]):
-                n = int(res.num_valid[i])
-                results.append(
-                    {
-                        "boxes": res.boxes[i][:n].tolist(),
-                        "scores": res.scores[i][:n].tolist(),
-                        "classes": [self.classes[int(c)] for c in res.classes[i][:n]],
-                    }
-                )
+        results = [d for _, res in self.run_blocks(cache) for d in self._dicts(res)]
+        if out_path is not None:
+            Path(out_path).write_text(json.dumps(results))
+        return results
+
+    def predict_batches(self, batches: Iterable[Batch], out_path: Optional[Path] = None) -> list:
+        """``predict`` over host batches (the JAX ``Trainer.predict``'s feed)."""
+        results = [d for res, _ in self._run_batches(batches) for d in self._dicts(res)]
         if out_path is not None:
             Path(out_path).write_text(json.dumps(results))
         return results
@@ -189,11 +247,6 @@ def _trimmed(bi: int, fetched, B: int, n: int) -> Tuple[int, NMSResult]:
     return bi, _waited(fetched, min(n - bi * B, B))
 
 
-def _score(evaluator: MeanAveragePrecisionEvaluator, fetched, rows: int, batch: Batch) -> None:
-    evaluator.add_batch(_waited(fetched, rows), batch.boxes.numpy(), batch.labels.numpy(),
-                        batch.mask.numpy())
-
-
 def _compute_loss_weights(info: DatasetInfo) -> np.ndarray:
     """sum(n)/n_c per class (ref tasks/trainer.py:54-60)."""
     counts = info.get_instance_count()
@@ -201,32 +254,72 @@ def _compute_loss_weights(info: DatasetInfo) -> np.ndarray:
     return np.asarray([total / max(counts[c], 1) for c in info.classes], np.float32)
 
 
-class Trainer:
-    """The training loop on one card, built from plain arguments.
+def _fraction_of(n: int, fraction) -> int:
+    """``max(int(n * fraction), 1)``: the JAX trainer's limit_*_batches."""
+    return max(int(n * float(fraction)), 1)
 
-    The network (random weights from ``seed``); the training feed, chosen
-    as the JAX trainer chooses it: ``pipeline="device"`` is the device
-    pipeline (corpus on the card with ``device_cache``, else host-fed),
-    ``pipeline="host"`` the host pipeline (``train_augmentor``, by default
-    ``TrainSampleAugmentor(aug_params)``, what ``configs/data/default.yaml``
-    selects) under a ``Prefetcher`` of ``num_workers`` threads, drawing from
-    ``sampler`` or a ``ShuffleSampler``; images are fake draws with
-    ``fake_mode`` (implied by a dataset name starting with "fake") or JPEG
-    files under ``root_dir``. SmartSGD with ``steps_per_epoch = len(train)
-    // batch_size`` and the lr schedule's horizon ``max_epochs``, the one
-    source of that number; the train step; and the ``Evaluator`` over a
-    ``ValDeviceCache`` of ``val_info`` with the corpus on the card, over the
-    host feed otherwise. ``sampler`` is any object with ``epoch_indices()``
+
+class FitConfig(NamedTuple):
+    """``fit``'s control flow: the keys of ``configs/trainer/default.yaml``
+    (and the profiler preset's) with the JAX trainer's defaults."""
+
+    check_val_every_n_epoch: int = 1
+    limit_train_batches: Optional[float] = None  # a fraction of the epoch's steps
+    limit_val_batches: Optional[float] = None  # a fraction of the validation batches
+    fast_dev_run: bool = False
+    overfit_batches: Optional[int] = None
+    log_every_n_steps: int = 20
+    profiler: Optional[str] = None  # any value: a torch.profiler trace
+    profile_start_step: int = 5
+    profile_steps: int = 5
+
+
+class EarlyStopping(NamedTuple):
+    """Lightning ``EarlyStopping``'s knobs (configs/callbacks/early_stopping.yaml);
+    ``patience`` 0 disables it."""
+
+    monitor: str = "map"
+    mode: str = "max"
+    patience: int = 0
+    min_delta: float = 0.0
+    check_finite: bool = False
+
+
+class Trainer:
+    """The training loop on one card.
+
+    From plain arguments: the network (random weights from ``seed``; ``size``
+    a variant name or ``{"deepen_factor", "widen_factor"}``); the training
+    feed, chosen as the JAX trainer chooses it: ``pipeline="device"`` is the
+    device pipeline (corpus on the card with ``device_cache``, else
+    host-fed), ``pipeline="host"`` the host pipeline (``train_augmentor``, by
+    default ``TrainSampleAugmentor(aug_params)``) under a ``Prefetcher`` of
+    ``num_workers`` threads, drawing from ``sampler`` or a
+    ``ShuffleSampler``; images are fake draws with ``fake_mode`` (implied by
+    a dataset name starting with "fake") or JPEG files under ``root_dir``.
+    SmartSGD with ``steps_per_epoch = len(train) // batch_size`` and the lr
+    schedule's horizon ``max_epochs``, the one source of that number; the
+    train step with the assigner knobs; and the ``Evaluator`` with the NMS
+    thresholds, over a ``ValDeviceCache`` of ``val_info`` with the corpus on
+    the card (unless ``val_device_cache`` is off), over the host feed
+    otherwise. ``train_info=None`` builds no training feed (evaluation from
+    a checkpoint). ``sampler`` is any object with ``epoch_indices()``
     (``data/samplers.py``); ``corpus`` shares one ``DeviceCorpus`` between
-    trainers over the same dataset. Config composition and the CLI are
-    ROADMAP item A6.
+    trainers over the same dataset.
+
+    The runtime's knobs, with a plain run's defaults, are attributes:
+    ``loop`` (a ``FitConfig``), ``early_stopping``, ``ckpt`` (a
+    ``CheckpointManager`` or None) and ``ckpt_every_n_epochs``, ``loggers``,
+    ``progress``, ``rich_progress``, ``sampler_debug``, ``debug_nans``,
+    ``out_dir`` and ``verbose`` (the JAX trainer's console lines).
+    ``from_config`` sets them all.
     """
 
     def __init__(
         self,
-        train_info: DatasetInfo,
+        train_info: Optional[DatasetInfo],
         val_info: DatasetInfo,
-        size: str = "s",
+        size: Union[str, Dict[str, float]] = "s",
         image_size: int = 416,
         batch_size: int = 64,
         aug_params: AugParams = AugParams(),
@@ -250,6 +343,15 @@ class Trainer:
         enable_ram_cache: bool = False,
         num_workers: int = 8,
         train_augmentor: Optional[Callable] = None,
+        anchors: Optional[LevelAnchors] = None,
+        num_anchors_per_cell: int = 3,
+        assign_threshold: float = THRESHOLD,
+        assign_offset_capacity: int = 3,
+        assign_compact_slots: Optional[int] = 128,
+        val_conf_thres: float = 0.001,
+        val_iou_thres: float = 0.6,
+        val_max_nms: int = 2048,
+        val_device_cache: bool = True,
     ):
         if pipeline not in ("device", "host"):
             raise ValueError(f"pipeline must be 'device' or 'host', got {pipeline!r}")
@@ -263,22 +365,24 @@ class Trainer:
             raise ValueError("corpus is the card-resident corpus of pipeline='device', device_cache=True")
         self.device = resolve_device(device)
         self.train_info, self.val_info = train_info, val_info
-        self.classes = list(train_info.classes)
+        self.classes = list((train_info or val_info).classes)
         self.batch_size = batch_size
         self.max_targets = max_targets
         self.max_epochs = int(max_epochs)
         self.image_shape = FeatureShape(image_size, image_size)
-        self.anchors = default_anchors()
+        self.anchors = anchors or default_anchors()
         # a dataset named fake* lists files that do not exist (JAX :237-241)
-        self.fake_mode = fake_mode or train_info.name.startswith("fake")
+        self.fake_mode = fake_mode or val_info.name.startswith("fake")
         self.root_dir = root_dir
         self.enable_ram_cache = enable_ram_cache
         self.num_workers = max(int(num_workers), 1)
-        self.net = build_network(len(self.classes), size, dtype=dtype, device=self.device, seed=seed)
+        self.net = build_network(len(self.classes), size, num_anchors_per_cell=num_anchors_per_cell,
+                                 dtype=dtype, device=self.device, seed=seed)
         feed_dtype = torch.float32 if dtype is None else dtype
+        self.sampler = sampler
         self.pipeline: Optional[DeviceDataPipeline] = None
         self.prefetcher = None
-        if pipeline == "device":
+        if train_info is not None and pipeline == "device":
             self.pipeline = DeviceDataPipeline(
                 train_info, image_size, batch_size, aug_params, max_targets=max_targets,
                 mixup_prob=mixup_prob, use_mosaic=use_mosaic, warp_precision=warp_precision,
@@ -286,7 +390,7 @@ class Trainer:
                 feed_dtype=feed_dtype, device=self.device, corpus=corpus, root_dir=root_dir,
                 enable_ram_cache=enable_ram_cache,
             )
-        else:
+        elif train_info is not None:
             # cv2 and Pillow are needed only here: the host pipeline is imported when asked for
             from object_detection_cib_torch.data.pipeline import DetectionDataset, Prefetcher
             from object_detection_cib_torch.data.samplers import ShuffleSampler
@@ -299,29 +403,225 @@ class Trainer:
             self.prefetcher = Prefetcher(
                 train_ds, batch_size, max_targets, sampler=sampler or ShuffleSampler(train_info, seed=seed),
                 num_threads=self.num_workers, device=self.device, feed_dtype=feed_dtype)
-        self.steps_per_epoch = max(len(train_info.samples) // batch_size, 1)
+        self.steps_per_epoch = max(len(train_info.samples) // batch_size, 1) if train_info else 1
         self.optimizer = SmartSGD(self.net, optimizer._replace(max_epochs=self.max_epochs),
                                   self.steps_per_epoch)
         class_weights = None
-        if use_loss_weights:
+        if use_loss_weights and train_info is not None:
             class_weights = torch.from_numpy(_compute_loss_weights(train_info)).to(self.device)
-        self.train_step = make_train_step(self.net, self.anchors, self.image_shape,
-                                          self.optimizer, loss_params, class_weights)
+        self.class_weights = class_weights
+        self.loss_params = loss_params
+        self.assign_threshold = float(assign_threshold)
+        self.assign_offset_capacity = int(assign_offset_capacity)
+        self.assign_compact_slots = assign_compact_slots
+        self.train_step = make_train_step(
+            self.net, self.anchors, self.image_shape, self.optimizer, loss_params, class_weights,
+            assign_threshold=assign_threshold, assign_offset_capacity=assign_offset_capacity,
+            assign_compact_slots=assign_compact_slots)
         # validation feed (JAX :781-786): the val set on the card beside the
         # corpus on the card, else the host feed, built at its first use
         self.val_cache: Optional[ValDeviceCache] = None
-        if pipeline == "device" and device_cache:
+        if pipeline == "device" and device_cache and val_device_cache:
             self.val_cache = ValDeviceCache(val_info, range(len(val_info.samples)), image_size,
                                             max_targets, fake_mode=self.fake_mode, root_dir=root_dir)
         self._val_dataset = None
-        self.evaluator = Evaluator(self.net, self.anchors, val_info.classes,
-                                   batch_size=batch_size, device=self.device)
+        self.evaluator = Evaluator(self.net, self.anchors, val_info.classes, batch_size=batch_size,
+                                   conf_thres=val_conf_thres, iou_thres=val_iou_thres, max_nms=val_max_nms,
+                                   device=self.device)
         self.epoch = 0  # epochs trained so far
         self.epoch_imgs: List[int] = []
         self.epoch_walls: List[float] = []
         self.epoch_metrics: List[Dict[str, np.ndarray]] = []
         self._last_sampler_plan: Optional[np.ndarray] = None
+        # the runtime, as a plain run has it; from_config sets every one
+        self.loop = FitConfig()
+        self.early_stopping = EarlyStopping()
+        self.ckpt: Optional[CheckpointManager] = None
+        self.ckpt_every_n_epochs = 1
+        self.loggers: list = []
+        self.progress = ProgressTable(enabled=False)
+        self.rich_progress = False
+        self.sampler_debug = False
+        self.debug_nans = False
+        self.out_dir: Optional[Path] = None
+        self.verbose = False
+        self._es_best: Optional[float] = None  # early stopping's best and bad checks, per fit
+        self._es_bad = 0
 
+    # ------------------------------------------------------------------ config
+    @classmethod
+    def from_config(cls, cfg: dict) -> "Trainer":
+        """A trainer for a composed config, as the JAX ``Trainer(cfg)``."""
+        tcfg, dcfg, mcfg = cfg["trainer"], cfg["data"], cfg["model"]
+        device = _device_from_cfg(tcfg)
+        _refuse_unported(cfg)
+        ignored = [f"{k} ({why})" for k, why in _KEYS_READ_NOT_ACTED_ON.items() if _cfg_get(cfg, k) is not None]
+        if ignored:
+            print("config keys read and not acted on by the port: " + "; ".join(ignored), flush=True)
+        seed = int(cfg.get("seed", 0))
+        name = cfg["dataset_name"]
+        if name.startswith("fake") and not dcfg.get("fake_mode"):
+            print(f"dataset '{name}' implies data.fake_mode=True", flush=True)
+            dcfg["fake_mode"] = True
+        train_info = _load_dataset(name, "train", dcfg) if cfg.get("train", True) else None
+        val_info = _load_dataset(name, "validation", dcfg)
+
+        pipeline = dcfg.get("pipeline") or "host"
+        aug_spec = dcfg.get("train_data_augmentor") or {}
+        sampler = None
+        if train_info is not None and dcfg.get("sampler"):
+            sampler = instantiate(dcfg["sampler"])(train_info)
+        host_aug = None
+        if pipeline != "device":
+            host_aug = instantiate(aug_spec) if aug_spec else ValidationSampleAugmentor()
+        aug = instantiate(aug_spec["aug_params"]) if aug_spec.get("aug_params") else AugParams()
+
+        ncfg, lcfg, acfg = mcfg["net"], mcfg["loss"], cfg.get("assigners") or {}
+        ocfg, scfg, wcfg = mcfg["optimizer"], mcfg["scheduler"], mcfg.get("warmup")
+        dtype = {"bfloat16": torch.bfloat16, "float32": None, None: None}[ncfg.get("dtype")]
+        t = cls(
+            train_info, val_info,
+            size={"deepen_factor": float(ncfg.get("deepen_factor", 1.0)),
+                  "widen_factor": float(ncfg.get("widen_factor", 1.0))},
+            num_anchors_per_cell=int(ncfg.get("num_anchors_per_cell", 3)),
+            dtype=dtype,
+            image_size=int(dcfg["target_image_size"]),
+            batch_size=int(dcfg["batch_size"]),
+            aug_params=aug,
+            optimizer=OptimizerConfig(
+                lr0=float(ocfg["lr0"]),
+                momentum=float(ocfg["momentum"]),
+                nesterov=bool(ocfg.get("nesterov", True)),
+                weight_decay=float(ocfg["weight_decay"]),
+                schedule=scfg.get("name", "linear"),
+                lrf=float(scfg.get("lrf", 0.01)),
+                warmup=WarmupParams(float(wcfg["warmup_epochs"]), float(wcfg["warmup_bias_lr"]),
+                                    float(wcfg["warmup_momentum"])) if wcfg else None,
+            ),
+            loss_params=LossParams(
+                lambda_classification=lcfg["lambda_classification"],
+                lambda_localization=lcfg["lambda_localization"],
+                lambda_objectness=lcfg["lambda_objectness"],
+                lambda_ll_objectness=lcfg["lambda_ll_objectness"],
+                lambda_ml_objectness=lcfg["lambda_ml_objectness"],
+                lambda_hl_objectness=lcfg["lambda_hl_objectness"],
+                iou_type=lcfg.get("iou_type", "ciou"),
+                eps=float(lcfg.get("eps", 1e-7)),
+            ),
+            use_loss_weights=bool(cfg.get("use_loss_weights")),
+            max_targets=int(dcfg.get("max_targets", 120)),
+            seed=seed,
+            device=device,
+            sampler=sampler,
+            mixup_prob=float(dcfg.get("mixup_prob", 0.0)),
+            use_mosaic=bool(dcfg.get("use_mosaic", True)),
+            warp_precision=dcfg.get("warp_precision", "fast"),
+            max_epochs=int(tcfg["max_epochs"]),
+            pipeline=pipeline,
+            device_cache=bool(dcfg.get("device_cache", False)),
+            fake_mode=bool(dcfg.get("fake_mode")),
+            enable_ram_cache=bool(dcfg.get("enable_ram_cache", False)),
+            num_workers=int(dcfg.get("num_workers", 8)),
+            train_augmentor=host_aug,
+            anchors=_anchors_from_cfg(mcfg["anchor_info"]),
+            assign_threshold=float(acfg.get("threshold", lcfg.get("assigner_threshold", THRESHOLD))),
+            assign_offset_capacity=int(acfg.get("offset_capacity", 3)),
+            assign_compact_slots=mcfg.get("assign_compact_slots", 128),
+            val_conf_thres=float(mcfg.get("val_nms_conf_threshold", 0.001)),
+            val_iou_thres=float(mcfg.get("val_nms_iou_threshold", 0.6)),
+            val_max_nms=int(mcfg.get("val_nms_max_candidates", 2048)),
+            val_device_cache=bool(dcfg.get("val_device_cache", True)),
+        )
+        t.loop = FitConfig(
+            check_val_every_n_epoch=int(tcfg.get("check_val_every_n_epoch") or 1),
+            limit_train_batches=tcfg.get("limit_train_batches"),
+            limit_val_batches=tcfg.get("limit_val_batches"),
+            fast_dev_run=bool(tcfg.get("fast_dev_run")),
+            overfit_batches=tcfg.get("overfit_batches"),
+            log_every_n_steps=int(tcfg.get("log_every_n_steps", 20)),
+            profiler=tcfg.get("profiler"),
+            profile_start_step=int(tcfg.get("profile_start_step", 5)),
+            profile_steps=int(tcfg.get("profile_steps", 5)),
+        )
+        t.debug_nans = bool(tcfg.get("debug_nans"))
+        t.verbose = True
+
+        # ----- logging / checkpoints (JAX :427-481)
+        t.out_dir = Path(cfg["paths"]["output_dir"])
+        t.out_dir.mkdir(parents=True, exist_ok=True)
+        t.loggers = build_loggers(cfg.get("logger"))
+        t.progress = ProgressTable(interval=int(cfg.get("progress_interval", 20)))
+        cb_all = cfg.get("callbacks") or {}
+        cb = cb_all.get("model_checkpoint")
+        if cb is None and "model_checkpoint" in cb_all:
+            t.ckpt = None  # callbacks=none: checkpointing disabled
+        else:
+            cb = cb or {}
+            t.ckpt = CheckpointManager(Path(cb.get("dirpath", t.out_dir / "checkpoints")),
+                                       monitor=cb.get("monitor", "map"), mode=cb.get("mode", "max"))
+        t.ckpt_every_n_epochs = max(int((cb or {}).get("every_n_epochs") or 1), 1)
+        t.sampler_debug = bool(cb_all.get("sampler_debug"))
+        ms = cb_all.get("model_summary")
+        if ms:
+            t.print_model_summary(int(ms.get("max_depth", 3)))
+        t.rich_progress = (bool(cb_all.get("rich_progress_bar")) and not cfg.get("disable_progress_bar")
+                           and sys.stdout.isatty())
+        t.progress.enabled = not t.rich_progress
+        es = cb_all.get("early_stopping") or {}
+        t.early_stopping = EarlyStopping(
+            monitor=es.get("monitor", "map"), mode=str(es.get("mode", "max")),
+            patience=int(es.get("patience", 0)), min_delta=float(es.get("min_delta", 0.0)),
+            check_finite=bool(es.get("check_finite", False)))
+
+        n_params = sum(p.numel() for p in t.net.parameters())
+        print(f"model: yolov5 widen={ncfg.get('widen_factor', 1.0)} deepen={ncfg.get('deepen_factor', 1.0)} "
+              f"nc={len(t.classes)} params={n_params:,} | device={t.device} | dataset={name} "
+              f"train={len(train_info.samples) if train_info else 0} val={len(val_info.samples)}",
+              flush=True)
+        (t.out_dir / "hparams.json").write_text(json.dumps({
+            "num_params": n_params,
+            "num_classes": len(t.classes),
+            "widen_factor": float(ncfg.get("widen_factor", 1.0)),
+            "deepen_factor": float(ncfg.get("deepen_factor", 1.0)),
+            "batch_size": t.batch_size,
+            "image_size": t.image_shape.width,
+            "steps_per_epoch": t.steps_per_epoch,
+            "dataset": name,
+        }, indent=2))
+        if cfg.get("ckpt_path"):
+            t.restore(cfg["ckpt_path"])
+        return t
+
+    def restore(self, path: Path) -> None:
+        """Load a checkpoint's parameters, BN statistics, momentum buffers and
+        step count; ``fit`` goes on from epoch ``step_count // steps_per_epoch``
+        (JAX :983-985)."""
+        restore_checkpoint(path, self.net, self.optimizer)
+        self.epoch = self.optimizer.step_count // self.steps_per_epoch
+
+    def print_model_summary(self, max_depth: int = 3) -> None:
+        """Parameters per module path (the flax paths, ``models/convert.py``)
+        to ``max_depth`` (RichModelSummary analog)."""
+        groups: Dict[str, int] = {}
+        for name, p in self.net.named_parameters():
+            key = "/".join(name.split(".")[:max_depth])
+            groups[key] = groups.get(key, 0) + p.numel()
+        try:
+            from rich.console import Console
+            from rich.table import Table
+
+            t = Table(title=f"model summary (depth {max_depth})")
+            t.add_column("module")
+            t.add_column("params", justify="right")
+            for k, v in groups.items():
+                t.add_row(k, f"{v:,}")
+            t.add_row("TOTAL", f"{sum(groups.values()):,}")
+            Console().print(t)
+        except ImportError:
+            for k, v in groups.items():
+                print(f"  {k}: {v:,}")
+
+    # -------------------------------------------------------------- validation
     def val_prefetcher(self):
         """The host validation feed: every val image once, letterboxed, in
         order, the last batch short (JAX ``_val_prefetcher``)."""
@@ -335,12 +635,38 @@ class Trainer:
         return Prefetcher(self._val_dataset, self.batch_size, self.max_targets,
                           num_threads=self.num_workers, drop_last=False, device=None)
 
-    def validate(self) -> Dict[str, float]:
-        """mAP over the val set, through the feed the trainer chose."""
-        if self.val_cache is not None:
-            return self.evaluator.validate(self.val_cache)
-        return self.evaluator.validate_batches(self.val_prefetcher())
+    def _val_batches(self, total: int) -> int:
+        """Validation batches to run of ``total`` (JAX :790-797, :911-917)."""
+        if self.loop.fast_dev_run:
+            return 1
+        if self.loop.limit_val_batches:
+            return _fraction_of(total, self.loop.limit_val_batches)
+        return total
 
+    def validate(self) -> Dict[str, float]:
+        """mAP over the val set (or the part ``limit_val_batches`` or
+        ``fast_dev_run`` leaves), through the feed the trainer chose."""
+        if self.val_cache is not None:
+            nb = max(-(-len(self.val_cache) // self.batch_size), 1)
+            metrics = self.evaluator.validate(self.val_cache, self._val_batches(nb))
+        else:
+            feed = self.val_prefetcher()
+            batches = iter(feed)
+            try:
+                metrics = self.evaluator.validate_batches(
+                    b for _, b in zip(range(self._val_batches(len(feed))), batches))
+            finally:
+                batches.close()
+        if self.verbose:
+            _print_map_table(metrics)
+        return metrics
+
+    def predict(self, out_path: Optional[Path] = None) -> list:
+        """Detections over the host validation feed as per-image dicts,
+        optionally dumped as JSON (the JAX ``Trainer.predict``)."""
+        return self.evaluator.predict_batches(self.val_prefetcher(), out_path)
+
+    # ---------------------------------------------------------------- training
     def _train_batches(self, n_steps: int) -> Iterator[Tuple[Batch, Optional[torch.Tensor]]]:
         """``(batch, overflow)`` for ``n_steps`` steps of one epoch; the
         overflow is a device scalar from the device pipeline (not added to
@@ -356,48 +682,96 @@ class Trainer:
         finally:
             batches.close()
 
-    def fit(self, max_epochs: Optional[int] = None, limit_train_batches: Optional[int] = None,
+    def _log(self, metrics: Dict[str, float], step: int) -> None:
+        for lg in self.loggers:
+            lg.log(metrics, step)
+
+    def fit(self, max_epochs: Optional[int] = None, epoch_steps: Optional[int] = None,
             on_step: Optional[Callable[[int, int, StepMetrics], None]] = None) -> Dict[str, float]:
         """Train on to epoch ``max_epochs`` (by default the trainer's
-        ``max_epochs``, the lr schedule's horizon, which it may not pass),
-        validating after each epoch; returns the last mAP dict.
+        ``max_epochs``, the lr schedule's horizon, which it may not pass; one
+        epoch under ``fast_dev_run``), validating every
+        ``loop.check_val_every_n_epoch`` epochs; returns the last mAP dict.
 
-        Epochs count on from earlier calls, as the JAX trainer's loop runs
-        ``range(start_epoch, max_epochs)``. ``limit_train_batches`` caps the
-        steps per epoch (the JAX trainer's knob, :978, in its integer form).
+        Epochs count on from earlier calls and from a restored checkpoint,
+        as the JAX trainer's loop runs ``range(start_epoch, max_epochs)``.
+        The steps of an epoch are ``steps_per_epoch``, one under
+        ``fast_dev_run``, else ``max(int(steps * limit_train_batches), 1)``;
+        ``epoch_steps`` caps them further (an integer, the port's own knob).
         ``on_step(epoch, step, metrics)`` runs after each step is enqueued.
         Per epoch, the images and the wall time (host clock, ending in the
         host fetch of the epoch's metrics) are recorded, and the per-step
         losses, ``assign_drop`` and the targets dropped by ``max_targets``
         come back to the host in one copy: ``epoch_metrics`` holds per step
         ``total``, ``box``, ``obj``, ``cls``, ``assign_drop`` and ``lr``, and
-        the epoch's ``targets_dropped``.
+        the epoch's ``targets_dropped``. The loggers and the progress table
+        get every ``log_every_n_steps``-th step's losses from that copy.
         """
-        stop = self.max_epochs if max_epochs is None else int(max_epochs)
+        if self.train_info is None:
+            raise RuntimeError("this trainer was built without a training set (train=False)")
+        loop = self.loop
+        stop = 1 if loop.fast_dev_run else (self.max_epochs if max_epochs is None else int(max_epochs))
         if stop > self.max_epochs:
             raise ValueError(f"fit(max_epochs={stop}) would train past the lr schedule's horizon, "
                              f"Trainer(max_epochs={self.max_epochs})")
+        with torch.autograd.set_detect_anomaly(self.debug_nans):
+            return self._fit(stop, epoch_steps, on_step)
+
+    def _fit(self, stop: int, epoch_steps: Optional[int], on_step) -> Dict[str, float]:
+        loop = self.loop
+        val_every = max(int(loop.check_val_every_n_epoch), 1)
+        log_every = max(int(loop.log_every_n_steps), 1)
         n_steps = self.steps_per_epoch
-        if limit_train_batches:
-            n_steps = min(int(limit_train_batches), n_steps)
+        if loop.fast_dev_run:
+            n_steps = 1
+        elif loop.limit_train_batches:
+            n_steps = _fraction_of(n_steps, loop.limit_train_batches)
+        if epoch_steps:
+            n_steps = min(int(epoch_steps), n_steps)
+        prof, prof_window = None, (loop.profile_start_step, loop.profile_start_step + loop.profile_steps)
+        overfit_cache = None
+        self._es_best, self._es_bad = None, 0
         last_val: Dict[str, float] = {}
         for epoch in range(self.epoch, stop):
             t0 = time.perf_counter()
+            if loop.overfit_batches:
+                if overfit_cache is None:  # the first k batches of one epoch, replayed
+                    overfit_cache = [(b, None) for b, _ in self._train_batches(int(loop.overfit_batches))]
+                batches = iter(overfit_cache[:n_steps])
+            else:
+                batches = self._train_batches(n_steps)
             host_dropped = self.prefetcher.overflow_total if self.prefetcher is not None else 0
+            bar = None
+            if self.rich_progress:
+                from object_detection_cib_torch.utils.loggers import RichEpochProgress
+
+                bar = RichEpochProgress(epoch, n_steps)
+            step0 = self.optimizer.step_count
             rows, lrs = [], []
-            for i, (batch, ovf) in enumerate(self._train_batches(n_steps)):
+            for i, (batch, ovf) in enumerate(batches):
+                if loop.profiler and prof is None and self.optimizer.step_count == prof_window[0]:
+                    prof = _start_profiler(self.device)  # then the trace, then False once written
                 m = self.train_step(batch)
                 cols = [m.total, m.box, m.obj, m.cls, m.assign_drop.float()]
                 rows.append(torch.stack(cols if ovf is None else cols + [ovf.float()]))
                 lrs.append(m.lr)
+                if prof and self.optimizer.step_count == prof_window[1]:
+                    _stop_profiler(prof, self.device, self._profile_dir(), prof_window)
+                    prof = False
+                if bar is not None:
+                    bar.advance()
                 if on_step is not None:
                     on_step(epoch, i, m)
+            if bar is not None:
+                bar.close()
             stacked = torch.stack(rows).cpu().numpy()
             self.epoch_walls.append(time.perf_counter() - t0)
             self.epoch_imgs.append(len(rows) * self.batch_size)
             metrics = {k: stacked[:, j] for j, k in enumerate(("total", "box", "obj", "cls", "assign_drop"))}
             metrics["lr"] = np.asarray(lrs, np.float32)
-            if self.pipeline is not None:
+            if overfit_cache is not None:
+                dropped = 0  # replayed batches: counted where they were made
+            elif self.pipeline is not None:
                 dropped = int(stacked[:, 5].sum())
                 self.pipeline.add_overflow(dropped)
             else:
@@ -405,9 +779,85 @@ class Trainer:
             metrics["targets_dropped"] = np.int64(dropped)
             self.epoch_metrics.append(metrics)
             self.epoch = epoch + 1
-            last_val = self.validate()
-            last_val["images_per_sec"] = self.epoch_imgs[-1] / self.epoch_walls[-1]
+            for i in range(len(rows)):
+                gstep = step0 + i + 1
+                if gstep % log_every == 0:
+                    logged = {k: float(metrics[k][i]) for k in ("box", "obj", "cls", "total", "lr")}
+                    self._log(logged, gstep)
+                    self.progress.update(epoch, gstep, logged)
+            gstep = self.optimizer.step_count
+            ips = self.epoch_imgs[-1] / self.epoch_walls[-1]
+            self._warn_overflow(epoch, int(metrics["assign_drop"].sum()), dropped, gstep)
+            if self.verbose:
+                print(f"[epoch {epoch}] train ips={ips:.1f} ({self.epoch_imgs[-1]} imgs in "
+                      f"{self.epoch_walls[-1]:.2f}s)", flush=True)
+
+            if (epoch + 1) % val_every == 0 or loop.fast_dev_run:
+                last_val = self.validate()
+                last_val["images_per_sec"] = ips
+                self._log(last_val, gstep)
+                if self.verbose:
+                    print(f"[epoch {epoch}] map={last_val.get('map', 0):.4f} "
+                          f"map50={last_val.get('map50', 0):.4f} ips={ips:.1f}", flush=True)
+                if self.ckpt:
+                    self.ckpt.maybe_save_best(Snapshot(self.net, self.optimizer), last_val)
+                reason = self._early_stop_reason(last_val)
+                if reason is not None:
+                    print(f"early stopping: {reason}", flush=True)
+                    if self.ckpt:
+                        self.ckpt.save_last(Snapshot(self.net, self.optimizer))
+                        # saves are off-thread: drain, so that a caller reading
+                        # the checkpoint right after fit sees a complete 'last'
+                        self.ckpt.wait_until_finished()
+                    return last_val
+            if self.ckpt and (epoch + 1) % self.ckpt_every_n_epochs == 0:
+                self.ckpt.save_last(Snapshot(self.net, self.optimizer))
+            if self.sampler_debug:
+                self._dump_sampler_stats(epoch, len(rows))
+
+        if prof:
+            _stop_profiler(prof, self.device, self._profile_dir(), prof_window)
+        if self.ckpt and stop % self.ckpt_every_n_epochs != 0:
+            # the cadence skipped the final epoch's save: 'last' must still be
+            # the end-of-fit state
+            self.ckpt.save_last(Snapshot(self.net, self.optimizer))
+        if self.ckpt:
+            self.ckpt.wait_until_finished()
         return last_val
+
+    def _warn_overflow(self, epoch: int, adrop: int, dropped: int, step: int) -> None:
+        """The JAX trainer's warnings for the epoch's compaction drops and the
+        targets beyond ``max_targets`` (:1196-1212)."""
+        if adrop:
+            print(f"[epoch {epoch}] WARNING: {adrop} valid assignment slots dropped by loss-table "
+                  "compaction this epoch; raise model.assign_compact_slots", flush=True)
+        if dropped:
+            print(f"[epoch {epoch}] WARNING: {dropped} targets dropped by max_targets={self.max_targets} "
+                  "capacity this epoch", flush=True)
+            self._log({"targets_dropped": float(dropped)}, step)
+
+    def _early_stop_reason(self, last_val: Dict[str, float]) -> Optional[str]:
+        """Lightning ``EarlyStopping``: improvement is ``sign * (cur - best) >
+        min_delta``; a stop after ``patience`` checks without one, or at once
+        on a non-finite value with ``check_finite`` (JAX :1240-1273)."""
+        es = self.early_stopping
+        cur = last_val.get(es.monitor)
+        if not es.patience or cur is None:
+            return None
+        if es.check_finite and not math.isfinite(cur):
+            return f"{es.monitor} = {cur} is not finite"
+        sign = -1.0 if es.mode == "min" else 1.0
+        if self._es_best is None or sign * (cur - self._es_best) > es.min_delta:
+            self._es_best, self._es_bad = cur, 0
+            return None
+        self._es_bad += 1
+        if self._es_bad >= es.patience:
+            return (f"no {es.monitor} improvement (mode={es.mode}, min_delta={es.min_delta}) "
+                    f"for {es.patience} epochs")
+        return None
+
+    def _profile_dir(self) -> Path:
+        return (self.out_dir or Path(".")) / "profile"
 
     def sampler_stats(self, consumed_steps: Optional[int] = None) -> Optional[Dict[str, int]]:
         """Instances per class that the oldest epoch not yet counted fed to
@@ -427,6 +877,13 @@ class Trainer:
             return None
         return plan_instance_counts(self.train_info, self._last_sampler_plan[:consumed_steps])
 
+    def _dump_sampler_stats(self, epoch: int, consumed_steps: int) -> None:
+        """``sampler_stats_epoch{N}.json`` in the output directory."""
+        counts = self.sampler_stats(consumed_steps)
+        if counts is not None:
+            out = (self.out_dir or Path(".")) / f"sampler_stats_epoch{epoch}.json"
+            out.write_text(json.dumps(counts, indent=2))
+
 
 def plan_instance_counts(info: DatasetInfo, rows: np.ndarray) -> Dict[str, int]:
     """Instances per class over the corpus rows ``rows`` of an epoch plan."""
@@ -437,3 +894,206 @@ def plan_instance_counts(info: DatasetInfo, rows: np.ndarray) -> Dict[str, int]:
             per_image[i, index[t.class_name]] += 1
     total = per_image[np.asarray(rows, np.int64).ravel()].sum(0)
     return {c: int(total[i]) for i, c in enumerate(info.classes)}
+
+
+def _start_profiler(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, device: torch.device, out_dir: Path, window: Tuple[int, int]) -> Path:
+    """End the trace of steps [window) and write it as a Chrome trace."""
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    prof.stop()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"steps_{window[0]}-{window[1]}.pt.trace.json"
+    prof.export_chrome_trace(str(path))
+    return path
+
+
+def _print_map_table(metrics: Dict[str, float]) -> None:
+    """mAP summary table (parity: ref pycoco_map_eval.py:108-138)."""
+    try:
+        from rich.console import Console
+        from rich.table import Table
+
+        table = Table(title="MAP", show_header=False, show_lines=False)
+        for k, v in metrics.items():
+            table.add_row(k, f"{v:.4f}")
+        Console().print(table)
+    except ImportError:
+        for k, v in metrics.items():
+            print(f"  {k}: {v:.4f}")
+
+
+# ---------------------------------------------------------------- the config
+
+# keys the port reads and does not act on, and why (named at start-up)
+_KEYS_READ_NOT_ACTED_ON = {
+    "model.net.stem_space_to_depth": "a TPU rewrite of the same 6x6/2 stem function",
+    "trainer.compile_cache": "XLA's compile cache",
+    "trainer.deterministic": "the JAX trainer ignores it too",
+    "data.fused_epoch": "the port runs its step loop, the same training stream; the fused epoch is "
+                        "ROADMAP item A5",
+    "data.fused_pipelined": "likewise, A5",
+    "data.fused_dispatch_ahead": "likewise, A5",
+}
+
+
+def _cfg_get(cfg: dict, dotted: str):
+    node = cfg
+    for k in dotted.split("."):
+        if not isinstance(node, dict) or k not in node:
+            return None
+        node = node[k]
+    return node
+
+
+def _device_from_cfg(tcfg: dict) -> torch.device:
+    """``trainer.platform``: null is the card (no fallback), "cpu" the CPU."""
+    platform = tcfg.get("platform")
+    if platform in (None, "cuda", "gpu"):
+        return resolve_device("cuda")
+    if platform == "cpu":
+        return torch.device("cpu")
+    raise ValueError(f"trainer.platform={platform!r}: the port runs on 'cuda' (null) or 'cpu'")
+
+
+def _refuse_unported(cfg: dict) -> None:
+    """Raise, naming the key, for what the port does not run."""
+    tcfg, dcfg, mcfg = cfg["trainer"], cfg["data"], cfg["model"]
+    if mcfg.get("remat_policy"):
+        raise NotImplementedError(f"model.remat_policy={mcfg['remat_policy']!r}: XLA rematerialisation "
+                                  "is not ported (null is the only value)")
+    if (tcfg.get("num_devices") or 1) > 1:
+        raise NotImplementedError(f"trainer.num_devices={tcfg['num_devices']}: one card only; "
+                                  "multi-GPU is ROADMAP item A7")
+    if dcfg.get("corpus_sharding", "replicated") != "replicated":
+        raise NotImplementedError(f"data.corpus_sharding={dcfg['corpus_sharding']!r}: the sharded "
+                                  "corpus is multi-GPU, ROADMAP item A7")
+    if dcfg.get("pipeline") == "device" and dcfg.get("corpus_layout", "planar") != "planar":
+        raise NotImplementedError(f"data.corpus_layout={dcfg['corpus_layout']!r}: the flat layout is a TPU "
+                                  "tiling workaround and is not ported")
+    if str(dcfg.get("warp_pallas", "auto")).lower() == "false":
+        raise NotImplementedError(
+            "data.warp_pallas=False pins the JAX package's dense bf16 einsum warp, which the port does "
+            "not have: its fast warp is the K5 kernel (auto/True); data.warp_precision=exact is the "
+            "kernel-free warp")
+
+
+def _anchors_from_cfg(anchor_cfg: dict) -> LevelAnchors:
+    def info(d):
+        return AnchorBoxInfo(stride=d["stride"], boxes_wh=[FeatureShape(w, h) for w, h in d["boxes_wh"]])
+
+    return LevelAnchors(ll=info(anchor_cfg["ll"]), ml=info(anchor_cfg["ml"]), hl=info(anchor_cfg["hl"]))
+
+
+def _load_dataset(name: str, split: str, cfg: dict) -> DatasetInfo:
+    """Resolve a dataset by name (the JAX trainer's ``_load_dataset``): fake
+    names build a manifest, a cached manifest comes next, ``synthetic*``
+    names are built and cached when missing or stale against the genparams
+    sidecar; an unknown name that is not cached raises ``ValueError``."""
+    from object_detection_cib_torch.data.enums import DatasetName
+
+    known = {d.value for d in DatasetName}
+    registered = name in known or name.startswith(("fake", "synthetic"))
+    if name.startswith("fake"):
+        return build_fake_manifest(
+            name=name,
+            num_classes=int(cfg.get("fake_num_classes", 10)),
+            num_images=int(cfg.get("fake_num_images", 64 if split == "train" else 16)),
+            seed=0 if split == "train" else 1,
+        )
+    cache_dir = cfg.get("dataset_cache_dir")
+
+    def synth_genparams():
+        n = (cfg.get("synthetic_images", 400) if split == "train"
+             else cfg.get("synthetic_val_images", cfg.get("synthetic_images", 100)))
+        return {"num_images": int(n), "seed": 0 if split == "train" else 1}
+
+    try:
+        info = deserialize_cached_dataset(name, split, cache_dir)
+        if name.startswith("synthetic"):
+            # an explicit size wins over a stale cache, and a cache built with
+            # other generation parameters is not reused (the sidecar)
+            explicit = (cfg.get("synthetic_images") if split == "train"
+                        else cfg.get("synthetic_val_images", cfg.get("synthetic_images")))
+            if explicit is not None:
+                want = synth_genparams()
+                recorded = _read_genparams(name, split, cache_dir)
+                if recorded is not None and recorded != want:
+                    raise FileNotFoundError(f"cached {name}-{split} was generated with {recorded}, "
+                                            f"requested {want}; rebuilding")
+                if len(info.samples) != int(explicit):
+                    raise FileNotFoundError(f"cached {name}-{split} has {len(info.samples)} samples, "
+                                            f"requested {explicit}; rebuilding")
+        return info
+    except FileNotFoundError as e:
+        if not name.startswith("synthetic"):
+            if not registered:
+                raise ValueError(f"unknown dataset {name!r}: not in the DatasetName registry "
+                                 f"{sorted(known)} and no cached manifest found ({e})") from e
+            raise
+        from object_detection_cib_torch.data.cache import serialize_cached_dataset
+        from object_detection_cib_torch.utils.fs import get_root_dir
+
+        out_dir = get_default_datasets_dir()
+        gen = synth_genparams()
+        info = build_synthetic_dataset(out_dir, name=f"{name}-{split}", num_images=gen["num_images"],
+                                       seed=gen["seed"], path_prefix=str(out_dir.relative_to(get_root_dir())))
+        info = info._replace(name=name)
+        serialize_cached_dataset(info, split, cache_dir)
+        _write_genparams(name, split, cache_dir, gen)
+        return info
+
+
+def _genparams_path(name: str, split: str, cache_dir) -> Path:
+    base = Path(cache_dir) if cache_dir else get_default_dataset_cache_dir()
+    return base / f"kod-{name}-{split}.genparams.json"
+
+
+def _read_genparams(name: str, split: str, cache_dir):
+    try:
+        return json.loads(_genparams_path(name, split, cache_dir).read_text())
+    except (OSError, ValueError):
+        return None
+
+
+def _write_genparams(name: str, split: str, cache_dir, gen: dict) -> None:
+    p = _genparams_path(name, split, cache_dir)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    p.write_text(json.dumps(gen))
+
+
+def get_metric_value(metric_dict: Dict[str, float], metric_name) -> Optional[float]:
+    """The sweep-optimized metric of a task's metric dict (parity:
+    kod/lightning/hydra_utils/misc.py:108-128): None when no name is asked
+    for; a name absent from the metrics raises ``KeyError``."""
+    if not metric_name:
+        return None
+    if metric_name not in metric_dict:
+        raise KeyError(f"Metric value not found! <metric_name={metric_name}>. Available: "
+                       f"{sorted(metric_dict)}. Make sure the `optimized_metric` name matches a logged metric.")
+    return float(metric_dict[metric_name])
+
+
+def train(cfg: dict) -> Dict[str, float]:
+    """The entry task (parity: kod/lightning/tasks/trainer.py train()): fit,
+    then test, then predict, then finalize the loggers."""
+    trainer = Trainer.from_config(cfg)
+    metrics: Dict[str, float] = {}
+    if cfg.get("train", True):
+        metrics = trainer.fit()
+    if cfg.get("test", False):
+        metrics = trainer.validate()
+        print(json.dumps(metrics, indent=2))
+    if cfg.get("predict", False):
+        trainer.predict(trainer.out_dir / "predictions.json")
+    for lg in trainer.loggers:  # close run-scoped backends (tensorboard/wandb/mlflow)
+        getattr(lg, "finalize", lambda: None)()
+    return metrics

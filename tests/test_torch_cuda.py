@@ -560,3 +560,51 @@ def test_to_unit_on_card_is_the_cpu_division(dev):
     for src in (x, x.to(torch.bfloat16), x.float()):
         assert torch.equal(to_unit(src.to(dev)).cpu(), to_unit(src))
     assert torch.equal(to_unit(x), torch.from_numpy(np.arange(256, dtype=np.float32) / np.float32(255.0)))
+
+
+def test_checkpoint_snapshot_survives_in_place_updates_on_card(dev, tmp_path):
+    """The optimizer's next steps run on the card while the writer copies the
+    snapshot: the file holds the state at the save, bit for bit."""
+    from object_detection_cib_torch.models.yolov5 import build_network
+    from object_detection_cib_torch.train.checkpoint import CheckpointManager, Snapshot, load_state
+    from object_detection_cib_torch.train.optim import OptimizerConfig, SmartSGD
+
+    net = build_network(3, "s", device=dev, seed=0)
+    opt = SmartSGD(net, OptimizerConfig(max_epochs=10), 10)
+    for b in opt.buffers.values():
+        b.normal_()
+    opt.step_count = 5
+    want = {k: v.cpu().clone() for k, v in net.state_dict().items()}
+    want_mom = {k: v.cpu().clone() for k, v in opt.buffers.items()}
+    cm = CheckpointManager(tmp_path / "ck")
+    cm.save_last(Snapshot(net, opt))
+    with torch.no_grad():  # in place, enqueued right behind the snapshot's clones
+        for _ in range(20):
+            for p in net.parameters():
+                p.mul_(0.5).add_(1.0)
+            for b in opt.buffers.values():
+                b.sub_(1.0)
+    cm.wait_until_finished()
+    state = load_state(tmp_path / "ck" / "last")
+    assert all(torch.equal(state["net"][k], v) for k, v in want.items())
+    assert all(torch.equal(state["optimizer"]["momentum"][k], v) for k, v in want_mom.items())
+    assert state["optimizer"]["step_count"] == 5
+
+
+def test_cli_fast_dev_run_on_card(dev, tmp_path):
+    """``cli.train`` with ``trainer.platform`` null runs on the card: the
+    device pipeline launches the training kernels, validation launches K1."""
+    from object_detection_cib_torch.cli.train import main
+    from object_detection_cib_torch.train.checkpoint import load_state
+
+    counted = (gather_ops.gather_rows_planar, hsv_ops.hsv_planar, warp_ops.warp_quadrants,
+               nms_ops.greedy_nms_mask)
+    for fn in counted:
+        fn.launches = 0
+    metrics = main(["experiment=yv5n", "dataset_name=fake", "data.batch_size=8", "data.target_image_size=64",
+                    "data.fake_num_images=32", "data.pipeline=device", "data.device_cache=True",
+                    "trainer.fast_dev_run=True", "logger=csv", "callbacks.model_summary=null",
+                    "extras.print_config=False", f"paths.output_dir={tmp_path}"])
+    assert [fn.launches for fn in counted] == [1, 1, 1, 1]
+    assert 0.0 <= metrics["map"] <= 1.0
+    assert load_state(tmp_path / "checkpoints" / "last")["optimizer"]["step_count"] == 1

@@ -268,7 +268,7 @@ def test_tiny_trainer_trains_from_jpegs(jpegs, feed):
     t = Trainer(train, val, size="n", image_size=S, batch_size=B, dtype=None, device="cpu",
                 root_dir=root, max_epochs=1, max_targets=MAXT, **FEEDS[feed])
     before = [p.detach().clone() for p in t.net.parameters()]
-    m = t.fit(limit_train_batches=2)
+    m = t.fit(epoch_steps=2)
     em = t.epoch_metrics[-1]
     assert len(em["total"]) == 2 and np.isfinite(em["total"]).all()
     assert sum(not torch.equal(a, b) for a, b in zip(before, t.net.parameters())) > 0

@@ -500,7 +500,7 @@ def test_trainer_runs_recipe_and_counts_sampler_stats(recipe):
             "repeat_factor_no_mosaic": lambda: tsamplers.RepeatFactorSampler(info),
             "shuffle_general_affine_exact_off": lambda: tsamplers.ShuffleSampler(info, seed=0)}[recipe]()
     first_epoch = np.asarray(twin.epoch_indices())
-    trainer.fit(max_epochs=1, limit_train_batches=2)
+    trainer.fit(max_epochs=1, epoch_steps=2)
     assert np.isfinite(trainer.epoch_metrics[-1]["total"]).all()
     plan = trainer.pipeline.consumed_plan_log[0]
     stats = trainer.sampler_stats(2)

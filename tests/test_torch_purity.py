@@ -32,7 +32,8 @@ def _sources():
 
 COPIES = ["data/enums.py", "data/filter.py", "data/samplers.py", "data/reader.py",
           "data/host_augment.py", "data/augmentor.py", "data/synthetic.py", "data/builder.py",
-          "data/pipeline.py", "utils/plots.py", "cli/data.py"]
+          "data/pipeline.py", "utils/plots.py", "cli/data.py", "utils/loggers.py",
+          "cli/inspect_sampler.py", "cli/visualize.py", "cli/train.py"]
 
 
 @pytest.mark.parametrize("module", COPIES)
@@ -190,3 +191,70 @@ def test_training_kernel_wrappers_never_fall_back(monkeypatch, kernel):
     with pytest.raises(ValueError, match="no .* kernel for device"):
         calls[kernel]()
     assert fn.launches == before
+
+
+def test_every_config_target_instantiates_with_jax_blocked():
+    """Each ``_target_`` of ``configs/`` builds a port object in a fresh
+    interpreter where neither JAX nor the JAX package can be imported."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'object_detection_cib_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from object_detection_cib_torch.config import compose, instantiate, load_yaml\n"
+        "from object_detection_cib_torch.data.synthetic import build_fake_manifest\n"
+        "info = build_fake_manifest(num_classes=3, num_images=12, seed=0)\n"
+        "specs = [compose('configs', 'train', [])['data']['train_data_augmentor']]\n"
+        "specs += [load_yaml(f'configs/data/{n}.yaml')[0] for n in ('class_aware', 'repeat_factor',\n"
+        "          'augmentations/aug_params', 'augmentations/no_aug_params', 'augmentations/albu/default')]\n"
+        "made = [instantiate(s) for s in specs]\n"
+        "made[1](info).epoch_indices(); made[2](info).epoch_indices()\n"
+        "mods = {m.func.__module__ if hasattr(m, 'func') else type(m).__module__ for m in made}\n"
+        "assert all(m.startswith('object_detection_cib_torch.') for m in mods), mods\n"
+        "assert not any(k.split('.')[0] in ('jax', 'object_detection_cib_tpu') for k in sys.modules)\n"
+        "print(len(made))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "6"
+
+
+def test_from_config_refuses_the_cpu_without_asking(monkeypatch, tmp_path):
+    """``trainer.platform`` null is the card; without one the trainer raises
+    instead of training on the CPU (``trainer=cpu`` asks for it)."""
+    from object_detection_cib_torch.config import compose
+    from object_detection_cib_torch.train.trainer import Trainer
+
+    cfg = compose(ROOT / "configs", "train", ["experiment=yv5n", "dataset_name=fake", "data.batch_size=2",
+                                              "data.target_image_size=64", f"paths.output_dir={tmp_path}"])
+    assert cfg["trainer"]["platform"] is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer.from_config(cfg)
+    assert not (tmp_path / "hparams.json").exists()
+
+
+def test_cli_program_loads_neither_tensorflow_nor_jax(tmp_path):
+    """``python -m object_detection_cib_torch.cli.train`` with the default
+    ``logger=many_loggers`` writes TensorBoard events through tensorboard's
+    no-TensorFlow stub and ends with neither TensorFlow, JAX nor the JAX
+    package loaded."""
+    argv = ["experiment=yv5n", "dataset_name=fake", "trainer=cpu", "debug=fdr", "model.net.dtype=null",
+            "model.net.widen_factor=0.25", "data.batch_size=4", "data.target_image_size=64",
+            "data.num_workers=1", "data.fake_num_images=8", "callbacks.model_summary=null",
+            "print_config=False", "model.val_nms_max_candidates=256", f"paths.output_dir={tmp_path}"]
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = ['train', *{argv!r}]\n"
+        "runpy.run_module('object_detection_cib_torch.cli.train', run_name='__main__')\n"
+        "bad = sorted({k.split('.')[0] for k in sys.modules} & {'jax', 'tensorflow', 'object_detection_cib_tpu'})\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split()[-1] == "clean"
+    assert list((tmp_path / "tb").glob("events.out.tfevents*"))
+    assert (tmp_path / "checkpoints" / "last").is_file()

@@ -91,6 +91,46 @@ def test_assignment_exact(B, Tn, seed):
         assert int(gl.valid.sum()) > 0
 
 
+@pytest.mark.parametrize("thr", [4.0, 2.5])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_five_offset_assignment_exact(seed, thr):
+    """The reference's full offset table (``assigners.offset_capacity=5``)."""
+    boxes, labels, mask = _targets(4, 12, seed)
+    want = jas.assign_targets(jnp.asarray(boxes), jnp.asarray(labels), jnp.asarray(mask),
+                              JShape(IMG, IMG), j_anchors(), thr, 5)
+    got = tas.assign_targets(T(boxes), T(labels), T(mask), TShape(IMG, IMG), t_anchors(),
+                             threshold=thr, offset_capacity=5)
+    three = tas.assign_targets(T(boxes), T(labels), T(mask), TShape(IMG, IMG), t_anchors(), threshold=thr)
+    for gl, jl, tl in zip(got.levels(), want.levels(), three.levels()):
+        for name, g, j in zip(jl._fields, gl, jl):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(j), err_msg=name)
+        assert gl.valid.shape[0] == tl.valid.shape[0] * 5 // 3
+    # boxes[0, 0] sits on integer grid coordinates: there the five-slot table
+    # also emits the duplicate neighbour cells the compact one drops
+    assert sum(int(lv.valid.sum()) for lv in got.levels()) > sum(int(lv.valid.sum()) for lv in three.levels())
+    with pytest.raises(ValueError, match="offset_capacity"):
+        tas.assign_targets(T(boxes), T(labels), T(mask), TShape(IMG, IMG), t_anchors(), offset_capacity=4)
+
+
+def test_train_step_without_compaction_equals_a_roomy_cap():
+    """``assign_compact_slots=None`` keeps every slot; a cap no level reaches
+    gives the same step."""
+    boxes, labels, mask = _targets(4, 10, 7)
+    images = np.random.default_rng(8).random((4, IMG, IMG, 3), np.float32)
+    out = []
+    for slots in (None, 10_000):
+        net = t_build(NC, "n", device="cpu", seed=3)
+        step = t_make_step(net, t_anchors(), TShape(IMG, IMG), topt.SmartSGD(net, topt.OptimizerConfig(), 10),
+                           assign_compact_slots=slots, assign_offset_capacity=5, assign_threshold=3.0)
+        m = step(TBatch(*map(T, (images, boxes, labels, mask))))
+        out.append((m, net.state_dict()))
+    (m0, sd0), (m1, sd1) = out
+    assert int(m0.assign_drop) == int(m1.assign_drop) == 0
+    np.testing.assert_allclose(float(m0.total), float(m1.total), rtol=1e-6)
+    for k in sd0:
+        np.testing.assert_allclose(sd0[k].numpy(), sd1[k].numpy(), rtol=1e-5, atol=1e-7, err_msg=k)
+
+
 @pytest.mark.parametrize("cap", [4, 40, 10_000])
 def test_compaction_and_drop_exact(cap):
     boxes, labels, mask = _targets(4, 12, 2)
