@@ -70,7 +70,8 @@ result line):
    plain versions on the card, then timed in turns against them (and the
    gather against ``torch.index_select``), with bounds from this run's
    inputs;
-8. training: ``Trainer.fit(max_epochs=1, epoch_steps=40)`` with the
+8. training: the step loop (``Trainer(fused_epoch=False)``),
+   ``Trainer.fit(max_epochs=1, epoch_steps=40)`` with the
    launch counts zeroed just before and read just after (K2, K4, K5 once
    per step; K1 five times in the epoch-end validation); finite losses,
    every parameter moved, a finite mAP; img/s over the last 30 steps, ms
@@ -123,7 +124,9 @@ result line):
     no config print and ``logger=csv``. (a) ``experiment=yv5s`` (yolov5s@416,
     B=64, bf16) over a fake 640-image set on the device pipeline with the
     corpus on the card, two epochs validated once
-    (``check_val_every_n_epoch=2``): K2, K4, K5 20 times each, K1 10 (one
+    (``check_val_every_n_epoch=2``), on the fused epoch by the config's
+    defaults (a CUDA graph a step, the second epoch enqueued ahead of the
+    first's fetch): K2, K4, K5 20 times each, counted by replay, K1 10 (one
     validation of 640 images); finite losses and mAP; ``checkpoints/{best,
     last,meta.json}``, ``csv/metrics.csv``, ``hparams.json``; then ``train=
     False test=True ckpt_path=<run>/checkpoints/last``: the restored
@@ -135,7 +138,25 @@ result line):
     ``limit_val_batches=0.2``: K2, K4, K5 10 times each (5 steps, two groups
     a step), K1 twice, and the sampler's instance counts. (a) and (b) print
     img/s: observations, not claims;
-12. the ``kernels`` JSON line (with each path's launches), the card line,
+12. fused: the fused epoch (``fused_epoch``, ``fused_pipelined``,
+    ``fused_dispatch_ahead``, the config defaults) at phase 8's width over
+    phase 6's corpus. First a probe: the first 6 batches of a fused epoch
+    (pipelined, a CUDA graph after 2 eager warm-up steps, so 3 batches made
+    inside the graph), recorded by the step itself, bitwise equal to the
+    step loop's iterator from the same seed. Then two trainers of the same
+    seed, the step loop and the fused epoch, each fitted to epoch 2 and on
+    to epoch 4 in full 78-step epochs, validated at epochs 2 and 4, in turns
+    (step, fused, fused, step): each fit launches K2, K4, K5 156 times
+    (counted by replay for the fused loop) and K1 5; finite losses and
+    mAP, the fused trainer's parameters moved. Printed: img/s of each fit's
+    second epoch (host clock; fetch to fetch for the fused loop), the
+    device epoch walls (CUDA events), the first three losses of both loops,
+    the peak memory; for one whole fused epoch from an idle card the host's
+    enqueue and the time a step; the graph's nodes and kernels per step
+    (libcuda's ``cuGraphGetNodes``); over a 10-step fused epoch the profiler's kernel time
+    and the card's busy time (the union of the kernels' intervals: two
+    streams overlap) and idle share. Observations, not claims;
+13. the ``kernels`` JSON line (with each path's launches), the card line,
     and the result line last.
 """
 
@@ -700,6 +721,198 @@ def phase_cli(card, counted, zero_counts, read_counts):
     return counts
 
 
+FUSED_EPOCHS = 4  # phase 12: two fits of two epochs per loop, in turns
+PROBE_STEPS = 6  # phase 12's batch probe: 3 batches made eagerly, 3 inside the graph
+PROF_STEPS = 10  # phase 12's profiler window of replays
+
+
+def graph_nodes(graph):
+    """(nodes, kernel nodes) of a kept ``torch.cuda.CUDAGraph``, read through
+    libcuda (``cuGraphGetNodes``, ``cuGraphNodeGetType``)."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)):
+        fail("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)):
+        fail("cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            fail("cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    return n.value, kinds.count(0)  # CU_GRAPH_NODE_TYPE_KERNEL = 0
+
+
+def phase_fused(card, dev, aug, train_info, val_info, corpus, zero_counts, read_counts):
+    """Phase 12: the fused epoch (the JAX package's default device-cache
+    loop) at phase 8's width over phase 6's corpus, beside the step loop.
+    Returns the fused fits' launch counts."""
+    import numpy as np
+
+    from object_detection_cib_torch.data.device_pipeline import DeviceDataPipeline
+    from object_detection_cib_torch.train.trainer import Trainer
+
+    steps = TRAIN_N // TRAIN_B
+    t_phase = time.perf_counter()
+
+    # the batches: the fused epoch (pipelined, a CUDA graph) against the step loop's iterator
+    ref = DeviceDataPipeline(train_info, TRAIN_S, TRAIN_B, aug, max_targets=MAX_TARGETS, seed=0, device=dev,
+                             corpus=corpus)
+    probe = DeviceDataPipeline(train_info, TRAIN_S, TRAIN_B, aug, max_targets=MAX_TARGETS, seed=0, device=dev,
+                               corpus=corpus)
+    want = [b for b, _ in ref.epoch(PROBE_STEPS)]
+    rec = [torch.empty((PROBE_STEPS,) + tuple(x.shape), dtype=x.dtype, device=dev) for x in want[0]]
+    k = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def record(batch, *rows):
+        for buf, x in zip(rec, batch):
+            buf.index_copy_(0, k.view(1), x[None])
+        k.add_(1)
+        return batch.images.float().sum()
+
+    fn = probe.build_fused_epoch_fn(record, pipelined=True, stack_metrics=True)
+    fn(probe.epoch_host_arrays(PROBE_STEPS))
+    torch.cuda.synchronize()
+    for i, batch in enumerate(want):
+        if not all(torch.equal(buf[i], x) for buf, x in zip(rec, batch)):
+            fail(f"[fused] batch {i} of the fused epoch (CUDA graph) differs from the step loop's")
+    made_in_graph = PROBE_STEPS - 1 - fn.WARMUP_STEPS
+    log(f"[fused] batches: the first {PROBE_STEPS} of the fused epoch (pipelined, captured after "
+        f"{fn.WARMUP_STEPS} eager warm-up steps; the last {made_in_graph} made inside the graph) bitwise "
+        f"equal to the step loop's (images, boxes, labels, mask); graphs {sorted(fn.graphs)}")
+    del ref, probe, want, rec, fn
+
+    # the two loops in turns: step, fused, fused, step
+    kw = dict(size="s", image_size=TRAIN_S, batch_size=TRAIN_B, aug_params=aug, max_targets=MAX_TARGETS,
+              seed=0, dtype=torch.bfloat16, device=dev, corpus=corpus, max_epochs=FUSED_EPOCHS)
+    loops = {"step": Trainer(train_info, val_info, fused_epoch=False, **kw),
+             "fused": Trainer(train_info, val_info, **kw)}
+    for t in loops.values():
+        t.loop = t.loop._replace(check_val_every_n_epoch=2)
+    t_f = loops["fused"]
+    before = [p.detach().clone() for p in t_f.net.parameters()]
+    n_val = math.ceil(len(val_info.samples) / TRAIN_B)
+    counts, turns = {}, []
+    for turn, (name, stop) in enumerate((("step", 2), ("fused", 2), ("fused", 4), ("step", 4))):
+        t = loops[name]
+        if name == "fused" and stop == 2:
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        m = t.fit(max_epochs=stop)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        want_n = {"gather_rows_planar": 2 * steps, "hsv_planar": 2 * steps, "warp_quadrants": 2 * steps,
+                  "greedy_nms_mask": n_val}
+        for kname, nw in want_n.items():
+            if got[kname] != nw:
+                fail(f"[fused] turn {turn} ({name}) launched {kname} {got[kname]} times, want {nw}")
+        if name == "fused" and stop == 2:
+            peak = torch.cuda.max_memory_allocated()
+            counts = got
+            unmoved = sum(torch.equal(a, b) for a, b in zip(before, t_f.net.parameters()))
+            if unmoved:
+                fail(f"[fused] {unmoved} of {len(before)} parameters did not move")
+        losses = np.concatenate([em["total"] for em in t.epoch_metrics[-2:]])
+        if not np.isfinite(losses).all() or not finite_map(m):
+            fail(f"[fused] turn {turn} ({name}): losses or mAP not finite: {losses}, {m}")
+        ips = sum(t.epoch_imgs[-2:]) / sum(t.epoch_walls[-2:])
+        turns.append((name, ips))
+        walls = t.device_epoch_walls() if name == "fused" else {}
+        log(f"[fused] turn {turn} {name} loop, fit to epoch {stop}: {ips:.2f} img/s over its two epochs "
+            f"(host clock, the epochs' walls summed: {[round(w, 4) for w in t.epoch_walls[-2:]]} s, "
+            f"{'fetch to fetch' if name == 'fused' else 'start to fetch'}); epoch {stop} alone "
+            f"{t.epoch_imgs[-1] / t.epoch_walls[-1]:.2f} img/s; device epoch walls (CUDA events) "
+            f"{ {e: round(w, 4) for e, w in walls.items()} } s; whole fit {wall:.2f} s with one validation; "
+            f"launches {got}; losses {losses[0]:.4f}->{losses[-1]:.4f}; map {m['map']:.6g} | {card}")
+    first = [loops[n].epoch_metrics[0]["total"][:3] for n in ("step", "fused")]
+    log(f"[fused] first three losses, step loop {first[0].tolist()} vs fused {first[1].tolist()} "
+        f"(same weights, batches and order; equal where the card's kernels are deterministic)")
+    log(f"[fused] peak memory of the first fused fit {peak / 2**30:.3f} GiB (max_memory_allocated, all "
+        f"trainers alive) | {card}")
+
+    # the fused epoch alone: host enqueue, device time, profiler, graph nodes
+    fn = t_f._fused_fn
+    pipe = t_f.pipeline
+    opt = t_f.optimizer
+
+    def epoch(n):
+        xs = pipe.epoch_host_arrays(n)
+        step0 = opt.step_count
+        out = fn(xs, opt.hyper_table(step0, xs[0].shape[0]))
+        opt.step_count = step0 + xs[0].shape[0]
+        return out
+
+    body = fn.graphs["body"]
+    replay_ms = []
+    real_replay = body.replay
+
+    def timed_replay():
+        t = time.perf_counter()
+        real_replay()
+        replay_ms.append((time.perf_counter() - t) * 1e3)
+
+    body.replay = timed_replay
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epoch(None)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del body.replay
+    enq_ms, dev_ms = (t1 - t0) / steps * 1e3, (t2 - t0) / steps * 1e3
+    wait = statistics.median(replay_ms[2:])
+    log(f"[fused] one whole epoch of {steps} steps from an idle card: the host returns from the enqueue "
+        f"after {enq_ms:.4f} ms a step, done in {dev_ms:.4f} ms a step ({TRAIN_B * 1e3 / dev_ms:.2f} img/s, "
+        f"host clock); one replay's call takes {replay_ms[0]:.4f} ms from the idle card, then "
+        f"{replay_ms[1]:.4f}, then a median {wait:.4f} ms (replays 3-{len(replay_ms)}): the host waits on "
+        f"the card's queue, ahead of it by about one step | {card}")
+    nodes, kernels = graph_nodes(fn.graphs["body"].graph)
+    last_nodes, last_kernels = graph_nodes(fn.graphs["last"].graph)
+    log(f"[fused] graph of one step (make batch i+1 beside train step i): {nodes} nodes, {kernels} kernels; "
+        f"the last step's (train only): {last_nodes} nodes, {last_kernels} kernels; launches held "
+        f"{ {e.__name__: n for e, n in fn.graphs['body'].launches.items()} }")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    epoch(PROF_STEPS)  # the same shapes once more, untraced
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        epoch(PROF_STEPS)
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel_ms = sum(getattr(e, "self_device_time_total", 0) for e in dev_events) / 1e3 / PROF_STEPS
+    per_step = sum(e.count for e in dev_events) / PROF_STEPS
+    # two streams overlap: the busy time is the union of the kernels' intervals, not their sum
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, reach = 0.0, None
+    for a, b in spans:
+        if reach is None or a > reach:
+            busy_us += b - a
+            reach = b
+        elif b > reach:
+            busy_us += b - reach
+            reach = b
+    if spans:
+        window = max(b for _, b in spans) - spans[0][0]
+        log(f"[fused] profiler over a {PROF_STEPS}-step fused epoch: kernels {per_step:.0f} a step taking "
+            f"{kernel_ms:.4f} ms a step summed; the card busy (union of kernel intervals, two streams) "
+            f"{busy_us / 1e3 / PROF_STEPS:.4f} ms a step of the window's {window / 1e3 / PROF_STEPS:.4f}: "
+            f"device idle share {1 - busy_us / window:.4f} | {card}")
+    else:
+        log("[fused] profiler: no device time in the trace of the replays; busy and idle share not measured")
+    ips = {n: [v for m_, v in turns if m_ == n] for n in ("step", "fused")}
+    log(f"[fused] in turns (step, fused, fused, step): img/s step {ips['step']}, fused {ips['fused']}; "
+        f"phase 12 {time.perf_counter() - t_phase:.2f} s | {card}")
+    del loops, t_f, fn
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path, action="append", default=[],
@@ -1002,7 +1215,7 @@ def main() -> None:
     t0 = time.perf_counter()
     trainer = Trainer(train_info, info, size="s", image_size=TRAIN_S, batch_size=TRAIN_B,
                       aug_params=aug, max_targets=MAX_TARGETS, seed=0, dtype=torch.bfloat16,
-                      device=dev)
+                      device=dev, fused_epoch=False)  # phase 8 is the step loop; phase 12 the fused
     torch.cuda.synchronize()
     pipe = trainer.pipeline
     corpus = pipe.corpus
@@ -1535,7 +1748,10 @@ def main() -> None:
     # ----------------------------------------------------------------- 11 cli
     cli = phase_cli(card, counted, zero_counts, read_counts)
 
-    # -------------------------------------------------------------- 12 report
+    # --------------------------------------------------------------- 12 fused
+    fused = phase_fused(card, dev, aug, train_info, info, shared, zero_counts, read_counts)
+
+    # -------------------------------------------------------------- 13 report
     src = "object_detection_cib_torch/ops/csrc/"
     rows = [
         ("greedy_nms_mask", "nms.cu", "object_detection_cib_tpu/ops/pallas_nms.py:131", serve_launches),
@@ -1560,7 +1776,8 @@ def main() -> None:
                                  "validation": val_launches if name == "greedy_nms_mask" else 0,
                                  "train": train_launches[name],
                                  **{f"jpeg_{part}": n[name] for part, n in jpeg.items()},
-                                 "cli": {part: n[name] for part, n in cli.items()}},
+                                 "cli": {part: n[name] for part, n in cli.items()},
+                                 "fused": fused[name]},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -47,10 +47,16 @@ JAX package does, so the same seed gives the same groups. The per-step
 (``draw_augment``), made in step order by the consumer, so augmentation is
 reproducible within the port only.
 
+Two ways through an epoch: ``epoch`` yields the steps' batches to a step
+loop; ``build_fused_epoch_fn`` (``FusedEpoch``, the JAX package's fused
+epoch over the corpus on the card) runs gather, augment and the train step
+of every step itself, on the card as a CUDA graph replayed once per step.
+Both give the same batches from the same seed.
+
 Not ported: the flat (N, 8, D/8) corpus layout, a TPU tiling workaround
 (it raises ``NotImplementedError``; K3's kernel still exists, in
-``ops/gather.py``), ``device_put_row_major`` (a TPU layout pin), the fused
-epoch program (ROADMAP A5) and the multi-host and sharded-corpus modes (A7).
+``ops/gather.py``), ``device_put_row_major`` (a TPU layout pin) and the
+multi-host and sharded-corpus modes (A7).
 """
 
 from __future__ import annotations
@@ -86,6 +92,7 @@ from object_detection_cib_torch.ops.augment import (
     take_rows_cols,
 )
 from object_detection_cib_torch.ops.gather import gather_rows_planar
+from object_detection_cib_torch.ops.graph import CapturedGraph
 from object_detection_cib_torch.ops.hsv import hsv_planar
 from object_detection_cib_torch.ops.warp import FILL
 from object_detection_cib_torch.train.steps import Batch
@@ -544,6 +551,18 @@ class DeviceDataPipeline:
         self.consumed_plan_log.append(np.concatenate([groups, secs], 1) if secs.size else groups)
         return groups, secs
 
+    def _planned(self, max_steps: Optional[int]) -> Tuple[np.ndarray, np.ndarray]:
+        """``_epoch_plan`` cut to ``max_steps`` steps (the whole plan is
+        logged), its rows checked on the host to lie in the corpus."""
+        groups, secs = self._epoch_plan()
+        if max_steps is not None:
+            groups, secs = groups[:max_steps], secs[:max_steps]
+        n = len(self.info.samples)
+        for rows in (groups, secs):
+            if rows.size and (rows.min() < 0 or rows.max() >= n):
+                raise IndexError(f"epoch plan row outside [0, {n})")
+        return groups, secs
+
     def gather(self, idx: torch.Tensor) -> DeviceSample:
         """Corpus rows ``idx`` (one K2 launch) and their sizes and targets."""
         if self.corpus is None:
@@ -672,13 +691,7 @@ class DeviceDataPipeline:
         ``overflow_total`` is read; with ``track_overflow=False`` they are
         only yielded, and the caller adds them (``add_overflow``).
         """
-        groups, secs = self._epoch_plan()
-        if max_steps is not None:
-            groups, secs = groups[:max_steps], secs[:max_steps]
-        n = len(self.info.samples)
-        for rows in (groups, secs):
-            if rows.size and (rows.min() < 0 or rows.max() >= n):
-                raise IndexError(f"epoch plan row outside [0, {n})")
+        groups, secs = self._planned(max_steps)
         plan = torch.from_numpy(groups.astype(np.int32)).to(self.device)
         plan2 = torch.from_numpy(secs.astype(np.int32)).to(self.device) if secs.size else None
         if self.device_cache:
@@ -691,3 +704,246 @@ class DeviceDataPipeline:
             if track_overflow:
                 self._overflow_pending.append(ovf)
             yield batch, ovf
+
+    # ------------------------- the fused epoch -------------------------
+    @property
+    def device_arrays(self) -> Tuple[torch.Tensor, ...]:
+        """What the fused epoch gathers from: the corpus, its sizes and its
+        per-image targets, ``(images, sizes, boxes, labels, mask)``."""
+        if self.corpus is None:
+            raise RuntimeError("the fused epoch reads the corpus on the card: device_cache=True")
+        return self.corpus, self.sizes, self.t_boxes, self.t_labels, self.t_mask
+
+    def epoch_host_arrays(self, max_steps: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+        """One epoch's plan for the fused epoch, a row per step: ``(groups,)``
+        or, under mixup, ``(groups, secs)``, int32 tensors on the host
+        (pinned on a card machine). Drawn through ``_epoch_plan``, so the
+        sampler, ``pyrng`` and ``consumed_plan_log`` advance exactly as
+        iterating ``epoch`` advances them; ``max_steps`` cuts the plan. The
+        JAX package's version also returns a key per step; here the draws
+        come from the pipeline's generator, in step order."""
+        groups, secs = self._planned(max_steps)
+        xs = (groups, secs) if self.mixup_prob > 0.0 else (groups,)
+        pin = self.device.type == "cuda"
+        return tuple(torch.from_numpy(x.astype(np.int32)).pin_memory() if pin
+                     else torch.from_numpy(x.astype(np.int32)) for x in xs)
+
+    def build_fused_epoch_fn(self, train_step, pipelined: bool = False, stack_metrics: bool = False,
+                             graph: Optional[bool] = None) -> "FusedEpoch":
+        """``epoch_fn(xs, *tables)``: every step of one epoch as gather ->
+        augment -> ``train_step`` (the JAX package's ``build_fused_epoch_fn``,
+        a scan in one program). See ``FusedEpoch``."""
+        return FusedEpoch(self, train_step, pipelined, stack_metrics, graph)
+
+
+def _leaves(tree) -> list:
+    """The leaves of a metrics tree in the JAX package's order (fields in
+    order, dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+def _rebuild(template, leaves: Iterator):
+    """``template``'s structure with its leaves taken from ``leaves``."""
+    if isinstance(template, dict):
+        return {k: _rebuild(template[k], leaves) for k in sorted(template)}
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        return type(template)(*(_rebuild(t, leaves) for t in template))
+    if isinstance(template, (tuple, list)):
+        return type(template)(_rebuild(t, leaves) for t in template)
+    return next(leaves)
+
+
+def metric_column(metrics, overflow: torch.Tensor) -> torch.Tensor:
+    """A step's metrics (a tensor, a float, or a tuple or dict of them;
+    leaves in the JAX package's order) and its overflow, as one f32
+    column on the overflow's device."""
+    dev = overflow.device
+    return torch.stack([x.float() if isinstance(x, torch.Tensor) else torch.full((), float(x), device=dev)
+                        for x in _leaves(metrics)] + [overflow.float()])
+
+
+def _copy_into(dst, src) -> None:
+    for d, s in zip(_leaves(dst), _leaves(src)):
+        d.copy_(s)
+
+
+class FusedEpoch:
+    """One epoch of gather -> augment -> train step per step, as the JAX
+    package's fused epoch (``build_fused_epoch_fn``, one program a scan),
+    from the corpus on the card.
+
+    ``epoch_fn(xs, *tables)`` takes ``xs`` from ``epoch_host_arrays`` and
+    any per-step tables (a leading dimension of steps; the trainer passes
+    SmartSGD's hyperparameter table). Step i gathers plan row i (K2, twice
+    under mixup), draws from the pipeline's generator, augments (K5, K4)
+    and calls ``train_step(batch, *rows)`` with row i of each table; its
+    metrics (a tensor, a float, or a tuple or dict of them) and the step's
+    overflow go to column i of one ``f32[n_leaves + 1, steps]`` matrix,
+    leaves in the JAX package's order, overflow last. The call returns that
+    matrix with ``stack_metrics``, else ``(metrics tree of f32 rows,
+    overflow)``. The batches are those of ``DeviceDataPipeline.epoch`` in
+    the same order with the same draws. With ``pipelined`` batch i+1 is
+    made before step i trains, into a second buffer, so the draws keep the
+    batch order.
+
+    The step is one function on tensors: it reads its plan and table rows
+    and writes its metric column by a step counter on the device. On the
+    CPU (or with ``graph=False``) it runs eagerly. On the card it is
+    captured as a CUDA graph (``ops/graph.py``) and replayed once per step:
+    the first time, after ``WARMUP_STEPS`` steps run eagerly on a side
+    stream (real steps of the epoch), and again only if an epoch outgrows
+    the static buffers. Each later epoch copies its plan and tables into
+    the static buffers (stream-ordered, so the call may be enqueued behind
+    an epoch still running), resets the counter and replays. Pipelined, the
+    next batch is made on a forked stream inside the graph, beside the
+    train step; the last step replays a second graph that only trains, so
+    the generator draws nothing past the epoch. A capture that fails
+    raises; nothing runs eagerly in its place.
+
+    The caller puts right what a capture leaves on the host: the capture
+    runs ``train_step``'s Python once (``SmartSGD.step_count``), while the
+    launch counts are counted by replay. The graph holds the addresses of
+    the parameters, buffers and gradients: state is loaded in place
+    (``load_state_dict`` copies), never rebound.
+    """
+
+    WARMUP_STEPS = 2
+
+    def __init__(self, pipe: DeviceDataPipeline, train_step, pipelined: bool = False,
+                 stack_metrics: bool = False, graph: Optional[bool] = None):
+        if pipe.corpus is None:
+            raise RuntimeError("the fused epoch gathers from the corpus on the card: device_cache=True")
+        on_card = pipe.device.type == "cuda"
+        self.graph = on_card if graph is None else bool(graph)
+        if self.graph and not on_card:
+            raise ValueError("a CUDA graph needs the pipeline on the card")
+        self.pipe, self.train_step = pipe, train_step
+        self.pipelined, self.stack_metrics = bool(pipelined), bool(stack_metrics)
+        self.graphs: dict = {}  # "body" (and "last" when pipelined): CapturedGraph
+        self._cap = 0  # steps the static buffers hold
+        self._plans: list = []
+        self._tables: list = []
+        self._i: Optional[torch.Tensor] = None  # the step counter, int64 on the device
+        self._out: Optional[torch.Tensor] = None  # f32[n_leaves + 1, cap]
+        self._cur = None  # pipelined: (Batch, overflow) of the step that trains next
+        self._template = None  # the structure of train_step's metrics
+        self._stream = self._side = None  # capture stream; the fork's stream
+
+    # ----- static buffers
+    def _load(self, xs, tables) -> int:
+        xs = [torch.as_tensor(x) for x in xs]
+        tables = [torch.as_tensor(t) for t in tables]
+        n = int(xs[0].shape[0])
+        if n == 0:
+            raise ValueError("an epoch of no steps")
+        dev = self.pipe.device
+        if n > self._cap or len(tables) != len(self._tables):
+            cap = max(n, len(self.pipe))
+            self._plans = [torch.empty((cap,) + tuple(x.shape[1:]), dtype=torch.int32, device=dev) for x in xs]
+            self._tables = [torch.empty((cap,) + tuple(t.shape[1:]), dtype=t.dtype, device=dev) for t in tables]
+            self._i = torch.zeros((), dtype=torch.int64, device=dev)
+            self._out, self._cap, self.graphs = None, cap, {}
+        for buf, x in zip(self._plans + self._tables, xs + tables):
+            buf[:n].copy_(x, non_blocking=True)
+        self._i.zero_()
+        return n
+
+    # ----- one step, as tensors
+    def _make(self, i: torch.Tensor):
+        """(Batch, overflow) of plan row ``i`` with the next draws."""
+        rows = [p.index_select(0, i.view(1))[0] for p in self._plans]
+        return self.pipe.gather_augment(rows[0], self.pipe.draw(), rows[1] if len(rows) > 1 else None)
+
+    def _train(self, batch: Batch, overflow: torch.Tensor, i: torch.Tensor) -> None:
+        rows = [t.index_select(0, i.view(1))[0] for t in self._tables]
+        m = self.train_step(batch, *rows)
+        self._template = _rebuild(m, iter([None] * len(_leaves(m))))
+        col = metric_column(m, overflow)
+        if self._out is None:
+            self._out = torch.zeros((col.shape[0], self._cap), dtype=torch.float32, device=col.device)
+        self._out.index_copy_(1, i.view(1), col[:, None])
+
+    def _step(self) -> None:
+        self._train(*self._make(self._i), self._i)
+        self._i.add_(1)
+
+    def _step_ahead(self) -> None:
+        """Train the current batch while the next one is made (on the
+        forked stream when there is one), then make the next one current."""
+        if self._side is None:
+            nxt = self._make(self._i + 1)
+            self._train(*self._cur, self._i)
+        else:
+            main = torch.cuda.current_stream(self.pipe.device)
+            self._side.wait_stream(main)
+            with torch.cuda.stream(self._side):
+                nxt = self._make(self._i + 1)
+            self._train(*self._cur, self._i)
+            main.wait_stream(self._side)
+            if not torch.cuda.is_current_stream_capturing():  # in a graph the join orders its memory
+                for t in _leaves(nxt):
+                    t.record_stream(main)
+        _copy_into(self._cur, nxt)
+        self._i.add_(1)
+
+    def _step_last(self) -> None:
+        self._train(*self._cur, self._i)
+        self._i.add_(1)
+
+    # ----- the epoch
+    def _warm_up(self, body, steps: int) -> None:
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.pipe.device)
+            if self.pipelined:
+                self._side = torch.cuda.Stream(self.pipe.device)
+        main = torch.cuda.current_stream(self.pipe.device)
+        self._stream.wait_stream(main)
+        with torch.cuda.stream(self._stream):
+            for _ in range(steps):
+                body()
+        main.wait_stream(self._stream)
+
+    def _capture(self, body) -> None:
+        gens = [self.pipe.gen]
+        first = CapturedGraph(body, self._stream, "a fused-epoch step (gather, augment, train step)",
+                              generators=gens)
+        self.graphs = {"body": first}
+        if self.pipelined:
+            self.graphs["last"] = CapturedGraph(self._step_last, self._stream,
+                                                "the fused epoch's last step (train step)",
+                                                pool=first.pool(), generators=gens)
+
+    def __call__(self, xs, *tables):
+        n = self._load(xs, tables)
+        if self.pipelined:
+            first = self._make(self._i)
+            if self._cur is None:
+                self._cur = first
+            else:
+                _copy_into(self._cur, first)
+        body = self._step_ahead if self.pipelined else self._step
+        n_body = n - 1 if self.pipelined else n
+        done = 0
+        if self.graph and not self.graphs:
+            done = min(self.WARMUP_STEPS, n_body)
+            self._warm_up(body, done)
+            if n_body > done:
+                self._capture(body)
+        if self.graphs:
+            for _ in range(done, n_body):
+                self.graphs["body"].replay()
+            if self.pipelined:
+                self.graphs["last"].replay()
+        else:
+            for _ in range(done, n_body):
+                body()
+            if self.pipelined:
+                self._step_last()
+        flat = self._out[:, :n].clone()
+        if self.stack_metrics:
+            return flat
+        return _rebuild(self._template, iter(flat[:-1])), flat[-1].to(torch.int32)

@@ -14,7 +14,8 @@ package's ``gather_rows`` (any row shape through the flat view) is
 CPU tensors take the plain version, ``src[idx]``, which raises on an index
 outside [0, N). CUDA tensors launch the kernel or raise; the launch is
 counted in ``gather_rows_planar.launches`` or ``gather_rows_flat.launches``
-by the entry point that was called. On the card an out-of-range index is
+by the entry point that was called (inside a captured CUDA graph, at each
+replay: ``ops/graph.py``; so are the other kernels' counts). On the card an out-of-range index is
 not detected (that would cost a device-to-host sync): its row comes out as
 zeros, so callers validate indices on the host, as ``DeviceDataPipeline``
 does for its epoch plan.
@@ -28,6 +29,7 @@ from typing import Optional
 import torch
 
 from object_detection_cib_torch.ops import build as kbuild
+from object_detection_cib_torch.ops.graph import count_launch
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -78,7 +80,7 @@ def _gather(src: torch.Tensor, idx: torch.Tensor, entry) -> torch.Tensor:
             row_bytes, kbuild.stream_of(src),
         )
     kbuild.check(err, entry.__name__)
-    entry.launches += 1
+    count_launch(entry)
     return out
 
 

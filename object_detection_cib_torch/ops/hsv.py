@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 
 from object_detection_cib_torch.ops import build as kbuild
+from object_detection_cib_torch.ops.graph import count_launch
 from object_detection_cib_torch.ops.augment import hsv_batch
 
 _lib: Optional[ctypes.CDLL] = None
@@ -94,7 +95,7 @@ def hsv_planar(images: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
             images.shape[2] * images.shape[3], kbuild.stream_of(images),
         )
     kbuild.check(err, "hsv_planar")
-    hsv_planar.launches += 1
+    count_launch(hsv_planar)
     return out
 
 

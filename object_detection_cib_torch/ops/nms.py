@@ -33,6 +33,7 @@ import torch
 
 from object_detection_cib_torch.core.iou import compute_iou_pairwise
 from object_detection_cib_torch.ops import build as kbuild
+from object_detection_cib_torch.ops.graph import count_launch
 
 MAX_K = 8192  # kMaxK in csrc/nms.cu: 128 words a row, one per thread of the scan
 WORD = 64  # boxes per suppression word (kBlock in csrc/nms.cu)
@@ -241,7 +242,7 @@ def greedy_nms_mask(
             ws_images, B, K, float(iou_thres), kbuild.stream_of(boxes),
         )
     kbuild.check(err, "greedy NMS")
-    greedy_nms_mask.launches += 1
+    count_launch(greedy_nms_mask)
     return keep
 
 

@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 
 from object_detection_cib_torch.ops import build as kbuild
+from object_detection_cib_torch.ops.graph import count_launch
 
 FILL = 114.0
 
@@ -138,7 +139,7 @@ def warp_quadrants(
             G, S, So, kbuild.stream_of(imgs),
         )
     kbuild.check(err, "warp_quadrants")
-    warp_quadrants.launches += 1
+    count_launch(warp_quadrants)
     return out
 
 

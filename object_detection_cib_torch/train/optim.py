@@ -16,9 +16,14 @@ exp.py:156-185):
     lr0 * sch(epoch), momentum from 0.8 to 0.937, while step <= nw.
 
 A step's hyperparameters come from the step count before it is
-incremented, in f32 arithmetic as the JAX package traces them. The update
-runs as ``torch._foreach_*`` ops per group, one op per arithmetic step so
-that nothing is fused into a multiply-add. Not carried: the (rows, 128)
+incremented, in f32 arithmetic as the JAX package traces them, computed on
+the host by ``hyperparams``. The update reads them from the device: a
+training loop fills one ``(steps, 3)`` table per epoch (``hyper_table``)
+and hands each step its row, so a captured CUDA graph of the step reads
+the replayed step's values and not the captured one's (the JAX package
+computes them from the step inside its program). The update runs as
+``torch._foreach_*`` ops per group, one op per arithmetic step so that
+nothing is fused into a multiply-add. Not carried: the (rows, 128)
 padded group view and its ``optimization_barrier`` (TPU layout fixes).
 """
 
@@ -110,8 +115,9 @@ class SmartSGD:
     """SGD over a network's parameters with grouped lr/decay and warmup.
 
     Usage: ``opt = SmartSGD(net, config, steps_per_epoch)``; after
-    ``backward()``, ``opt.step()`` updates the parameters in place with the
-    hyperparameters of ``opt.step_count`` and then increments it.
+    ``backward()``, ``opt.step(hp)`` updates the parameters in place with
+    the row ``hp`` of a ``hyper_table`` (by default the hyperparameters of
+    ``opt.step_count``) and then increments ``step_count``, a host integer.
     ``state_dict()`` / ``load_state_dict()`` carry the momentum buffers (by
     parameter name) and ``step_count``, what a checkpoint holds beside the
     network's own ``state_dict`` (``train/checkpoint.py``).
@@ -136,6 +142,7 @@ class SmartSGD:
                 bufs = [torch.zeros_like(named[n]) for n in names]
                 self.buffers.update(zip(names, bufs))
                 self.groups.append((grp, [named[n] for n in names], bufs))
+        self.device = next(net.parameters()).device
         self.step_count = 0
 
     def state_dict(self) -> dict:
@@ -171,16 +178,31 @@ class SmartSGD:
             mom = cfg.momentum
         return float(f32(lr_bias)), float(f32(lr_other)), float(f32(mom))
 
+    def hyper_table(self, start: int, steps: int, device=None) -> torch.Tensor:
+        """``(steps, 3)`` f32 rows ``(lr_bias, lr_other, momentum)`` of the
+        global steps ``start .. start + steps - 1``: on the host (pinned when
+        the parameters are on the card), or copied to ``device`` without
+        blocking the host."""
+        rows = np.asarray([self.hyperparams(start + i) for i in range(steps)], np.float32).reshape(steps, 3)
+        table = torch.from_numpy(rows)
+        if self.device.type == "cuda":
+            table = table.pin_memory()
+        return table if device is None else table.to(device, non_blocking=True)
+
     def zero_grad(self) -> None:
         for _, ps, _ in self.groups:
             for p in ps:
                 p.grad = None
 
     @torch.no_grad()
-    def step(self) -> float:
-        """Apply one update; returns the step's ``lr_other``."""
+    def step(self, hp: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Apply one update with ``hp``, a (3,) f32 row of ``hyper_table`` on
+        the parameters' device (by default the row of ``step_count``);
+        returns the step's ``lr_other``, a 0-d tensor on that device."""
         cfg = self.config
-        lr_bias, lr_other, mom = self.hyperparams(self.step_count)
+        if hp is None:
+            hp = self.hyper_table(self.step_count, 1, self.device)[0]
+        lr_bias, lr_other, mom = hp[0], hp[1], hp[2]
         for grp, ps, bufs in self.groups:
             g = [p.grad if p.grad is not None else torch.zeros_like(p) for p in ps]
             if grp == GROUP_DECAY and cfg.weight_decay:

@@ -47,13 +47,16 @@ class Batch(NamedTuple):
 
 
 class StepMetrics(NamedTuple):
-    """One train step's losses (0-d f32 tensors, left on the device)."""
+    """One train step's losses and lr (0-d f32 tensors, left on the device).
+
+    The fields are in the JAX package's leaf order, which is the row order
+    of the fused epoch's stacked metric matrix."""
 
     total: torch.Tensor
     box: torch.Tensor
     obj: torch.Tensor
     cls: torch.Tensor
-    lr: float
+    lr: torch.Tensor  # the step's lr_other
     # valid assignment slots dropped by the compaction (0 = exact)
     assign_drop: torch.Tensor
 
@@ -69,18 +72,20 @@ def make_train_step(
     assign_offset_capacity: int = 3,
     assign_compact_slots: Optional[int] = 128,
 ):
-    """Build ``train_step(batch) -> StepMetrics``, which updates ``net`` in place.
+    """Build ``train_step(batch, hp=None) -> StepMetrics``, which updates
+    ``net`` in place with the hyperparameter row ``hp`` (``SmartSGD.step``).
 
     The assigner knobs and their defaults are the JAX ``make_train_step``'s
     (``model.assign_compact_slots`` and ``configs/assigners/yv5.yaml``).
 
     The step makes no host-device synchronisation: its losses stay on the
-    device, and the anchors are copied to the device once.
+    device, and the anchors are copied to the device once. So it can be
+    captured in a CUDA graph (the fused epoch).
     """
     dev = next(net.parameters()).device
     anchor_tensors = [torch.as_tensor(info.as_array()).to(dev) for info in anchors.levels()]
 
-    def train_step(batch: Batch) -> StepMetrics:
+    def train_step(batch: Batch, hp: Optional[torch.Tensor] = None) -> StepMetrics:
         net.train()
         out = net(batch.images)
         assignment = assign_targets(batch.boxes, batch.labels, batch.mask, image_shape,
@@ -96,7 +101,7 @@ def make_train_step(
         total = batch.images.shape[0] * lres.total  # ref exp.py:126-130
         optimizer.zero_grad()
         total.backward()
-        lr_other = optimizer.step()
+        lr_other = optimizer.step(hp)
         return StepMetrics(
             total=total.detach(),
             box=lres.localization.detach(),

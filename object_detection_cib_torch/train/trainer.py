@@ -13,28 +13,33 @@ over fake draws or JPEG files. It is built from plain arguments, or by
 ``Trainer.__init__`` reads (:224-512). ``train(cfg)`` is the JAX task:
 fit, then test, then predict, then finalize the loggers.
 
-``fit`` is the JAX ``fit`` (:974-1297) as a step loop: validation every
-``check_val_every_n_epoch`` epochs, ``limit_train_batches`` and
-``limit_val_batches`` as fractions (``max(int(n * f), 1)``),
-``fast_dev_run`` (one epoch, one train batch, one val batch),
-``overfit_batches`` (the first k batches replayed), the losses logged every
-``log_every_n_steps`` steps from the one per-epoch copy of the step metrics
-(no host sync per step), a ``torch.profiler`` trace of a window of steps,
-early stopping, best and last checkpoints (``train/checkpoint.py``) at the
-``every_n_epochs`` cadence, the sampler-statistics file, the overflow
-warnings, and resume from ``ckpt_path`` at ``step_count //
-steps_per_epoch``. The runtime's knobs are attributes with the defaults of
-a plain run (validate every epoch, no checkpoint, no logger), which
-``from_config`` sets from the config.
+``fit`` is the JAX ``fit`` (:974-1297) with its two loops. The fused
+epoch (``_fused_epoch``), the JAX trainer's default device-cache loop,
+which ``data.fused_epoch``, ``fused_pipelined`` and ``fused_dispatch_ahead``
+select by the JAX rule (``_fused_config``): per epoch the whole plan runs
+as gather -> augment -> train step, on the card one captured CUDA graph a
+step replayed once per step, with batch i+1 made while step i trains
+(pipelined) and the next epoch enqueued before this one's metrics are
+fetched (dispatch-ahead); the training stream is the step loop's. The
+step loop runs the per-step control flow: ``limit_train_batches`` as a
+fraction (``max(int(n * f), 1)``), ``fast_dev_run`` (one epoch, one train
+batch, one val batch), ``overfit_batches`` (the first k batches replayed),
+a ``torch.profiler`` trace of a window of steps. Both: validation every
+``check_val_every_n_epoch`` epochs (``limit_val_batches`` a fraction too),
+the losses logged every ``log_every_n_steps`` steps from the one per-epoch
+copy of the step metrics (no host sync per step), early stopping, best and
+last checkpoints (``train/checkpoint.py``) at the ``every_n_epochs``
+cadence, the sampler-statistics file, the overflow warnings, and resume
+from ``ckpt_path`` at ``step_count // steps_per_epoch``. The runtime's
+knobs are attributes with the defaults of a plain run (validate every
+epoch, no checkpoint, no logger), which ``from_config`` sets from the
+config.
 
 Config keys the port does not act on are named at start-up, never dropped
 silently (``_KEYS_READ_NOT_ACTED_ON``): ``model.net.stem_space_to_depth``
 (the same function as the plain 6x6/2 stem), ``trainer.compile_cache``
-(XLA's), ``trainer.deterministic`` (the JAX trainer ignores it too),
-``data.fused_epoch``, ``fused_pipelined`` and ``fused_dispatch_ahead``: the
-port runs its step loop, which is the same training stream (the JAX
-package's own ``test_fused_dispatch_ahead_equivalence``); the fused,
-pipelined epoch is ROADMAP item A5. Keys it refuses raise, naming the key
+(XLA's), ``trainer.deterministic`` (the JAX trainer ignores it too).
+Keys it refuses raise, naming the key
 (``_refuse_unported``): ``model.remat_policy`` other than null,
 ``trainer.num_devices`` above 1 and ``data.corpus_sharding=sharded`` (both
 multi-GPU, A7), ``data.warp_pallas=False`` (it pins the JAX package's dense
@@ -80,7 +85,7 @@ from object_detection_cib_torch.core.types import (
     default_anchors,
 )
 from object_detection_cib_torch.data.cache import DatasetInfo, deserialize_cached_dataset
-from object_detection_cib_torch.data.device_pipeline import DeviceCorpus, DeviceDataPipeline
+from object_detection_cib_torch.data.device_pipeline import DeviceCorpus, DeviceDataPipeline, metric_column
 from object_detection_cib_torch.data.host_augment import (
     AugParams,
     TrainSampleAugmentor,
@@ -247,6 +252,9 @@ def _trimmed(bi: int, fetched, B: int, n: int) -> Tuple[int, NMSResult]:
     return bi, _waited(fetched, min(n - bi * B, B))
 
 
+METRIC_ROWS = StepMetrics._fields  # rows of the per-epoch metric matrix; the overflow is the last
+
+
 def _compute_loss_weights(info: DatasetInfo) -> np.ndarray:
     """sum(n)/n_c per class (ref tasks/trainer.py:54-60)."""
     counts = info.get_instance_count()
@@ -312,7 +320,10 @@ class Trainer:
     ``CheckpointManager`` or None) and ``ckpt_every_n_epochs``, ``loggers``,
     ``progress``, ``rich_progress``, ``sampler_debug``, ``debug_nans``,
     ``out_dir`` and ``verbose`` (the JAX trainer's console lines).
-    ``from_config`` sets them all.
+    ``from_config`` sets them all. ``fused_epoch``, ``fused_pipelined`` and
+    ``fused_dispatch_ahead`` are the config's keys of those names, with
+    ``configs/data/default.yaml``'s defaults: ``fused_epoch=False`` is the
+    step loop.
     """
 
     def __init__(
@@ -352,6 +363,9 @@ class Trainer:
         val_iou_thres: float = 0.6,
         val_max_nms: int = 2048,
         val_device_cache: bool = True,
+        fused_epoch: bool = True,
+        fused_pipelined: bool = True,
+        fused_dispatch_ahead: bool = True,
     ):
         if pipeline not in ("device", "host"):
             raise ValueError(f"pipeline must be 'device' or 'host', got {pipeline!r}")
@@ -364,6 +378,9 @@ class Trainer:
         if corpus is not None and not (pipeline == "device" and device_cache):
             raise ValueError("corpus is the card-resident corpus of pipeline='device', device_cache=True")
         self.device = resolve_device(device)
+        self.pipeline_name, self.device_cache = pipeline, bool(device_cache)
+        self.fused_epoch, self.fused_pipelined = bool(fused_epoch), bool(fused_pipelined)
+        self.fused_dispatch_ahead = bool(fused_dispatch_ahead)
         self.train_info, self.val_info = train_info, val_info
         self.classes = list((train_info or val_info).classes)
         self.batch_size = batch_size
@@ -447,6 +464,11 @@ class Trainer:
         self.verbose = False
         self._es_best: Optional[float] = None  # early stopping's best and bad checks, per fit
         self._es_bad = 0
+        self._overfit_cache: Optional[list] = None  # overfit_batches: the batches replayed, per fit
+        self._fused_fn = None  # the pipeline's FusedEpoch, built at the first fused epoch
+        self._fused_inflight = None  # the next epoch, enqueued ahead of this one's fetch
+        self._fused_prev_fetch: Optional[float] = None
+        self._epoch_end_events: List[Tuple[int, "torch.cuda.Event"]] = []
 
     # ------------------------------------------------------------------ config
     @classmethod
@@ -531,6 +553,10 @@ class Trainer:
             val_iou_thres=float(mcfg.get("val_nms_iou_threshold", 0.6)),
             val_max_nms=int(mcfg.get("val_nms_max_candidates", 2048)),
             val_device_cache=bool(dcfg.get("val_device_cache", True)),
+            # the JAX trainer's defaults for keys a config leaves out (:537-554, :1019-1049)
+            fused_epoch=bool(dcfg.get("fused_epoch", True)),
+            fused_pipelined=bool(dcfg.get("fused_pipelined", False)),
+            fused_dispatch_ahead=bool(dcfg.get("fused_dispatch_ahead", True)),
         )
         t.loop = FitConfig(
             check_val_every_n_epoch=int(tcfg.get("check_val_every_n_epoch") or 1),
@@ -695,17 +721,22 @@ class Trainer:
 
         Epochs count on from earlier calls and from a restored checkpoint,
         as the JAX trainer's loop runs ``range(start_epoch, max_epochs)``.
-        The steps of an epoch are ``steps_per_epoch``, one under
-        ``fast_dev_run``, else ``max(int(steps * limit_train_batches), 1)``;
-        ``epoch_steps`` caps them further (an integer, the port's own knob).
+        Where ``_fused_config`` selects it, and neither ``on_step`` nor
+        ``debug_nans`` asks for per-step control, an epoch is the fused
+        epoch (``_fused_epoch``); otherwise the step loop, whose steps are
+        ``steps_per_epoch``, one under ``fast_dev_run``, else
+        ``max(int(steps * limit_train_batches), 1)``. ``epoch_steps`` caps
+        the steps of either loop (an integer, the port's own knob).
         ``on_step(epoch, step, metrics)`` runs after each step is enqueued.
         Per epoch, the images and the wall time (host clock, ending in the
-        host fetch of the epoch's metrics) are recorded, and the per-step
-        losses, ``assign_drop`` and the targets dropped by ``max_targets``
-        come back to the host in one copy: ``epoch_metrics`` holds per step
-        ``total``, ``box``, ``obj``, ``cls``, ``assign_drop`` and ``lr``, and
-        the epoch's ``targets_dropped``. The loggers and the progress table
-        get every ``log_every_n_steps``-th step's losses from that copy.
+        host fetch of the epoch's metrics; fetch to fetch in the fused loop)
+        are recorded, and the per-step metrics and the targets dropped by
+        ``max_targets`` come back to the host in one copy of one
+        ``f32[7, steps]`` matrix (``METRIC_ROWS``, overflow last):
+        ``epoch_metrics`` holds per step ``total``, ``box``, ``obj``,
+        ``cls``, ``lr`` and ``assign_drop``, and the epoch's
+        ``targets_dropped``. The loggers and the progress table get every
+        ``log_every_n_steps``-th step's losses from that copy.
         """
         if self.train_info is None:
             raise RuntimeError("this trainer was built without a training set (train=False)")
@@ -721,6 +752,7 @@ class Trainer:
         loop = self.loop
         val_every = max(int(loop.check_val_every_n_epoch), 1)
         log_every = max(int(loop.log_every_n_steps), 1)
+        fused = self._fused_config() and on_step is None and not self.debug_nans
         n_steps = self.steps_per_epoch
         if loop.fast_dev_run:
             n_steps = 1
@@ -729,63 +761,43 @@ class Trainer:
         if epoch_steps:
             n_steps = min(int(epoch_steps), n_steps)
         prof, prof_window = None, (loop.profile_start_step, loop.profile_start_step + loop.profile_steps)
-        overfit_cache = None
+        self._overfit_cache = None
         self._es_best, self._es_bad = None, 0
+        # a fit interrupted mid-epoch must not leave an epoch for the next fit
+        self._fused_inflight = self._fused_prev_fetch = None
         last_val: Dict[str, float] = {}
         for epoch in range(self.epoch, stop):
             t0 = time.perf_counter()
-            if loop.overfit_batches:
-                if overfit_cache is None:  # the first k batches of one epoch, replayed
-                    overfit_cache = [(b, None) for b, _ in self._train_batches(int(loop.overfit_batches))]
-                batches = iter(overfit_cache[:n_steps])
+            boundary_snap = None  # the state at this epoch's end, when the next is already enqueued
+            if fused:
+                flat, step0, boundary_snap, prev_fetch = self._fused_epoch(epoch, stop, val_every, epoch_steps)
+                host_dropped = 0
+                if prev_fetch is not None:
+                    t0 = prev_fetch
             else:
-                batches = self._train_batches(n_steps)
-            host_dropped = self.prefetcher.overflow_total if self.prefetcher is not None else 0
-            bar = None
-            if self.rich_progress:
-                from object_detection_cib_torch.utils.loggers import RichEpochProgress
-
-                bar = RichEpochProgress(epoch, n_steps)
-            step0 = self.optimizer.step_count
-            rows, lrs = [], []
-            for i, (batch, ovf) in enumerate(batches):
-                if loop.profiler and prof is None and self.optimizer.step_count == prof_window[0]:
-                    prof = _start_profiler(self.device)  # then the trace, then False once written
-                m = self.train_step(batch)
-                cols = [m.total, m.box, m.obj, m.cls, m.assign_drop.float()]
-                rows.append(torch.stack(cols if ovf is None else cols + [ovf.float()]))
-                lrs.append(m.lr)
-                if prof and self.optimizer.step_count == prof_window[1]:
-                    _stop_profiler(prof, self.device, self._profile_dir(), prof_window)
-                    prof = False
-                if bar is not None:
-                    bar.advance()
-                if on_step is not None:
-                    on_step(epoch, i, m)
-            if bar is not None:
-                bar.close()
-            stacked = torch.stack(rows).cpu().numpy()
+                step0 = self.optimizer.step_count
+                flat, host_dropped, prof = self._step_epoch(epoch, n_steps, on_step, prof, prof_window)
+            n = flat.shape[1]
             self.epoch_walls.append(time.perf_counter() - t0)
-            self.epoch_imgs.append(len(rows) * self.batch_size)
-            metrics = {k: stacked[:, j] for j, k in enumerate(("total", "box", "obj", "cls", "assign_drop"))}
-            metrics["lr"] = np.asarray(lrs, np.float32)
-            if overfit_cache is not None:
+            self.epoch_imgs.append(n * self.batch_size)
+            metrics = {k: flat[j] for j, k in enumerate(METRIC_ROWS)}
+            if self._overfit_cache is not None:
                 dropped = 0  # replayed batches: counted where they were made
             elif self.pipeline is not None:
-                dropped = int(stacked[:, 5].sum())
+                dropped = int(flat[-1].sum())
                 self.pipeline.add_overflow(dropped)
             else:
-                dropped = self.prefetcher.overflow_total - host_dropped
+                dropped = host_dropped
             metrics["targets_dropped"] = np.int64(dropped)
             self.epoch_metrics.append(metrics)
             self.epoch = epoch + 1
-            for i in range(len(rows)):
+            for i in range(n):
                 gstep = step0 + i + 1
                 if gstep % log_every == 0:
                     logged = {k: float(metrics[k][i]) for k in ("box", "obj", "cls", "total", "lr")}
                     self._log(logged, gstep)
                     self.progress.update(epoch, gstep, logged)
-            gstep = self.optimizer.step_count
+            gstep = step0 + n
             ips = self.epoch_imgs[-1] / self.epoch_walls[-1]
             self._warn_overflow(epoch, int(metrics["assign_drop"].sum()), dropped, gstep)
             if self.verbose:
@@ -811,9 +823,9 @@ class Trainer:
                         self.ckpt.wait_until_finished()
                     return last_val
             if self.ckpt and (epoch + 1) % self.ckpt_every_n_epochs == 0:
-                self.ckpt.save_last(Snapshot(self.net, self.optimizer))
+                self.ckpt.save_last(boundary_snap or Snapshot(self.net, self.optimizer))
             if self.sampler_debug:
-                self._dump_sampler_stats(epoch, len(rows))
+                self._dump_sampler_stats(epoch, n)
 
         if prof:
             _stop_profiler(prof, self.device, self._profile_dir(), prof_window)
@@ -824,6 +836,123 @@ class Trainer:
         if self.ckpt:
             self.ckpt.wait_until_finished()
         return last_val
+
+    def _step_epoch(self, epoch: int, n_steps: int, on_step, prof, prof_window):
+        """One epoch of the step loop: -> (the f32[7, steps] metric matrix on
+        the host, the targets the host feed dropped, the profiler's state).
+        Under ``overfit_batches`` the first epoch's batches are kept in
+        ``_overfit_cache`` and replayed."""
+        loop = self.loop
+        if loop.overfit_batches:
+            if self._overfit_cache is None:  # the first k batches of one epoch, replayed
+                self._overfit_cache = [(b, None) for b, _ in self._train_batches(int(loop.overfit_batches))]
+            batches = iter(self._overfit_cache[:n_steps])
+        else:
+            batches = self._train_batches(n_steps)
+        host_dropped = self.prefetcher.overflow_total if self.prefetcher is not None else 0
+        bar = None
+        if self.rich_progress:
+            from object_detection_cib_torch.utils.loggers import RichEpochProgress
+
+            bar = RichEpochProgress(epoch, n_steps)
+        table = self.optimizer.hyper_table(self.optimizer.step_count, n_steps, self.device)
+        no_overflow = torch.zeros((), dtype=torch.int32, device=self.device)  # the host feed counts its own
+        cols = []
+        for i, (batch, ovf) in enumerate(batches):
+            if loop.profiler and prof is None and self.optimizer.step_count == prof_window[0]:
+                prof = _start_profiler(self.device)  # then the trace, then False once written
+            m = self.train_step(batch, table[i])
+            cols.append(metric_column(m, no_overflow if ovf is None else ovf))
+            if prof and self.optimizer.step_count == prof_window[1]:
+                _stop_profiler(prof, self.device, self._profile_dir(), prof_window)
+                prof = False
+            if bar is not None:
+                bar.advance()
+            if on_step is not None:
+                on_step(epoch, i, m)
+        if bar is not None:
+            bar.close()
+        flat = torch.stack(cols, 1).cpu().numpy()
+        if self.prefetcher is not None:
+            host_dropped = self.prefetcher.overflow_total - host_dropped
+        return flat, host_dropped, prof
+
+    # ------------------------------------------------------- the fused epoch
+    def _fused_config(self) -> bool:
+        """True when the configuration selects the fused epoch, by the JAX
+        trainer's rule (:537-554): the device pipeline with the corpus on
+        the card and ``fused_epoch``, and none of ``fast_dev_run``,
+        ``overfit_batches``, ``limit_train_batches`` or ``profiler``
+        (per-step control flow, which the step loop runs). ``fit`` also
+        takes the step loop for its own per-step knobs, ``on_step`` and
+        ``debug_nans`` (anomaly mode checks every backward on the host)."""
+        loop = self.loop
+        return (self.pipeline_name == "device" and self.device_cache and self.fused_epoch
+                and not (loop.fast_dev_run or loop.overfit_batches or loop.limit_train_batches
+                         or loop.profiler))
+
+    def _fused_epoch(self, epoch: int, stop: int, val_every: int, epoch_steps: Optional[int]):
+        """One epoch of the fused loop (the JAX trainer's :1019-1131):
+        -> (the f32[7, steps] metric matrix on the host, the epoch's first
+        global step, the boundary ``Snapshot`` or None, the previous fetch's
+        host time or None).
+
+        The epoch is ``pipeline.build_fused_epoch_fn`` over the whole plan
+        (cut by ``epoch_steps``), with SmartSGD's hyperparameter table; on
+        the card one captured CUDA graph a step. Dispatch-ahead: when nothing
+        at this epoch's boundary reads the state (validation, and with it
+        early stopping and the best checkpoint, or the end of ``fit``), the
+        next epoch is enqueued before this one's metrics are fetched, after
+        a ``Snapshot`` for a ``save_last`` due at this boundary."""
+        if self._fused_fn is None:
+            self._fused_fn = self.pipeline.build_fused_epoch_fn(
+                lambda batch, hp: self.train_step(batch, hp), pipelined=self.fused_pipelined,
+                stack_metrics=True)
+        pending, self._fused_inflight = self._fused_inflight, None
+        if pending is None:
+            pending = self._enqueue_epoch(epoch, epoch_steps)
+        boundary_snap = None
+        reads_state = (epoch + 1) % val_every == 0 or epoch + 1 >= stop
+        if self.fused_dispatch_ahead and not reads_state:
+            if self.ckpt and (epoch + 1) % self.ckpt_every_n_epochs == 0:
+                boundary_snap = Snapshot(self.net, self.optimizer)
+            self._fused_inflight = self._enqueue_epoch(epoch + 1, epoch_steps)
+        host, event, step0 = pending
+        if event is not None:
+            event.synchronize()
+        prev, self._fused_prev_fetch = self._fused_prev_fetch, time.perf_counter()
+        return host.numpy(), step0, boundary_snap, prev
+
+    def _enqueue_epoch(self, epoch: int, epoch_steps: Optional[int]):
+        """Enqueue one fused epoch and the copy of its metric matrix into
+        pinned memory: -> (host matrix, the CUDA event behind its copy or
+        None on the CPU, the epoch's first global step). ``step_count``
+        moves to the epoch's end: the steps are enqueued."""
+        step0 = self.optimizer.step_count
+        xs = self.pipeline.epoch_host_arrays(epoch_steps)
+        n = int(xs[0].shape[0])
+        flat = self._fused_fn(xs, self.optimizer.hyper_table(step0, n))
+        self.optimizer.step_count = step0 + n
+        if not flat.is_cuda:
+            return flat, None, step0
+        host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+        host.copy_(flat, non_blocking=True)
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        self._epoch_end_events.append((epoch, event))
+        return host, event, step0
+
+    def device_epoch_walls(self) -> Dict[int, float]:
+        """The fused epochs' device times, ``{epoch: seconds}``: between the
+        CUDA events recorded at the ends of consecutive epochs (the JAX
+        trainer's readiness stamps, :570-633, with neither a thread nor an
+        environment variable). An epoch whose predecessor has no event (the
+        first) is left out; a gap between the two (a validation, the host's
+        wait) counts in. Empty on the CPU."""
+        ev = self._epoch_end_events
+        if ev:
+            ev[-1][1].synchronize()
+        return {e: a.elapsed_time(b) / 1e3 for (pe, a), (e, b) in zip(ev, ev[1:]) if e == pe + 1}
 
     def _warn_overflow(self, epoch: int, adrop: int, dropped: int, step: int) -> None:
         """The JAX trainer's warnings for the epoch's compaction drops and the
@@ -938,10 +1067,6 @@ _KEYS_READ_NOT_ACTED_ON = {
     "model.net.stem_space_to_depth": "a TPU rewrite of the same 6x6/2 stem function",
     "trainer.compile_cache": "XLA's compile cache",
     "trainer.deterministic": "the JAX trainer ignores it too",
-    "data.fused_epoch": "the port runs its step loop, the same training stream; the fused epoch is "
-                        "ROADMAP item A5",
-    "data.fused_pipelined": "likewise, A5",
-    "data.fused_dispatch_ahead": "likewise, A5",
 }
 
 

@@ -608,3 +608,172 @@ def test_cli_fast_dev_run_on_card(dev, tmp_path):
     assert [fn.launches for fn in counted] == [1, 1, 1, 1]
     assert 0.0 <= metrics["map"] <= 1.0
     assert load_state(tmp_path / "checkpoints" / "last")["optimizer"]["step_count"] == 1
+
+
+# ------------------------------------------------------------ the fused epoch
+
+@pytest.fixture
+def deterministic():
+    """cuDNN's deterministic algorithms, so that two eager runs of the same
+    steps can be bitwise equal; restored after the test."""
+    was = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    yield
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = was
+
+
+def _fused_pipe(dev, mode="mosaic", n=48, seed=3):
+    from object_detection_cib_torch.data.device_pipeline import DeviceDataPipeline
+    from object_detection_cib_torch.data.host_augment import AugParams
+    from object_detection_cib_torch.data.synthetic import build_fake_manifest
+
+    info = build_fake_manifest(num_images=n, num_classes=3, image_size=64, seed=2)
+    kw = {"mosaic": {}, "mixup": dict(mixup_prob=0.5), "no_mosaic": dict(use_mosaic=False)}[mode]
+    return DeviceDataPipeline(info, 64, 4, AugParams(), max_targets=6, seed=seed, device=dev, **kw)
+
+
+def _checksum(batch, *rows):
+    return (batch.images.float().sum(), (batch.boxes * batch.mask[..., None]).sum(),
+            batch.labels.sum().float())
+
+
+TRAINING_KERNELS = (gather_ops.gather_rows_planar, hsv_ops.hsv_planar, warp_ops.warp_quadrants)
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+@pytest.mark.parametrize("mode", ["mosaic", "mixup"])
+def test_graphed_fused_epoch_equals_eager_on_card(dev, mode, pipelined):
+    """Two epochs of 12 steps: the captured graph's batches (a checksum
+    step) and overflow counts bitwise the eager fused epoch's, the
+    generator's draws included; K2/K4/K5 counted once per step (twice under
+    mixup) by replay."""
+    eager, graphed = _fused_pipe(dev, mode), _fused_pipe(dev, mode)
+    f_eager = eager.build_fused_epoch_fn(_checksum, pipelined=pipelined, stack_metrics=True, graph=False)
+    f_graph = graphed.build_fused_epoch_fn(_checksum, pipelined=pipelined, stack_metrics=True)
+    assert f_graph.graph and not f_eager.graph
+    for epoch in range(2):
+        want = f_eager(eager.epoch_host_arrays())
+        before = [fn.launches for fn in TRAINING_KERNELS]
+        got = f_graph(graphed.epoch_host_arrays())
+        torch.cuda.synchronize()
+        per_step = 2 if mode == "mixup" else 1
+        assert [fn.launches - b for fn, b in zip(TRAINING_KERNELS, before)] == [12 * per_step] * 3
+        assert torch.equal(got, want), (epoch, (got - want).abs().max())
+        assert got[-1].sum() > 0  # max_targets 6: the overflow row is live
+    assert set(f_graph.graphs) == ({"body", "last"} if pipelined else {"body"})
+    assert torch.equal(graphed.gen.get_state(), eager.gen.get_state())
+
+
+def _tiny_trainer(dev, tmp=None, **kw):
+    from object_detection_cib_torch.data.synthetic import build_fake_manifest
+    from object_detection_cib_torch.train.trainer import Trainer
+
+    info = build_fake_manifest(num_images=40, num_classes=3, image_size=64, seed=2)
+    val = build_fake_manifest(num_images=16, num_classes=3, image_size=64, seed=9)
+    t = Trainer(info, val, size="n", image_size=64, batch_size=8, max_targets=20, seed=0,
+                dtype=torch.bfloat16, device=dev, **kw)
+    if tmp is not None:
+        from object_detection_cib_torch.train.checkpoint import CheckpointManager
+
+        t.ckpt = CheckpointManager(tmp / "ck")
+    return t
+
+
+def _state(t):
+    return [v.detach().clone() for v in list(t.net.state_dict().values()) + list(t.optimizer.buffers.values())]
+
+
+def _max_diff(a, b):
+    return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+
+
+def test_graphed_train_steps_equal_eager_on_card(dev, deterministic):
+    """Five bf16 yolov5n steps (two eager warm-up steps, then replays): the
+    parameters, statistics and momentum after them bitwise the eager fused
+    epoch's where two eager runs are bitwise; otherwise within 4x the
+    run-to-run spread measured here (printed)."""
+    def run(graph):
+        t = _tiny_trainer(dev)
+        fn = t.pipeline.build_fused_epoch_fn(lambda b, hp: t.train_step(b, hp), pipelined=True,
+                                             stack_metrics=True, graph=graph)
+        flat = fn(t.pipeline.epoch_host_arrays(), t.optimizer.hyper_table(0, 5))
+        torch.cuda.synchronize()
+        return _state(t), flat
+
+    (e1, m1), (e2, m2), (g, mg) = run(False), run(False), run(True)
+    spread, err = _max_diff(e1, e2), _max_diff(g, e1)
+    print(f"eager vs eager {spread}, graph vs eager {err}; losses {mg[0].tolist()} vs {m1[0].tolist()}")
+    if spread == 0:
+        assert err == 0 and torch.equal(mg, m1)
+    else:
+        assert err <= 4 * spread
+
+
+def test_fused_fit_counts_launches_by_replay_on_card(dev):
+    """fit over two epochs of 5 steps on the fused path: K2/K4/K5 10 each,
+    counted by replay (2 steps ran eagerly as warm-up), K1 once per
+    validation batch; losses and mAP finite, parameters moved."""
+    t = _tiny_trainer(dev, max_epochs=2)
+    before = _state(t)
+    counted = TRAINING_KERNELS + (nms_ops.greedy_nms_mask,)
+    for fn in counted:
+        fn.launches = 0
+    m = t.fit()
+    assert t._fused_fn is not None and t._fused_fn.graph
+    assert [fn.launches for fn in counted] == [10, 10, 10, 2 * 2]  # 16 val images, B = 8, every epoch
+    replays = {k: g.replays for k, g in t._fused_fn.graphs.items()}
+    assert replays == {"body": 4 + 2, "last": 2}  # epoch 1: 2 warm-up + 2 replays + last; epoch 2: 4 + last
+    assert all(np.isfinite(em["total"]).all() for em in t.epoch_metrics) and np.isfinite(m["map"])
+    assert _max_diff(before, _state(t)) > 0 and t.optimizer.step_count == 10
+    assert set(t.device_epoch_walls()) == {1} and t.device_epoch_walls()[1] > 0
+
+
+def test_dispatch_ahead_changes_no_bit_on_card(dev, deterministic):
+    """Three epochs validated once at the end: epochs 2 and 3 are enqueued
+    before the fetch of the epoch before them, or not; the parameters come
+    out bitwise equal."""
+    states = []
+    for ahead in (True, False):
+        t = _tiny_trainer(dev, max_epochs=3, fused_dispatch_ahead=ahead)
+        t.loop = t.loop._replace(check_val_every_n_epoch=3)
+        t.fit()
+        states.append(_state(t))
+    assert _max_diff(*states) == 0
+
+
+def test_capture_failure_raises_on_card(dev):
+    """A host sync inside the step (``.item()``) fails the capture: the
+    fused epoch raises, naming the step, and runs nothing eagerly in its
+    place; the card still works after."""
+    pipe = _fused_pipe(dev)
+    seen = []
+
+    def syncing(batch, *rows):
+        seen.append(float(batch.images.float().sum().item()))
+        return batch.labels.sum().float()
+
+    fn = pipe.build_fused_epoch_fn(syncing, stack_metrics=True)
+    with pytest.raises(RuntimeError, match="capturing a fused-epoch step"):
+        fn(pipe.epoch_host_arrays())
+    assert len(seen) == fn.WARMUP_STEPS  # the warm-up steps ran; the captured one stopped at .item()
+    assert fn.graphs == {}
+    assert float(torch.ones(4, device=dev).sum()) == 4.0
+
+
+def test_boundary_snapshot_holds_the_epoch_state_on_card(dev, tmp_path, deterministic):
+    """With the next epoch already enqueued, the boundary checkpoint holds
+    epoch 1's state: bitwise a one-epoch run's, and not the end state."""
+    t = _tiny_trainer(dev, tmp_path, max_epochs=2)
+    t.loop = t.loop._replace(check_val_every_n_epoch=2)
+    saved = []
+    real = t.ckpt.save_last
+    t.ckpt.save_last = lambda snap: (saved.append(snap.to_host()), real(snap))[1]
+    t.fit()
+    ref = _tiny_trainer(dev, max_epochs=2)
+    ref.fit(max_epochs=1)
+    first = saved[0]
+    assert first["optimizer"]["step_count"] == 5
+    ref_state = ref.net.state_dict()
+    assert all(torch.equal(v, ref_state[k].cpu()) for k, v in first["net"].items())
+    end = t.net.state_dict()
+    assert not all(torch.equal(v, end[k].cpu()) for k, v in first["net"].items())
