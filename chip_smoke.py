@@ -4,6 +4,7 @@
 Run from the root of a checkout, on a machine with one card:
 
     python3 chip_smoke.py [--baseline DIR ...]
+    python3 chip_smoke.py --phase ddp   # phases 1, 2 and 13 alone (on 2-4 cards for 13 (c))
 
 ``--baseline DIR`` (repeatable) also builds the four kernel sources
 (``nms.cu``, ``gather.cu``, ``hsv.cu``, ``warp.cu``) of another checkout at
@@ -156,7 +157,31 @@ result line):
     (libcuda's ``cuGraphGetNodes``); over a 10-step fused epoch the profiler's kernel time
     and the card's busy time (the union of the kernels' intervals: two
     streams overlap) and idle share. Observations, not claims;
-13. the ``kernels`` JSON line (with each path's launches), the card line,
+13. ddp: data parallelism through the launcher
+    (``parallel/distributed.py:launch``, one process a rank), each rank
+    counting its own launches. (a) A one-rank NCCL group over the fused
+    epoch (yolov5s@416, B=64, bf16, 640 fake images, 10 steps, validation
+    of 128): K2/K4/K5 10 each by replay, K1 2; the all-reduces issued equal
+    the step bodies run in Python (2 warm-up steps and one capture per
+    graph) times (3 per BatchNorm + the loss's counts + the gradient
+    bucket) + the epoch's metric sum; the graph's kernel nodes read by
+    name (``cuFuncGetName``) and those of NCCL counted; finite losses and
+    mAP. (b) Two gloo ranks sharing this card, the step loop at a global
+    B=64 (32 a rank), 10 steps and one validation: K2/K4/K5 10 on each
+    rank, K1 once on each rank's 64-image shard; the ranks' weights
+    bitwise equal; the first three losses within rtol 1e-3 of one process
+    of the same seed; the merged mAP dict equal to one process's over the
+    whole val set with the ranks' weights. (c) With two or more cards,
+    N = min(count, 4) NCCL ranks over the config ``cli.train trainer=mesh``
+    composes (yolov5s@416, 64 images a card, 1,280 fake images a card, two
+    fused epochs, a quarter of the val set), the replicated and then the
+    sharded corpus, beside one card alone: img/s over both epochs' windows
+    and its ratio to the one card's, launches, collectives issued, NCCL
+    kernel nodes in the graph, a profiled 10-step epoch's NCCL kernel ms a
+    step and each rank's idle share, peak memory per rank; with one card it
+    prints that (c) needs two. ``--phase ddp`` runs phases 1, 2 and 13 alone
+    (its last lines: the ranks' launches, the card, the result);
+14. the ``kernels`` JSON line (with each path's launches), the card line,
     and the result line last.
 """
 
@@ -605,8 +630,8 @@ def phase_cli(card, counted, zero_counts, read_counts):
     made = []  # the Trainer of each run, to look inside
     from_config = trainer_mod.Trainer.from_config.__func__
 
-    def recording(cls, cfg):
-        made.append(from_config(cls, cfg))
+    def recording(cls, cfg, mesh=None):
+        made.append(from_config(cls, cfg, mesh))
         return made[-1]
 
     trainer_mod.Trainer.from_config = classmethod(recording)
@@ -726,9 +751,9 @@ PROBE_STEPS = 6  # phase 12's batch probe: 3 batches made eagerly, 3 inside the 
 PROF_STEPS = 10  # phase 12's profiler window of replays
 
 
-def graph_nodes(graph):
-    """(nodes, kernel nodes) of a kept ``torch.cuda.CUDAGraph``, read through
-    libcuda (``cuGraphGetNodes``, ``cuGraphNodeGetType``)."""
+def _graph_nodes(graph):
+    """(libcuda, node handles, node types) of a kept ``torch.cuda.CUDAGraph``
+    (``cuGraphGetNodes``, ``cuGraphNodeGetType``)."""
     cuda = ctypes.CDLL("libcuda.so.1")
     handle = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
@@ -743,7 +768,13 @@ def graph_nodes(graph):
         if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
             fail("cuGraphNodeGetType failed")
         kinds.append(kind.value)
-    return n.value, kinds.count(0)  # CU_GRAPH_NODE_TYPE_KERNEL = 0
+    return cuda, list(nodes), kinds
+
+
+def graph_nodes(graph):
+    """(nodes, kernel nodes) of a kept ``torch.cuda.CUDAGraph``."""
+    _, nodes, kinds = _graph_nodes(graph)
+    return len(nodes), kinds.count(0)  # CU_GRAPH_NODE_TYPE_KERNEL = 0
 
 
 def phase_fused(card, dev, aug, train_info, val_info, corpus, zero_counts, read_counts):
@@ -913,10 +944,331 @@ def phase_fused(card, dev, aug, train_info, val_info, corpus, zero_counts, read_
     return counts
 
 
+# ------------------------------------------------------------ 13 ddp
+DDP_N, DDP_VAL, DDP_STEPS = 640, 128, 10  # phase 13 (a) and (b): 640 train images, 10 steps of B=64
+MESH_PER_CARD = 1280  # phase 13 (c): fake images a card (20 steps an epoch at 64 a card)
+
+
+def _kernel_entries():
+    from object_detection_cib_torch.ops import gather as gather_ops
+    from object_detection_cib_torch.ops import hsv as hsv_ops
+    from object_detection_cib_torch.ops import nms as nms_ops
+    from object_detection_cib_torch.ops import warp as warp_ops
+
+    return (gather_ops.gather_rows_planar, gather_ops.gather_rows_flat, hsv_ops.hsv_planar,
+            warp_ops.warp_quadrants, nms_ops.greedy_nms_mask)
+
+
+def _zero_kernels():
+    for fn in _kernel_entries():
+        fn.launches = 0
+
+
+def _read_kernels():
+    return {fn.__name__: fn.launches for fn in _kernel_entries()}
+
+
+def graph_kernel_names(graph):
+    """The function name of every kernel node of a kept ``torch.cuda.CUDAGraph``
+    (``cuGraphKernelNodeGetParams_v2``, then ``cuFuncGetName`` or
+    ``cuKernelGetName``); None where libcuda gives no name."""
+
+    class Params(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3), ("block", ctypes.c_uint * 3),
+                    ("shared", ctypes.c_uint), ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    cuda, nodes, kinds = _graph_nodes(graph)
+    names = []
+    for node, kind in zip(nodes, kinds):
+        if kind != 0:
+            continue
+        p, name = Params(), ctypes.c_char_p()
+        if cuda.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(p)):
+            names.append(None)
+        elif p.func and not cuda.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func)):
+            names.append(name.value.decode())
+        elif p.kern and not cuda.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(p.kern)):
+            names.append(name.value.decode())
+        else:
+            names.append(None)
+    return names
+
+
+def _ddp_infos(n_train: int, n_val: int):
+    from object_detection_cib_torch.data.synthetic import build_fake_manifest
+
+    return (build_fake_manifest(num_images=n_train, num_classes=NC, image_size=TRAIN_S, seed=0),
+            build_fake_manifest(num_images=n_val, num_classes=NC, image_size=TRAIN_S, seed=1))
+
+
+def _ddp_card():
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _ddp_fused_rank(mesh):
+    """Phase 13 (a), in a one-rank NCCL group: one fused epoch of 10 steps
+    with its validation."""
+    import numpy as np
+
+    from object_detection_cib_torch.models.layers import BatchNorm
+    from object_detection_cib_torch.parallel.distributed import all_reduce_sum_
+    from object_detection_cib_torch.train.trainer import Trainer
+
+    _ddp_card()
+    train_info, val_info = _ddp_infos(DDP_N, DDP_VAL)
+    t = Trainer(train_info, val_info, size="s", image_size=TRAIN_S, batch_size=TRAIN_B, max_targets=MAX_TARGETS,
+                seed=0, dtype=torch.bfloat16, device=mesh.device, mesh=mesh, max_epochs=1)
+    n_bn = sum(isinstance(m, BatchNorm) for m in t.net.modules())
+    _zero_kernels()
+    calls = all_reduce_sum_.calls
+    t0 = time.perf_counter()
+    m = t.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_kernels()
+    fn = t._fused_fn
+    names = {g: graph_kernel_names(fn.graphs[g].graph) for g in fn.graphs}
+    return dict(counts=counts, calls=all_reduce_sum_.calls - calls, n_bn=n_bn, graphs=sorted(fn.graphs),
+                warmup=fn.WARMUP_STEPS, losses=np.asarray(t.epoch_metrics[0]["total"]).tolist(), map=m,
+                kernel_nodes={g: len(v) for g, v in names.items()},
+                unnamed={g: sum(x is None for x in v) for g, v in names.items()},
+                nccl={g: sorted({x for x in v if x and "nccl" in x.lower()}) for g, v in names.items()},
+                nccl_nodes={g: sum(1 for x in v if x and "nccl" in x.lower()) for g, v in names.items()},
+                wall=wall, peak=torch.cuda.max_memory_allocated(mesh.device))
+
+
+def _ddp_gloo_rank(mesh):
+    """Phase 13 (b), one of two gloo ranks on one card: 10 steps of the step
+    loop at a global batch of 64 and one validation of this rank's shard."""
+    import hashlib
+
+    import numpy as np
+
+    from object_detection_cib_torch.train.trainer import Trainer
+
+    _ddp_card()
+    train_info, val_info = _ddp_infos(DDP_N, DDP_VAL)
+    t = Trainer(train_info, val_info, size="s", image_size=TRAIN_S, batch_size=TRAIN_B, max_targets=MAX_TARGETS,
+                seed=0, dtype=torch.bfloat16, device=mesh.device, mesh=mesh, max_epochs=1, fused_epoch=False)
+    _zero_kernels()
+    t0 = time.perf_counter()
+    m = t.fit(max_epochs=1, epoch_steps=DDP_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_kernels()
+    state = {k: v.detach().cpu() for k, v in t.net.state_dict().items()}
+    digest = hashlib.sha256(b"".join(v.float().numpy().tobytes() for v in state.values())).hexdigest()
+    return dict(counts=counts, losses=np.asarray(t.epoch_metrics[0]["total"]).tolist(), map=m, digest=digest,
+                state=state if mesh.is_main else None, val_images=len(t.val_cache), wall=wall,
+                ips=t.epoch_imgs[0] / t.epoch_walls[0])
+
+
+def _busy_idle(prof):
+    """(device busy ms, window ms, NCCL kernels' ms) of a profiler trace: the
+    busy time is the union of the kernels' intervals (streams overlap)."""
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    busy, reach = 0.0, None
+    for a, b in spans:
+        if reach is None or a > reach:
+            busy, reach = busy + b - a, b
+        elif b > reach:
+            busy, reach = busy + b - reach, b
+    nccl = sum(e.time_range.end - e.time_range.start for e in evs if "nccl" in e.name.lower())
+    window = (max(b for _, b in spans) - spans[0][0]) if spans else 0.0
+    return busy / 1e3, window / 1e3, nccl / 1e3
+
+
+def _ddp_mesh_run(mesh, cfg):
+    """Phase 13 (c), one rank of ``cli.train``'s data-parallel run of ``cfg``
+    (``train(cfg, mesh)``'s trainer; no mesh: one card alone): two fused
+    epochs validated once, then a profiled 10-step fused epoch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from object_detection_cib_torch.parallel.distributed import all_reduce_sum_, reduce_scatter_sum
+    from object_detection_cib_torch.train.trainer import Trainer
+
+    _ddp_card()
+    dev = mesh.device if mesh is not None else torch.device("cuda", 0)
+    t = Trainer.from_config(cfg, mesh)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_kernels()
+    calls = (all_reduce_sum_.calls, reduce_scatter_sum.calls)
+    t0 = time.perf_counter()
+    m = t.fit()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = _read_kernels()
+    calls = (all_reduce_sum_.calls - calls[0], reduce_scatter_sum.calls - calls[1])
+    peak = torch.cuda.max_memory_allocated(dev)
+    fn, pipe, opt = t._fused_fn, t.pipeline, t.optimizer
+    names = graph_kernel_names(fn.graphs["body"].graph)
+
+    def epoch(n):
+        xs = pipe.epoch_host_arrays(n)
+        step0 = opt.step_count
+        fn(xs, opt.hyper_table(step0, xs[0].shape[0]))
+        opt.step_count = step0 + xs[0].shape[0]
+
+    epoch(PROF_STEPS)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        epoch(PROF_STEPS)
+        torch.cuda.synchronize(dev)
+    busy, window, nccl = _busy_idle(prof)
+    return dict(counts=counts, calls=calls, map=m, peak=peak, wall=wall,
+                ips_epochs=[i / w for i, w in zip(t.epoch_imgs, t.epoch_walls)],
+                ips=sum(t.epoch_imgs) / sum(t.epoch_walls), device_walls=t.device_epoch_walls(),
+                kernel_nodes=len(names), nccl_nodes=sum(1 for x in names if x and "nccl" in x.lower()),
+                nccl_names=sorted({x for x in names if x and "nccl" in x.lower()}),
+                prof_steps=PROF_STEPS, busy_ms=busy, window_ms=window, nccl_ms=nccl,
+                batch=t.batch_size, steps=t.steps_per_epoch, held_rows=int(pipe.corpus.shape[0]))
+
+
+def phase_ddp(card):
+    """Phase 13: data-parallel training through the launcher: (a) a
+    one-rank NCCL group over the fused epoch, (b) two gloo ranks on one
+    card over the step loop against one process, (c) with two or more
+    cards, ``cli.train trainer=mesh`` on N = min(count, 4) NCCL ranks
+    against one card. Returns the ranks' launch counts."""
+    import warnings
+
+    import numpy as np
+
+    from object_detection_cib_torch.config import compose
+    from object_detection_cib_torch.parallel import distributed
+    from object_detection_cib_torch.train.trainer import Trainer
+
+    def launch(*args, **kw):
+        """``distributed.launch``, its warnings (a rank terminated after
+        handing back its result) printed."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = distributed.launch(*args, **kw)
+        for w in caught:
+            log(f"[ddp] launcher warning: {w.message}")
+        return out
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) one NCCL rank, the fused epoch
+    (a,) = launch(_ddp_fused_rank, 1, device_type="cuda", timeout_s=300, join_timeout_s=600)
+    steps = DDP_N // TRAIN_B
+    want = {"gather_rows_planar": steps, "hsv_planar": steps, "warp_quadrants": steps,
+            "greedy_nms_mask": -(-DDP_VAL // TRAIN_B)}
+    for k, n in want.items():
+        if a["counts"][k] != n:
+            fail(f"[ddp] (a) launched {k} {a['counts'][k]} times, want {n}")
+    per_step = 3 * a["n_bn"] + 2  # BatchNorm: 2 forward, 1 backward; the loss's counts; the gradient bucket
+    python_steps = a["warmup"] + len(a["graphs"])  # eager warm-up steps, then one capture per graph
+    if a["calls"] != python_steps * per_step + 1:
+        fail(f"[ddp] (a) {a['calls']} all-reduces issued, want {python_steps} x {per_step} + 1 (the epoch's metrics)")
+    if not (np.isfinite(a["losses"]).all() and finite_map(a["map"])):
+        fail(f"[ddp] (a) losses or mAP not finite: {a['losses']}, {a['map']}")
+    log(f"[ddp] (a) launch(1 rank, NCCL) fused epoch yolov5s@{TRAIN_S} B={TRAIN_B} bf16, {DDP_N} fake images, "
+        f"{steps} steps + validation of {DDP_VAL}: launches {a['counts']} (training kernels by replay); "
+        f"graphs {a['graphs']} captured after {a['warmup']} eager steps; all-reduces issued {a['calls']} = "
+        f"{python_steps} step bodies run in Python (warm-up and captures) x {per_step} ({a['n_bn']} BatchNorms "
+        f"x 3 + loss counts + gradient bucket) + 1 epoch metric sum; kernel nodes {a['kernel_nodes']}, "
+        f"of them named nccl {a['nccl_nodes']} {a['nccl']}, unnamed {a['unnamed']}; losses {a['losses'][0]:.4f}->"
+        f"{a['losses'][-1]:.4f}; map {a['map']['map']:.6g}; fit {a['wall']:.2f} s; peak {a['peak'] / 2**30:.3f} "
+        f"GiB | {card}")
+    out["a"] = a["counts"]
+
+    # (b) two gloo ranks on this card, the step loop, against one process
+    ranks = launch(_ddp_gloo_rank, 2, device_type="cuda", backend="gloo", devices=[0, 0], timeout_s=300,
+                   join_timeout_s=600)
+    shard_blocks = -(-(DDP_VAL // 2) // TRAIN_B)
+    for r, res in enumerate(ranks):
+        want = {"gather_rows_planar": DDP_STEPS, "hsv_planar": DDP_STEPS, "warp_quadrants": DDP_STEPS,
+                "greedy_nms_mask": shard_blocks}
+        for k, n in want.items():
+            if res["counts"][k] != n:
+                fail(f"[ddp] (b) rank {r} launched {k} {res['counts'][k]} times, want {n}")
+    if ranks[0]["digest"] != ranks[1]["digest"]:
+        fail("[ddp] (b) the two ranks' weights differ after the steps")
+    train_info, val_info = _ddp_infos(DDP_N, DDP_VAL)
+    one = Trainer(train_info, val_info, size="s", image_size=TRAIN_S, batch_size=TRAIN_B, max_targets=MAX_TARGETS,
+                  seed=0, dtype=torch.bfloat16, device="cuda", max_epochs=1, fused_epoch=False)
+    one.fit(max_epochs=1, epoch_steps=3)
+    first = np.asarray(one.epoch_metrics[0]["total"][:3])
+    got = np.asarray(ranks[0]["losses"][:3])
+    if not np.allclose(got, first, rtol=1e-3, atol=0):
+        fail(f"[ddp] (b) first three losses {got.tolist()} vs one process {first.tolist()} beyond rtol 1e-3")
+    one.net.load_state_dict(ranks[0]["state"])
+    whole = one.validate()
+    merged = {k: v for k, v in ranks[0]["map"].items() if k != "images_per_sec"}
+    if not (same_map(merged, whole) and same_map(merged, {k: v for k, v in ranks[1]["map"].items()
+                                                          if k != "images_per_sec"})):
+        fail(f"[ddp] (b) the merged mAP dict {merged} differs from one process's {whole}")
+    log(f"[ddp] (b) launch(2 ranks, gloo, both on cuda:0) step loop yolov5s@{TRAIN_S} global B={TRAIN_B} "
+        f"({TRAIN_B // 2} a rank) bf16, {DDP_STEPS} steps + validation: launches rank 0 {ranks[0]['counts']}, "
+        f"rank 1 {ranks[1]['counts']} (K1 over each rank's {ranks[0]['val_images']} of {DDP_VAL} val images); "
+        f"weights equal on both ranks; first three losses {got.tolist()} vs one process {first.tolist()} "
+        f"(rtol 1e-3); merged mAP dict equal to one process's on the same weights (map {whole['map']:.6g}); "
+        f"{ranks[0]['ips']:.2f} img/s (two processes sharing one card over gloo: not a rate to compare) | {card}")
+    out["b"] = {k: ranks[0]["counts"][k] + ranks[1]["counts"][k] for k in ranks[0]["counts"]}
+    del one
+
+    # (c) N cards over cli.train trainer=mesh
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"[ddp] (c) needs 2 cards, this machine shows {count}: not run")
+    else:
+        n = min(count, 4)
+        with tempfile.TemporaryDirectory(prefix="ddp-mesh-") as tmp:
+            def cfg(ranks_, *extra):
+                return compose(Path(__file__).resolve().parent / "configs", "train", [
+                    "experiment=yv5s", "trainer=mesh", f"trainer.num_devices={ranks_}", "data.pipeline=device",
+                    "data.device_cache=True", "dataset_name=fake", f"data.fake_num_images={MESH_PER_CARD * ranks_}",
+                    f"data.batch_size={TRAIN_B * ranks_}", "trainer.max_epochs=2",
+                    "trainer.check_val_every_n_epoch=2", "trainer.limit_val_batches=0.25", "logger=csv",
+                    "hydra=static", "extras.enforce_tags=False", "print_config=False", "extras.print_config=False",
+                    f"paths.output_dir={tmp}/{ranks_}-{len(extra)}", *extra])
+
+            runs = {}
+            runs["1 card"] = [_ddp_mesh_run(None, cfg(1))]
+            torch.cuda.empty_cache()  # rank 0 shares card 0 with this process
+            runs[f"{n} cards"] = launch(_ddp_mesh_run, n, (cfg(n),), timeout_s=600, join_timeout_s=1200)
+            runs[f"{n} cards, sharded"] = launch(_ddp_mesh_run, n, (cfg(n, "data.corpus_sharding=sharded"),),
+                                                timeout_s=600, join_timeout_s=1200)
+        base = runs["1 card"][0]["ips"]
+        for name, rs in runs.items():
+            r0 = rs[0]
+            steps_c = 2 * r0["steps"]
+            for r, res in enumerate(rs):
+                for k in ("gather_rows_planar", "hsv_planar", "warp_quadrants"):
+                    if res["counts"][k] != steps_c:
+                        fail(f"[ddp] (c) {name} rank {r} launched {k} {res['counts'][k]} times, want {steps_c}")
+                if not finite_map(res["map"]):
+                    fail(f"[ddp] (c) {name} rank {r}: mAP not finite {res['map']}")
+            maps = {json.dumps({k: v for k, v in res["map"].items() if k != "images_per_sec"}) for res in rs}
+            if len(maps) != 1:
+                fail(f"[ddp] (c) {name}: the ranks read different mAP dicts")
+            idle = [round(1 - res["busy_ms"] / res["window_ms"], 4) if res["window_ms"] else None for res in rs]
+            log(f"[ddp] (c) {name}: yolov5s@{TRAIN_S} global B={r0['batch']} bf16 fused epoch, {r0['steps']} steps an "
+                f"epoch x 2: {r0['ips']:.2f} img/s over both epochs' windows (rank 0, host clock; per epoch "
+                f"{[round(x, 2) for x in r0['ips_epochs']]}), {r0['ips'] / base:.4f}x the one card's; device epoch "
+                f"walls {r0['device_walls']}; launches rank 0 {r0['counts']}; collectives issued (all-reduce, "
+                f"reduce-scatter) {r0['calls']}; graph kernel nodes {r0['kernel_nodes']}, NCCL {r0['nccl_nodes']} "
+                f"{r0['nccl_names'][:3]}; profiled {r0['prof_steps']} steps: NCCL kernels {r0['nccl_ms'] / r0['prof_steps']:.4f} "
+                f"ms a step, busy {r0['busy_ms'] / r0['prof_steps']:.4f} of {r0['window_ms'] / r0['prof_steps']:.4f} ms "
+                f"a step; idle share per rank {idle}; peak memory per rank "
+                f"{[round(res['peak'] / 2**30, 3) for res in rs]} GiB, corpus rows held {r0['held_rows']}; "
+                f"map {r0['map']['map']:.6g} | {card}")
+        out["c"] = {k: sum(res["counts"][k] for res in runs[f"{n} cards"]) for k in runs[f"{n} cards"][0]["counts"]}
+    log(f"[ddp] phase 13 {time.perf_counter() - t_phase:.2f} s | {card}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path, action="append", default=[],
                     help="root of another checkout whose four kernel sources are timed beside")
+    ap.add_argument("--phase", choices=["all", "ddp"], default="all",
+                    help="ddp: phases 1, 2 and 13 alone (data parallelism; (c) needs two or more cards)")
     args = ap.parse_args()
     # ---------------------------------------------------------------- 1 device
     if not torch.cuda.is_available():
@@ -973,6 +1325,13 @@ def main() -> None:
                           csrc=b / "object_detection_cib_torch" / "ops" / "csrc")
         baselines[b] = {n: ctypes.CDLL(str(p)) for n, p in built.items()}
         log(f"[build] baseline {b}: {', '.join(built)} in {time.perf_counter() - t0:.2f} s")
+    if args.phase == "ddp":
+        ddp = phase_ddp(card)
+        print(json.dumps({"ddp_launches": ddp}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
     usage = {}  # kernel entry -> (registers per thread, static shared bytes), from ptxas
     for report in REPORTS.values():
         usage.update(kernel_usage(report))
@@ -1444,14 +1803,12 @@ def main() -> None:
             torch.cuda.synchronize()
             marks[i] = time.perf_counter()
 
-    counted = (gather_ops.gather_rows_planar, gather_ops.gather_rows_flat, hsv_ops.hsv_planar,
-               warp_ops.warp_quadrants, nms_ops.greedy_nms_mask)
-    for fn in counted:
-        fn.launches = 0
+    counted = _kernel_entries()
+    _zero_kernels()
     t0 = time.perf_counter()
     train_map = trainer.fit(max_epochs=1, epoch_steps=TRAIN_STEPS, on_step=on_step)
     fit_s = time.perf_counter() - t0
-    train_launches = {fn.__name__: fn.launches for fn in counted}
+    train_launches = _read_kernels()
     log(f"[train] fit(max_epochs=1, epoch_steps={TRAIN_STEPS}) incl. validation: {fit_s:.2f} s; "
         f"launches {train_launches}")
     for name in ("gather_rows_planar", "hsv_planar", "warp_quadrants"):
@@ -1558,12 +1915,7 @@ def main() -> None:
     T4 = 4 * pipe.src_T  # target slots of one mosaic group
     torch.cuda.reset_peak_memory_stats()
 
-    def zero_counts():
-        for fn in counted:
-            fn.launches = 0
-
-    def read_counts():
-        return {fn.__name__: fn.launches for fn in counted}
+    zero_counts, read_counts = _zero_kernels, _read_kernels
 
     def run_recipe(name, steps, want, **kw):
         """``steps`` train steps of one recipe; launches counted over all of
@@ -1750,8 +2102,12 @@ def main() -> None:
 
     # --------------------------------------------------------------- 12 fused
     fused = phase_fused(card, dev, aug, train_info, info, shared, zero_counts, read_counts)
+    torch.cuda.empty_cache()  # the ranks of phase 13 are other processes on this card
 
-    # -------------------------------------------------------------- 13 report
+    # ----------------------------------------------------------------- 13 ddp
+    ddp = phase_ddp(card)
+
+    # -------------------------------------------------------------- 14 report
     src = "object_detection_cib_torch/ops/csrc/"
     rows = [
         ("greedy_nms_mask", "nms.cu", "object_detection_cib_tpu/ops/pallas_nms.py:131", serve_launches),
@@ -1777,7 +2133,8 @@ def main() -> None:
                                  "train": train_launches[name],
                                  **{f"jpeg_{part}": n[name] for part, n in jpeg.items()},
                                  "cli": {part: n[name] for part, n in cli.items()},
-                                 "fused": fused[name]},
+                                 "fused": fused[name],
+                                 "ddp": {part: n[name] for part, n in ddp.items()}},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -9,7 +9,8 @@ path, the imbalance recipes on it: samplers, mixup, the no-mosaic
 letterbox, a general affine, the exact warp; training and validation
 from JPEG files through the three feeds, with the data CLI; and the
 runtime: config composition, the trainer from a config, checkpoints,
-loggers and the training CLI):
+loggers and the training CLI; data-parallel training over the cards
+of one host):
 
 - ``core``    box math, the IoU family, batched NMS (``non_max_suppression``)
               and the YOLOv5 label assigner
@@ -38,6 +39,9 @@ loggers and the training CLI):
               ``Trainer.from_config``; ``fit``), ``train(cfg)``, and
               ``torch.save`` checkpoints (``checkpoint.py``)
 - ``utils``   the metric loggers (CSV, TensorBoard, W&B, MLflow)
+- ``parallel`` data parallelism over the cards of one host: the rank layout
+              (``mesh.py``), process groups, the collectives and the
+              launcher of one process per card (``distributed.py``)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``trainer=cpu`` for the CLI).

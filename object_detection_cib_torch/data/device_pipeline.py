@@ -53,10 +53,29 @@ epoch over the corpus on the card) runs gather, augment and the train step
 of every step itself, on the card as a CUDA graph replayed once per step.
 Both give the same batches from the same seed.
 
+Data parallelism (``mesh``, a ``parallel.mesh.DataMesh`` with a process
+group; the JAX package's single-process mesh): ``batch_size`` is the global
+batch B and each rank makes its rows of it. Every rank draws the global
+epoch plan and the global draws of each step from identically seeded
+generators, and keeps its columns: the quads of its primaries (rows
+``[r B/N, (r+1) B/N)``), their mixup partners and their draws (JAX's
+``epoch_host_arrays`` with ``P(None, "data")``). So an N-rank run's batches
+are, row for row, the 1-rank run's. Each rank then gathers (K2), warps
+(K5) and jitters (K4) its own groups. Host-fed, a rank loads only its own
+groups (JPEG files; in fake mode it draws the whole group's content, as
+the content of a fake group is seeded by the group, and keeps its rows).
+``corpus_sharding="sharded"`` (JAX ``make_sharded_corpus_gather``) holds
+rank r's rows ``[r P, (r+1) P)`` of the corpus images, P = ceil(N/ranks)
+(the last shard padded with zero rows, as the JAX package pads), beside the
+whole (small) sizes and targets: for a step's global group each rank
+gathers the rows it holds with K2, zeroes the rest, and one
+``reduce_scatter`` (a sum, exact in uint8 since one rank holds each row)
+deals each rank its own rows, bitwise the replicated corpus's.
+
 Not ported: the flat (N, 8, D/8) corpus layout, a TPU tiling workaround
 (it raises ``NotImplementedError``; K3's kernel still exists, in
 ``ops/gather.py``), ``device_put_row_major`` (a TPU layout pin) and the
-multi-host and sharded-corpus modes (A7).
+multi-host plans, one per host (ROADMAP A).
 """
 
 from __future__ import annotations
@@ -95,6 +114,8 @@ from object_detection_cib_torch.ops.gather import gather_rows_planar
 from object_detection_cib_torch.ops.graph import CapturedGraph
 from object_detection_cib_torch.ops.hsv import hsv_planar
 from object_detection_cib_torch.ops.warp import FILL
+from object_detection_cib_torch.parallel.distributed import reduce_scatter_sum
+from object_detection_cib_torch.parallel.mesh import DataMesh, batch_sharding
 from object_detection_cib_torch.train.steps import Batch
 from object_detection_cib_torch.utils.device import resolve_device, to_unit
 from object_detection_cib_torch.utils.fs import get_root_dir
@@ -126,6 +147,17 @@ class AugmentDraws(NamedTuple):
             return type(t)(*(v.to(device) for v in t))  # AffineBatchValues
 
         return AugmentDraws(*(move(t) for t in self))
+
+    def rows(self, sl: slice) -> "AugmentDraws":
+        """The draws of output images ``sl`` (every field's leading axis)."""
+        def take(t):
+            if t is None:
+                return None
+            if isinstance(t, (torch.Tensor, AugmentDraws)):
+                return t.rows(sl) if isinstance(t, AugmentDraws) else t[sl]
+            return type(t)(*(v[sl] for v in t))  # AffineBatchValues
+
+        return AugmentDraws(*(take(t) for t in self))
 
 
 def _draw_group(gen: torch.Generator, groups: int, target_size: int, aug: AugParams,
@@ -371,17 +403,28 @@ class DeviceCorpus:
     elsewhere, sizes (N, 2) int32, and target arrays of capacity ``src_T``
     in resized-content coordinates. ``from_canvases`` is the one
     constructor; ``fake`` draws the canvases, ``decode`` reads the JPEG
-    files.
+    files. ``sharded`` holds only a rank's rows of the images (the module
+    docstring); ``exchange`` gathers a global group's rows from the shards.
     """
 
     UPLOAD_ROWS = 256  # canvases per host->device copy: bounds the staging
 
     def __init__(self, info: DatasetInfo, images: torch.Tensor, sizes: torch.Tensor,
-                 device: torch.device):
+                 device: torch.device, mesh: Optional[DataMesh] = None, row0: int = 0):
         self.info, self.S, self.device = info, images.shape[-1], device
         self.images, self.sizes = images, sizes
+        self.mesh, self.row0 = mesh, row0  # sharded: the mesh, and the first row held
         self.src_T, *targets = target_arrays(info, self.S)
         self.t_boxes, self.t_labels, self.t_mask = (torch.from_numpy(a).to(device) for a in targets)
+
+    @staticmethod
+    def _planar(canvases: np.ndarray, device: torch.device) -> torch.Tensor:
+        n, S = canvases.shape[:2]
+        images = torch.empty((n, 3, S, S), dtype=torch.uint8, device=device)
+        for i in range(0, n, DeviceCorpus.UPLOAD_ROWS):
+            chunk = torch.from_numpy(np.ascontiguousarray(canvases[i:i + DeviceCorpus.UPLOAD_ROWS]))
+            images[i:i + DeviceCorpus.UPLOAD_ROWS] = chunk.to(device).permute(0, 3, 1, 2)
+        return images
 
     @classmethod
     def from_canvases(cls, info: DatasetInfo, canvases: np.ndarray, sizes: np.ndarray,
@@ -394,11 +437,8 @@ class DeviceCorpus:
         if canvases.shape != (n, S, S, 3) or canvases.dtype != np.uint8 or n != len(info.samples):
             raise ValueError(f"want ({len(info.samples)}, S, S, 3) uint8 canvases, got "
                              f"{canvases.shape} {canvases.dtype}")
-        images = torch.empty((n, 3, S, S), dtype=torch.uint8, device=device)
-        for i in range(0, n, cls.UPLOAD_ROWS):
-            chunk = torch.from_numpy(np.ascontiguousarray(canvases[i:i + cls.UPLOAD_ROWS]))
-            images[i:i + cls.UPLOAD_ROWS] = chunk.to(device).permute(0, 3, 1, 2)
-        return cls(info, images, torch.from_numpy(np.asarray(sizes, np.int32)).to(device), device)
+        return cls(info, cls._planar(canvases, device), torch.from_numpy(np.asarray(sizes, np.int32)).to(device),
+                   device)
 
     @classmethod
     def fake(cls, info: DatasetInfo, target_size: int, device) -> "DeviceCorpus":
@@ -410,6 +450,48 @@ class DeviceCorpus:
         root = Path(root_dir) if root_dir else get_root_dir()
         return cls.from_canvases(
             info, *decode_canvases(info, range(len(info.samples)), target_size, root), device)
+
+    @classmethod
+    def sharded(cls, info: DatasetInfo, target_size: int, mesh: DataMesh, fake_mode: bool,
+                root_dir: Optional[Path] = None) -> "DeviceCorpus":
+        """Rank ``mesh.rank``'s shard of the corpus images on ``mesh.device``,
+        rows ``[r P, (r+1) P)`` with P = ceil(N / ranks), zero rows past N;
+        the sizes and targets of every row. Fake canvases are drawn whole and
+        sliced (the same bytes as the replicated corpus); JPEG files are
+        decoded for the rank's rows only, and the sizes all-gathered."""
+        import torch.distributed as dist
+
+        n, S, dev = len(info.samples), target_size, mesh.device
+        per = -(-n // mesh.size)
+        lo, hi = min(mesh.rank * per, n), min((mesh.rank + 1) * per, n)
+        if fake_mode:
+            canvases, sizes = fake_canvases(info, S)
+            canvases, sizes = canvases[lo:hi], torch.from_numpy(sizes)
+        else:
+            root = Path(root_dir) if root_dir else get_root_dir()
+            canvases, mine = decode_canvases(info, range(lo, hi), S, root)
+            padded = torch.zeros((per, 2), dtype=torch.int32, device=dev)
+            padded[:hi - lo] = torch.from_numpy(np.asarray(mine, np.int32)).to(dev)
+            parts = [torch.empty_like(padded) for _ in range(mesh.size)]
+            dist.all_gather(parts, padded, group=mesh.group)
+            sizes = torch.cat(parts)[:n].cpu()
+        if hi - lo < per:
+            canvases = np.concatenate([canvases, np.zeros((per - (hi - lo), S, S, 3), np.uint8)])
+        return cls(info, cls._planar(canvases, dev), sizes.to(torch.int32).to(dev), dev, mesh, mesh.rank * per)
+
+    def exchange(self, idx: torch.Tensor) -> torch.Tensor:
+        """The images of this rank's part (``batch_sharding``) of the global
+        group ``idx`` (int32 corpus rows on the card), from the shards: K2
+        gathers the rows held here, the others become zeros, and one
+        ``reduce_scatter`` sums the ranks' groups and deals each its part."""
+        held = self.images.shape[0]
+        loc = idx - self.row0
+        own = (loc >= 0) & (loc < held)
+        part = gather_rows_planar(self.images, loc.clamp(0, held - 1))
+        part = torch.where(own[:, None, None, None], part, torch.zeros((), dtype=part.dtype, device=part.device))
+        out = torch.empty((idx.shape[0] // self.mesh.size,) + tuple(part.shape[1:]), dtype=part.dtype,
+                          device=part.device)
+        return reduce_scatter_sum(out, part, self.mesh.group)
 
 
 class DeviceDataPipeline:
@@ -438,15 +520,27 @@ class DeviceDataPipeline:
         root_dir: Optional[Path] = None,
         enable_ram_cache: bool = False,
         prefetch: int = 2,
+        mesh: Optional[DataMesh] = None,
+        corpus_sharding: str = "replicated",
     ):
         if corpus_layout != "planar":
             raise NotImplementedError(
                 f"corpus_layout={corpus_layout!r}: the flat layout is a TPU tiling "
                 "workaround and is not ported")
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.group is not None else None
+        self.sharded = corpus_sharding == "sharded"
+        if corpus_sharding not in ("replicated", "sharded"):
+            raise ValueError(f"corpus_sharding must be 'replicated' or 'sharded', got {corpus_sharding!r}")
+        if self.sharded and not (device_cache and self.mesh is not None):
+            raise ValueError("corpus_sharding='sharded' spreads the corpus on the card over the ranks of a "
+                             "mesh: it needs device_cache=True and a mesh with a process group")
+        if self.sharded and self.device.type == "cuda" and self.mesh.backend != "nccl":
+            raise ValueError(f"the sharded corpus's exchange on the card needs NCCL, not {self.mesh.backend}")
         self.info = dataset_info
         self.S = target_size
-        self.B = batch_size
+        self.B = batch_size  # the global batch
+        self.rows = batch_sharding(self.mesh, batch_size)  # this rank's rows of it
         self.aug = aug_params
         self.max_targets = max_targets
         self.mixup_prob = mixup_prob
@@ -479,12 +573,14 @@ class DeviceDataPipeline:
             self.t_boxes, self.t_labels, self.t_mask = (
                 torch.from_numpy(a).to(self.device) for a in targets)
             return
-        if corpus is None:
+        if corpus is None and self.sharded:
+            corpus = DeviceCorpus.sharded(dataset_info, target_size, self.mesh, fake_mode, self.root_dir)
+        elif corpus is None:
             corpus = (DeviceCorpus.fake(dataset_info, target_size, self.device) if fake_mode
                       else DeviceCorpus.decode(dataset_info, target_size, self.device, self.root_dir))
         elif (corpus.info is not dataset_info or corpus.S != target_size
-              or corpus.device != self.device):
-            raise ValueError("corpus was built for another dataset, image size or device")
+              or corpus.device != self.device or (corpus.mesh is not None) != self.sharded):
+            raise ValueError("corpus was built for another dataset, image size, device or sharding")
         self.device_corpus = corpus
         self.src_T = corpus.src_T
         self.corpus, self.sizes = corpus.images, corpus.sizes
@@ -552,8 +648,9 @@ class DeviceDataPipeline:
         return groups, secs
 
     def _planned(self, max_steps: Optional[int]) -> Tuple[np.ndarray, np.ndarray]:
-        """``_epoch_plan`` cut to ``max_steps`` steps (the whole plan is
-        logged), its rows checked on the host to lie in the corpus."""
+        """``_epoch_plan`` (global under a mesh) cut to ``max_steps`` steps
+        (the whole plan is logged), its rows checked on the host to lie in
+        the corpus."""
         groups, secs = self._epoch_plan()
         if max_steps is not None:
             groups, secs = groups[:max_steps], secs[:max_steps]
@@ -563,23 +660,45 @@ class DeviceDataPipeline:
                 raise IndexError(f"epoch plan row outside [0, {n})")
         return groups, secs
 
+    def _columns(self, rows: np.ndarray) -> slice:
+        """This rank's columns of a plan's rows (the quads of its primaries)."""
+        return batch_sharding(self.mesh, rows.shape[1])
+
+    def _rank_plan(self, groups: np.ndarray, secs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """The plan this rank's gathers read: its columns, or the whole
+        global plan over a sharded corpus (every rank takes part in every
+        row's exchange)."""
+        if self.mesh is None or self.sharded:
+            return groups, secs
+        return groups[:, self._columns(groups)], secs[:, self._columns(secs)] if secs.size else secs
+
     def gather(self, idx: torch.Tensor) -> DeviceSample:
-        """Corpus rows ``idx`` (one K2 launch) and their sizes and targets."""
+        """Corpus rows ``idx`` (one K2 launch) and their sizes and targets.
+        Over a sharded corpus ``idx`` is a global group and the sample is
+        this rank's part of it (``DeviceCorpus.exchange``)."""
         if self.corpus is None:
             raise RuntimeError("gather reads the corpus on the card: device_cache=True")
         rows = idx.long()
-        return DeviceSample(gather_rows_planar(self.corpus, idx), self.sizes[rows],
-                            self.t_boxes[rows], self.t_labels[rows], self.t_mask[rows])
+        if self.sharded:
+            images = self.device_corpus.exchange(idx)
+            rows = rows[batch_sharding(self.mesh, idx.shape[0])]
+        else:
+            images = gather_rows_planar(self.corpus, idx)
+        return DeviceSample(images, self.sizes[rows], self.t_boxes[rows], self.t_labels[rows], self.t_mask[rows])
 
-    def _load_group(self, indices) -> HostGroup:
+    def _load_group(self, indices, keep: slice = slice(None)) -> HostGroup:
         """The canvases and sizes of corpus rows ``indices``, on the host (the
         JAX package's ``_load_group``; targets stay on the device). Fake mode
         draws each row's content from a generator seeded by
         ``hash(tuple(indices))``, which is deterministic for integers; JPEG
         mode decodes by ``pack_batch``, straight into pinned memory, or,
         with ``enable_ram_cache``, decodes each image once and copies it from
-        the cache after that."""
-        n, S = len(indices), self.S
+        the cache after that. Only the rows ``keep`` of the group are
+        returned and, from JPEG files, read; fake mode draws every row's
+        content in order, as the stream is the group's."""
+        start, stop, _ = keep.indices(len(indices))
+        kept = indices[keep]
+        n, S = len(kept), self.S
         pin = self.device.type == "cuda"
         images = torch.empty((n, S, S, 3), dtype=torch.uint8, pin_memory=pin)
         sizes = torch.empty((n, 2), dtype=torch.int32, pin_memory=pin)
@@ -589,18 +708,20 @@ class DeviceDataPipeline:
             rng = np.random.default_rng(abs(hash(tuple(indices))) % (2**31))
             for i, idx in enumerate(indices):
                 h, w = content_size(self.info.samples[idx].image_metadata, S)
-                canv[i, :h, :w] = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
-                sz[i] = (h, w)
+                content = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+                if start <= i < stop:
+                    canv[i - start, :h, :w] = content
+                    sz[i - start] = (h, w)
         elif self.enable_ram_cache:
-            missing = [i for i in dict.fromkeys(int(i) for i in indices) if i not in self._canvas_cache]
+            missing = [i for i in dict.fromkeys(int(i) for i in kept) if i not in self._canvas_cache]
             if missing:
                 cv, msz = decode_canvases(self.info, missing, S, self.root_dir)
                 for j, i in enumerate(missing):
                     self._canvas_cache[i] = (cv[j], msz[j])
-            for j, i in enumerate(indices):
+            for j, i in enumerate(kept):
                 canv[j], sz[j] = self._canvas_cache[int(i)]
         else:
-            sz[:] = decode_canvases(self.info, indices, S, self.root_dir, out=canv)[1]
+            sz[:] = decode_canvases(self.info, kept, S, self.root_dir, out=canv)[1]
         return HostGroup(images, sizes)
 
     def upload(self, group: HostGroup, rows: torch.Tensor) -> DeviceSample:
@@ -614,8 +735,10 @@ class DeviceDataPipeline:
                             self.t_boxes[r], self.t_labels[r], self.t_mask[r])
 
     def draw(self) -> AugmentDraws:
-        """One step's draws from the pipeline's generator."""
-        return draw_augment(self.gen, self.B, self.S, self.aug, self.use_mosaic, self.mixup_prob)
+        """One step's draws from the pipeline's generator: under a mesh the
+        global batch's, of which this rank keeps its rows."""
+        draws = draw_augment(self.gen, self.B, self.S, self.aug, self.use_mosaic, self.mixup_prob)
+        return draws if self.mesh is None else draws.rows(self.rows)
 
     def gather_augment(self, idx: torch.Tensor, draws: AugmentDraws,
                        idx2: Optional[torch.Tensor] = None) -> Tuple[Batch, torch.Tensor]:
@@ -648,16 +771,19 @@ class DeviceDataPipeline:
     def _host_fed(self, groups: np.ndarray, secs: np.ndarray, plan: torch.Tensor,
                   plan2: Optional[torch.Tensor]) -> Iterator[Tuple[DeviceSample, Optional[DeviceSample]]]:
         """Per step, the (primary, secondary) samples on the device: a producer
-        thread loads the step's groups on the host up to ``prefetch`` steps
-        ahead; this generator uploads them in step order. A producer's
-        exception is raised here."""
+        thread loads the step's groups (this rank's columns of the global
+        ``groups`` and ``secs``) on the host up to ``prefetch`` steps ahead;
+        this generator uploads them in step order. A producer's exception is
+        raised here."""
         q: queue.Queue = queue.Queue(maxsize=max(self.prefetch, 1))
         stop = threading.Event()
+        cols, cols2 = self._columns(groups), self._columns(secs) if secs.size else None
 
         def producer():
             try:
                 for i in range(len(groups)):
-                    item = (self._load_group(groups[i]), self._load_group(secs[i]) if secs.size else None)
+                    item = (self._load_group(groups[i], cols),
+                            self._load_group(secs[i], cols2) if secs.size else None)
                     if not put_unless_stopped(q, item, stop):
                         return
             except Exception as e:  # handed to the consumer, which raises it
@@ -692,8 +818,9 @@ class DeviceDataPipeline:
         only yielded, and the caller adds them (``add_overflow``).
         """
         groups, secs = self._planned(max_steps)
-        plan = torch.from_numpy(groups.astype(np.int32)).to(self.device)
-        plan2 = torch.from_numpy(secs.astype(np.int32)).to(self.device) if secs.size else None
+        mine, mine2 = self._rank_plan(groups, secs)
+        plan = torch.from_numpy(mine.astype(np.int32)).to(self.device)
+        plan2 = torch.from_numpy(mine2.astype(np.int32)).to(self.device) if mine2.size else None
         if self.device_cache:
             steps = ((self.gather(plan[i]), None if plan2 is None else self.gather(plan2[i]))
                      for i in range(plan.shape[0]))
@@ -721,8 +848,10 @@ class DeviceDataPipeline:
         sampler, ``pyrng`` and ``consumed_plan_log`` advance exactly as
         iterating ``epoch`` advances them; ``max_steps`` cuts the plan. The
         JAX package's version also returns a key per step; here the draws
-        come from the pipeline's generator, in step order."""
-        groups, secs = self._planned(max_steps)
+        come from the pipeline's generator, in step order. Under a mesh the
+        plan is this rank's columns of the global plan, or the whole global
+        plan over a sharded corpus."""
+        groups, secs = self._rank_plan(*self._planned(max_steps))
         xs = (groups, secs) if self.mixup_prob > 0.0 else (groups,)
         pin = self.device.type == "cuda"
         return tuple(torch.from_numpy(x.astype(np.int32)).pin_memory() if pin
@@ -821,6 +950,10 @@ class FusedEpoch:
         self.graph = on_card if graph is None else bool(graph)
         if self.graph and not on_card:
             raise ValueError("a CUDA graph needs the pipeline on the card")
+        if self.graph and pipe.mesh is not None and pipe.mesh.backend != "nccl":
+            raise ValueError(f"the fused epoch on the card captures its collectives in a CUDA graph, which the "
+                             f"{pipe.mesh.backend} backend cannot be captured in: use NCCL, or the step loop "
+                             "(data.fused_epoch=False)")
         self.pipe, self.train_step = pipe, train_step
         self.pipelined, self.stack_metrics = bool(pipelined), bool(stack_metrics)
         self.graphs: dict = {}  # "body" (and "last" when pipelined): CapturedGraph

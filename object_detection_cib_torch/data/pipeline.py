@@ -177,6 +177,10 @@ class Prefetcher:
     a machine with a card) for a caller that uploads them itself.
     ``overflow_total`` counts the targets dropped by ``max_targets``, and
     ``wait_seconds`` the host time the consumer spent waiting on the queue.
+    With ``rows`` (a rank's rows of a global batch, ``parallel.mesh.
+    batch_sharding``) each batch is made whole, from the whole seeded
+    stream, and only those rows are yielded; ``overflow_total`` counts the
+    whole batch's.
     """
 
     def __init__(
@@ -190,8 +194,10 @@ class Prefetcher:
         drop_last: bool = True,
         device: Union[str, torch.device, None] = "cuda",
         feed_dtype: torch.dtype = torch.float32,
+        rows: Optional[slice] = None,
     ):
         self.dataset = dataset
+        self.rows = rows
         self.batch_size = batch_size
         self.max_targets = max_targets
         self.sampler = sampler
@@ -268,6 +274,8 @@ class Prefetcher:
                     raise item
                 batch, ovf = item
                 self.overflow_total += ovf  # counted as the batch is handed out
+                if self.rows is not None:
+                    batch = Batch(*(t[self.rows] for t in batch))
                 yield batch if self.device is None else upload(batch, self.device, self.feed_dtype)
         finally:
             stop.set()

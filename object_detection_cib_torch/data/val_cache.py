@@ -1,8 +1,10 @@
 """Device-resident validation corpus.
 
 A copy of ``object_detection_cib_tpu/data/val_cache.py`` (numpy only; the
-port's ``train/trainer.py:Evaluator`` puts the canvases on the card). The
-notes below are the JAX package's.
+port's ``train/trainer.py:Evaluator`` puts the canvases on the card), with
+one change: fake content is drawn per image of the whole set, so that a
+rank's shard holds the bytes of the whole set's cache. The notes below are
+the JAX package's.
 
 Why: the per-batch validation path ships full normalized f32 images from
 host to device every epoch — 4 B/px over this environment's remote-device
@@ -62,16 +64,21 @@ class ValDeviceCache:
         canvases = np.full((n, S, S, 3), 114, np.uint8)
         sizes = np.zeros((n, 2), np.int32)
         if fake_mode:
+            # image i's content is the i-th draw of one stream over the whole
+            # set, so a rank's shard of the set holds the same bytes as the
+            # whole set's cache (the JAX package draws over `indices` only,
+            # which is the same for the whole set)
             rng = np.random.default_rng(1)
-            for j, i in enumerate(idx):
-                meta = info.samples[int(i)].image_metadata
+            where = {int(i): j for j, i in enumerate(idx)}
+            for i in range(max(where, default=-1) + 1):
+                meta = info.samples[i].image_metadata
                 scale = S / max(meta.height, meta.width)
                 h = min(max(int(round(meta.height * scale)), 1), S)
                 w = min(max(int(round(meta.width * scale)), 1), S)
-                canvases[j, :h, :w] = rng.integers(
-                    0, 256, (h, w, 3), dtype=np.uint8
-                )
-                sizes[j] = (h, w)
+                content = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+                if i in where:
+                    canvases[where[i], :h, :w] = content
+                    sizes[where[i]] = (h, w)
         else:
             bufs = [
                 (root / info.samples[int(i)].image_path).read_bytes()

@@ -2,8 +2,11 @@
 
 A copy of ``object_detection_cib_tpu/eval/coco_map.py``. ``add_batch`` takes
 the port's ``NMSResult`` after ``.cpu().numpy()`` of each field.
-Not carried over yet: ``sync_across_processes`` (the multi-host merge), which
-comes with the multi-GPU slice.
+``sync_across_processes`` merges the ranks' records of a validation sharded
+by rank in the order one process would have added them (by each rank's
+global image ids), so the merged ``results_dict`` is the one-process dict
+exactly; the JAX function appends them rank by rank, which may break ties
+between equal scores differently.
 
 Capability parity: kod/lightning/callbacks/pycoco_map_eval.py:45-144, which
 wraps vision_evaluation's CocoMeanAveragePrecisionEvaluator with
@@ -22,9 +25,12 @@ Implementation follows pycocotools COCOeval semantics:
 
 from __future__ import annotations
 
+import pickle
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
+
+from object_detection_cib_torch.parallel.distributed import allgather_bytes
 
 RECALL_THRS = np.linspace(0.0, 1.0, 101)
 
@@ -64,8 +70,11 @@ class MeanAveragePrecisionEvaluator:
         self.reset()
 
     def reset(self):
-        # per class: list of _ImageEval
+        # per class: list of _ImageEval, and the ordinal of each one's image
+        # among the images added (for the ordered merge across ranks)
         self._evals: List[List[_ImageEval]] = [[] for _ in range(self.num_classes)]
+        self._image_of: List[List[int]] = [[] for _ in range(self.num_classes)]
+        self.n_images = 0  # images added
 
     def add_image(
         self,
@@ -77,40 +86,48 @@ class MeanAveragePrecisionEvaluator:
     ):
         """Add one image's detections + ground truths (xyxy pixel boxes)."""
         T = len(self.ious)
+        image = self.n_images
+        self.n_images += 1
         for c in range(self.num_classes):
-            dmask = pred_classes == c
-            gmask = gt_classes == c
-            n_gt = int(gmask.sum())
-            if not dmask.any():
-                if n_gt:
-                    self._evals[c].append(
-                        _ImageEval(np.zeros((0,)), np.zeros((T, 0), bool), n_gt)
-                    )
-                continue
-            d_boxes = pred_boxes[dmask]
-            d_scores = pred_scores[dmask]
-            order = np.argsort(-d_scores, kind="mergesort")[: self.max_dets]
-            d_boxes, d_scores = d_boxes[order], d_scores[order]
-            g_boxes = gt_boxes[gmask]
+            before = len(self._evals[c])
+            self._add_class(c, T, pred_boxes, pred_scores, pred_classes, gt_boxes, gt_classes)
+            self._image_of[c].extend([image] * (len(self._evals[c]) - before))
 
-            D = len(d_scores)
-            matched = np.zeros((T, D), bool)
+    def _add_class(self, c: int, T: int, pred_boxes, pred_scores, pred_classes, gt_boxes, gt_classes):
+        """One class of one image: its record, if the image has a detection or a target of it."""
+        dmask = pred_classes == c
+        gmask = gt_classes == c
+        n_gt = int(gmask.sum())
+        if not dmask.any():
             if n_gt:
-                iou = _pairwise_iou(d_boxes, g_boxes)  # (D, G)
-                for t, thr in enumerate(self.ious):
-                    taken = np.zeros(n_gt, bool)
-                    for di in range(D):
-                        # best remaining gt (pycocotools greedy match)
-                        best, best_iou = -1, thr
-                        for gi in range(n_gt):
-                            if taken[gi]:
-                                continue
-                            if iou[di, gi] >= best_iou:
-                                best, best_iou = gi, iou[di, gi]
-                        if best >= 0:
-                            taken[best] = True
-                            matched[t, di] = True
-            self._evals[c].append(_ImageEval(d_scores, matched, n_gt))
+                self._evals[c].append(
+                    _ImageEval(np.zeros((0,)), np.zeros((T, 0), bool), n_gt)
+                )
+            return
+        d_boxes = pred_boxes[dmask]
+        d_scores = pred_scores[dmask]
+        order = np.argsort(-d_scores, kind="mergesort")[: self.max_dets]
+        d_boxes, d_scores = d_boxes[order], d_scores[order]
+        g_boxes = gt_boxes[gmask]
+
+        D = len(d_scores)
+        matched = np.zeros((T, D), bool)
+        if n_gt:
+            iou = _pairwise_iou(d_boxes, g_boxes)  # (D, G)
+            for t, thr in enumerate(self.ious):
+                taken = np.zeros(n_gt, bool)
+                for di in range(D):
+                    # best remaining gt (pycocotools greedy match)
+                    best, best_iou = -1, thr
+                    for gi in range(n_gt):
+                        if taken[gi]:
+                            continue
+                        if iou[di, gi] >= best_iou:
+                            best, best_iou = gi, iou[di, gi]
+                    if best >= 0:
+                        taken[best] = True
+                        matched[t, di] = True
+        self._evals[c].append(_ImageEval(d_scores, matched, n_gt))
 
     def add_batch(self, nms_result, gt_boxes, gt_classes, gt_mask):
         """Convenience: consume device NMSResult + padded GT arrays."""
@@ -128,6 +145,26 @@ class MeanAveragePrecisionEvaluator:
                 boxes[i][v], scores[i][v], classes[i][v],
                 gt_boxes[i][g], gt_classes[i][g],
             )
+
+    def sync_across_processes(self, image_ids: Sequence[int], mesh=None) -> None:
+        """Merge every rank's records into this evaluator (a rank-sharded
+        validation; no-op without a process group).
+
+        ``image_ids`` are the global ids of the images this rank added, in
+        the order added (its ``shard_indices``); the merged records are
+        ordered by image id, as one process adding every image in id order
+        would hold them. The pickles exchanged are the ranks' own."""
+        if mesh is None or mesh.group is None:
+            return
+        if len(image_ids) != self.n_images:
+            raise ValueError(f"{len(image_ids)} image ids for {self.n_images} images added")
+        ids = [[int(image_ids[k]) for k in ks] for ks in self._image_of]
+        parts = [pickle.loads(b) for b in allgather_bytes(pickle.dumps((self._evals, ids)), mesh)]
+        for c in range(self.num_classes):
+            merged = sorted(((i, e) for evals, ids_r in parts for i, e in zip(ids_r[c], evals[c])),
+                            key=lambda t: t[0])
+            self._evals[c] = [e for _, e in merged]
+            self._image_of[c] = []
 
     def _ap_for_class(self, c: int) -> np.ndarray:
         """AP per IoU threshold for one class; NaN when the class has no GT."""

@@ -14,7 +14,9 @@ Compute dtype is the dtype of the incoming activation: the network casts its
 input once (bf16 in production) and each conv casts its f32 weight to match,
 as flax's ``dtype=`` promotion does. BatchNorm statistics and its affine
 transform run in f32 (in f64 for an f64 activation); its output goes back to
-the activation dtype.
+the activation dtype. Under a process group (``sync_batchnorm``) the
+training statistics are those of the global batch, as the JAX package's
+BatchNorm computes them over a batch sharded on its mesh.
 
 Not ported: ``SpaceToDepthStem``. It computes the same function as the 6x6/2
 pad-2 stem conv from the same (6, 6, 3, C) parameter; it existed only to map
@@ -32,6 +34,48 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from object_detection_cib_torch.parallel.distributed import all_reduce_sum_
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the global batch of a process group:
+    ``(x, weight, bias) -> (y, mean, var)``, every tensor in one float dtype.
+
+    Forward, two-pass as the local path: the per-channel sums over N, H, W
+    are summed over the ranks, giving the mean; then the sums of squared
+    deviations from that mean, giving the biased variance. Every rank has
+    the same number of rows (the global batch divides evenly), so the count
+    is this rank's times the group's size. Backward: the per-channel sums of
+    ``dy`` and ``dy * x_hat`` are summed over the ranks (one all-reduce) for
+    ``dx``; the weight's and bias's gradients are this rank's sums, which
+    the train step's gradient all-reduce adds up.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, group, ranks: int, eps: float):
+        C = x.shape[1]
+        count = x.numel() // C * ranks
+        mean = all_reduce_sum_(x.sum((0, 2, 3)), group) / count
+        d = x - mean[:, None, None]
+        var = all_reduce_sum_((d * d).sum((0, 2, 3)), group) / count
+        invstd = torch.rsqrt(var + eps)
+        x_hat = d * invstd[:, None, None]
+        ctx.save_for_backward(x_hat, invstd, weight)
+        ctx.group, ctx.count = group, count
+        ctx.mark_non_differentiable(mean, var)
+        return x_hat * weight[:, None, None] + bias[:, None, None], mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x_hat, invstd, weight = ctx.saved_tensors
+        C = x_hat.shape[1]
+        sum_dy = dy.sum((0, 2, 3))
+        sum_dy_xhat = (dy * x_hat).sum((0, 2, 3))
+        both = all_reduce_sum_(torch.cat([sum_dy, sum_dy_xhat]), ctx.group)
+        mean_dy, mean_dy_xhat = both[:C] / ctx.count, both[C:] / ctx.count
+        dx = (dy - mean_dy[:, None, None] - x_hat * mean_dy_xhat[:, None, None]) * (invstd * weight)[:, None, None]
+        return dx, sum_dy_xhat, sum_dy, None, None, None
+
 
 class BatchNorm(nn.Module):
     """BatchNorm over NCHW channels with flax's semantics.
@@ -41,12 +85,20 @@ class BatchNorm(nn.Module):
     as flax moves them: ``ra = (1 - momentum) * ra + momentum * batch`` with
     the BIASED batch variance (torch's ``BatchNorm2d`` would use the unbiased
     one). ``momentum`` is torch's convention: 0.03 here is flax's decay 0.97.
+
+    With a process group in ``group`` (set by ``sync_batchnorm``) the batch
+    statistics are the global batch's, summed over the ranks in the same
+    two passes (``_GlobalBatchNorm``), and the running statistics move
+    alike on every rank. ``nn.SyncBatchNorm`` is not used: it moves the
+    running variance with the unbiased estimate and combines per-rank
+    moments in one pass.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-3, momentum: float = 0.03):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.group = None  # a process group: statistics over the global batch
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -59,14 +111,32 @@ class BatchNorm(nn.Module):
                 training=False, eps=self.eps,
             )
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.group is not None:
+            import torch.distributed as dist
+
+            y, mean, var = _GlobalBatchNorm.apply(x32, self.weight.to(x32.dtype), self.bias.to(x32.dtype),
+                                                  self.group, dist.get_world_size(self.group), self.eps)
+            self._move_running(mean, var)
+            return y.to(x.dtype)
         var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        self._move_running(mean, var)
         scale = torch.rsqrt(var + self.eps) * self.weight
         y = (x32 - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
+
+    @torch.no_grad()
+    def _move_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+
+
+def sync_batchnorm(net: nn.Module, group) -> None:
+    """Make every ``BatchNorm`` of ``net`` take its training statistics over
+    the global batch of ``group`` (None: this process's batch)."""
+    for m in net.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:

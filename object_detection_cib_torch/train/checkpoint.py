@@ -17,7 +17,9 @@ in place, so a thread that read the live tensors would save a later
 step's weights: a ``Snapshot`` clones every tensor on its device (enqueued on
 the current stream before the next step), and the worker copies the clones
 to the host once an event recorded behind them has passed, then writes the
-file under a temporary name and renames it.
+file under a temporary name and renames it. Under data parallelism rank 0
+alone saves; every rank restores the same file after a barrier
+(``train/trainer.py``).
 
 Capability parity: Lightning ModelCheckpoint as configured by the reference
 (kod/configs/callbacks/model_checkpoint.yaml: monitor 'map', mode max,

@@ -41,12 +41,31 @@ silently (``_KEYS_READ_NOT_ACTED_ON``): ``model.net.stem_space_to_depth``
 (XLA's), ``trainer.deterministic`` (the JAX trainer ignores it too).
 Keys it refuses raise, naming the key
 (``_refuse_unported``): ``model.remat_policy`` other than null,
-``trainer.num_devices`` above 1 and ``data.corpus_sharding=sharded`` (both
-multi-GPU, A7), ``data.warp_pallas=False`` (it pins the JAX package's dense
+``data.warp_pallas=False`` (it pins the JAX package's dense
 bf16 einsum warp, which the port does not have; ``data.warp_precision=
 exact`` is the port's kernel-free warp), ``data.corpus_layout=flat`` (a TPU
 workaround). ``trainer.platform`` null means
 the card: there is no fallback to the CPU, which ``trainer=cpu`` selects.
+
+Data parallelism (``mesh``, a ``parallel.mesh.DataMesh`` with a process
+group, one per rank; ``cli.train`` launches the ranks for
+``trainer.num_devices`` N > 1, null meaning every visible card): the
+single-process mesh of the JAX package. ``batch_size`` is the global batch
+and must divide by N; each rank trains on its rows of every global batch
+(``data/device_pipeline.py``, or the host pipeline's whole batch cut to its
+rows), the step is the global one (``train/steps.py``), and
+``steps_per_epoch`` is ``len(train) // batch_size`` as on one card. The
+per-epoch metric matrix is summed over the ranks (``lr`` excepted) before
+its one copy to the host, so the losses, ``assign_drop`` and
+``targets_dropped`` count every rank. Validation is sharded by rank
+(``shard_indices``: rank r takes images r, r+N, ...), each rank through its
+own validation cache or host feed with K1 on its card, and the records are
+merged in image order (``eval/coco_map.py``), so every rank reads the
+one-process mAP dict, and early stopping and "best" agree. Rank 0 writes
+the checkpoints, the loggers' files, ``hparams.json`` and the console
+lines; every rank waits for the others at the end of ``fit`` and before
+reading a checkpoint. A mesh without a group (one card) is the one-process
+path, bit for bit.
 
 ``Evaluator.validate`` is the counterpart of ``Trainer._validate_device``
 (:832-956) and ``Evaluator.validate_batches`` of ``Trainer.validate``'s
@@ -60,7 +79,8 @@ i-1 while the card runs batch i (a one-deep pipeline: results come back by
 a non-blocking copy into pinned memory, and the host waits on that copy's
 event only).
 
-Not here: the multi-host feed and mAP merge (A7).
+Not here: several hosts, one process each, joined from the environment
+(ROADMAP A).
 """
 
 from __future__ import annotations
@@ -92,10 +112,18 @@ from object_detection_cib_torch.data.host_augment import (
     ValidationSampleAugmentor,
 )
 from object_detection_cib_torch.data.reader import SampleReader
+from object_detection_cib_torch.data.samplers import shard_indices
 from object_detection_cib_torch.data.synthetic import build_fake_manifest, build_synthetic_dataset
 from object_detection_cib_torch.data.val_cache import ValDeviceCache
 from object_detection_cib_torch.eval.coco_map import MeanAveragePrecisionEvaluator
 from object_detection_cib_torch.models.yolov5 import build_network
+from object_detection_cib_torch.parallel.distributed import (
+    all_reduce_sum_,
+    allgather_bytes,
+    barrier,
+    broadcast_module_,
+)
+from object_detection_cib_torch.parallel.mesh import DataMesh, batch_sharding
 from object_detection_cib_torch.train.checkpoint import CheckpointManager, Snapshot, restore_checkpoint
 from object_detection_cib_torch.train.loss import LossParams
 from object_detection_cib_torch.train.optim import OptimizerConfig, SmartSGD, WarmupParams
@@ -120,8 +148,10 @@ class Evaluator:
         max_det: int = 300,
         max_nms: int = 2048,
         device: Union[str, torch.device] = "cuda",
+        mesh: Optional[DataMesh] = None,
     ):
         self.device = resolve_device(device)
+        self.mesh = mesh  # with a group: each rank evaluates its shard, the records are merged
         net_device = next(net.parameters()).device
         if net_device.type != self.device.type:
             raise ValueError(f"net is on {net_device}, evaluator on {self.device}")
@@ -170,12 +200,16 @@ class Evaluator:
             yield _trimmed(*pending, B, n)
 
     def validate(self, cache: ValDeviceCache, max_blocks: Optional[int] = None) -> Dict[str, float]:
-        """mAP over every image of the cache, or of its first ``max_blocks`` blocks."""
+        """mAP over every image of the cache, or of its first ``max_blocks``
+        blocks; under a mesh, over every rank's cache (its images merged by
+        their ids in the set, ``cache.indices``)."""
         evaluator = MeanAveragePrecisionEvaluator(len(self.classes), class_names=self.classes)
         B = self.batch_size
         for bi, res in self.run_blocks(cache, max_blocks):
             sl = slice(bi * B, bi * B + res.boxes.shape[0])
             evaluator.add_batch(res, cache.gt_boxes[sl], cache.gt_labels[sl], cache.gt_mask[sl])
+        if self.mesh is not None and self.mesh.group is not None:
+            evaluator.sync_across_processes(cache.indices[:evaluator.n_images], self.mesh)
         return evaluator.results_dict()
 
     def _run_batches(self, batches: Iterable[Batch]) -> Iterator[Tuple[NMSResult, Batch]]:
@@ -197,11 +231,16 @@ class Evaluator:
         if pending is not None:
             yield _waited(*pending[:2]), pending[2]
 
-    def validate_batches(self, batches: Iterable[Batch]) -> Dict[str, float]:
-        """mAP over host batches, scored on the host while the card runs the next."""
+    def validate_batches(self, batches: Iterable[Batch],
+                         image_ids: Optional[Sequence[int]] = None) -> Dict[str, float]:
+        """mAP over host batches, scored on the host while the card runs the
+        next; under a mesh, over every rank's batches, whose images are
+        ``image_ids`` (in the order fed) of the set."""
         evaluator = MeanAveragePrecisionEvaluator(len(self.classes), class_names=self.classes)
         for res, batch in self._run_batches(batches):
             evaluator.add_batch(res, batch.boxes.numpy(), batch.labels.numpy(), batch.mask.numpy())
+        if self.mesh is not None and self.mesh.group is not None:
+            evaluator.sync_across_processes(image_ids[:evaluator.n_images], self.mesh)
         return evaluator.results_dict()
 
     def _dicts(self, res: NMSResult) -> List[dict]:
@@ -223,9 +262,16 @@ class Evaluator:
         return results
 
     def predict_batches(self, batches: Iterable[Batch], out_path: Optional[Path] = None) -> list:
-        """``predict`` over host batches (the JAX ``Trainer.predict``'s feed)."""
+        """``predict`` over host batches (the JAX ``Trainer.predict``'s feed).
+        Under a mesh each rank predicts its shard (``shard_indices``) and the
+        ranks' lists are merged back into the set's order (JAX :1364-1380);
+        rank 0 writes ``out_path``."""
         results = [d for res, _ in self._run_batches(batches) for d in self._dicts(res)]
-        if out_path is not None:
+        if self.mesh is not None and self.mesh.group is not None:
+            per_rank = [json.loads(b.decode()) for b in allgather_bytes(json.dumps(results).encode(), self.mesh)]
+            iters = [iter(x) for x in per_rank]
+            results = [next(iters[g % len(per_rank)]) for g in range(sum(len(x) for x in per_rank))]
+        if out_path is not None and (self.mesh is None or self.mesh.is_main):
             Path(out_path).write_text(json.dumps(results))
         return results
 
@@ -253,6 +299,7 @@ def _trimmed(bi: int, fetched, B: int, n: int) -> Tuple[int, NMSResult]:
 
 
 METRIC_ROWS = StepMetrics._fields  # rows of the per-epoch metric matrix; the overflow is the last
+LR_ROW = METRIC_ROWS.index("lr")
 
 
 def _compute_loss_weights(info: DatasetInfo) -> np.ndarray:
@@ -294,7 +341,7 @@ class EarlyStopping(NamedTuple):
 
 
 class Trainer:
-    """The training loop on one card.
+    """The training loop on one card, or on this rank's card of a ``mesh``.
 
     From plain arguments: the network (random weights from ``seed``; ``size``
     a variant name or ``{"deepen_factor", "widen_factor"}``); the training
@@ -324,6 +371,12 @@ class Trainer:
     ``fused_dispatch_ahead`` are the config's keys of those names, with
     ``configs/data/default.yaml``'s defaults: ``fused_epoch=False`` is the
     step loop.
+
+    ``mesh`` (a ``DataMesh`` with a process group, as ``parallel.
+    distributed.launch`` gives each rank) makes this one rank of a
+    data-parallel run (module docstring); ``device`` must then be the
+    mesh's. ``corpus_sharding="sharded"`` spreads the corpus on the card
+    over the ranks.
     """
 
     def __init__(
@@ -366,6 +419,8 @@ class Trainer:
         fused_epoch: bool = True,
         fused_pipelined: bool = True,
         fused_dispatch_ahead: bool = True,
+        mesh: Optional[DataMesh] = None,
+        corpus_sharding: str = "replicated",
     ):
         if pipeline not in ("device", "host"):
             raise ValueError(f"pipeline must be 'device' or 'host', got {pipeline!r}")
@@ -378,6 +433,14 @@ class Trainer:
         if corpus is not None and not (pipeline == "device" and device_cache):
             raise ValueError("corpus is the card-resident corpus of pipeline='device', device_cache=True")
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.group is not None else None
+        if self.mesh is not None:
+            if self.device != self.mesh.device:
+                raise ValueError(f"device {self.device} is not the mesh's {self.mesh.device}")
+            if batch_size % self.mesh.size:
+                raise ValueError(f"data.batch_size={batch_size} (the global batch) does not divide over "
+                                 f"{self.mesh.size} ranks")
+        self.is_main = self.mesh is None or self.mesh.is_main
         self.pipeline_name, self.device_cache = pipeline, bool(device_cache)
         self.fused_epoch, self.fused_pipelined = bool(fused_epoch), bool(fused_pipelined)
         self.fused_dispatch_ahead = bool(fused_dispatch_ahead)
@@ -395,6 +458,7 @@ class Trainer:
         self.num_workers = max(int(num_workers), 1)
         self.net = build_network(len(self.classes), size, num_anchors_per_cell=num_anchors_per_cell,
                                  dtype=dtype, device=self.device, seed=seed)
+        broadcast_module_(self.net, self.mesh)  # every rank starts from rank 0's weights
         feed_dtype = torch.float32 if dtype is None else dtype
         self.sampler = sampler
         self.pipeline: Optional[DeviceDataPipeline] = None
@@ -405,7 +469,7 @@ class Trainer:
                 mixup_prob=mixup_prob, use_mosaic=use_mosaic, warp_precision=warp_precision,
                 sampler=sampler, seed=seed, fake_mode=self.fake_mode, device_cache=device_cache,
                 feed_dtype=feed_dtype, device=self.device, corpus=corpus, root_dir=root_dir,
-                enable_ram_cache=enable_ram_cache,
+                enable_ram_cache=enable_ram_cache, mesh=self.mesh, corpus_sharding=corpus_sharding,
             )
         elif train_info is not None:
             # cv2 and Pillow are needed only here: the host pipeline is imported when asked for
@@ -419,7 +483,10 @@ class Trainer:
                 sampler=sampler, seed=seed)
             self.prefetcher = Prefetcher(
                 train_ds, batch_size, max_targets, sampler=sampler or ShuffleSampler(train_info, seed=seed),
-                num_threads=self.num_workers, device=self.device, feed_dtype=feed_dtype)
+                num_threads=self.num_workers, device=self.device, feed_dtype=feed_dtype,
+                rows=batch_sharding(self.mesh, batch_size) if self.mesh is not None else None)
+        if corpus_sharding != "replicated" and self.pipeline is None:
+            raise ValueError("corpus_sharding='sharded' is the device pipeline's corpus on the card")
         self.steps_per_epoch = max(len(train_info.samples) // batch_size, 1) if train_info else 1
         self.optimizer = SmartSGD(self.net, optimizer._replace(max_epochs=self.max_epochs),
                                   self.steps_per_epoch)
@@ -434,17 +501,24 @@ class Trainer:
         self.train_step = make_train_step(
             self.net, self.anchors, self.image_shape, self.optimizer, loss_params, class_weights,
             assign_threshold=assign_threshold, assign_offset_capacity=assign_offset_capacity,
-            assign_compact_slots=assign_compact_slots)
+            assign_compact_slots=assign_compact_slots, mesh=self.mesh)
         # validation feed (JAX :781-786): the val set on the card beside the
-        # corpus on the card, else the host feed, built at its first use
+        # corpus on the card, else the host feed, built at its first use;
+        # under a mesh this rank's shard of it (JAX :705-720, :846-870)
+        self.val_indices = np.arange(len(val_info.samples))
+        if self.mesh is not None:
+            self.val_indices = shard_indices(self.val_indices, self.mesh.rank, self.mesh.size)
         self.val_cache: Optional[ValDeviceCache] = None
         if pipeline == "device" and device_cache and val_device_cache:
-            self.val_cache = ValDeviceCache(val_info, range(len(val_info.samples)), image_size,
+            self.val_cache = ValDeviceCache(val_info, self.val_indices, image_size,
                                             max_targets, fake_mode=self.fake_mode, root_dir=root_dir)
         self._val_dataset = None
+        # under a mesh each rank's validation batches are still B images (of
+        # its shard): the eval step's shapes, and so each image's result,
+        # are those of one process
         self.evaluator = Evaluator(self.net, self.anchors, val_info.classes, batch_size=batch_size,
                                    conf_thres=val_conf_thres, iou_thres=val_iou_thres, max_nms=val_max_nms,
-                                   device=self.device)
+                                   device=self.device, mesh=self.mesh)
         self.epoch = 0  # epochs trained so far
         self.epoch_imgs: List[int] = []
         self.epoch_walls: List[float] = []
@@ -472,18 +546,24 @@ class Trainer:
 
     # ------------------------------------------------------------------ config
     @classmethod
-    def from_config(cls, cfg: dict) -> "Trainer":
-        """A trainer for a composed config, as the JAX ``Trainer(cfg)``."""
+    def from_config(cls, cfg: dict, mesh: Optional[DataMesh] = None) -> "Trainer":
+        """A trainer for a composed config, as the JAX ``Trainer(cfg)``; with
+        ``mesh``, this rank's (``cli.train`` launches the ranks of
+        ``trainer.num_devices`` > 1)."""
         tcfg, dcfg, mcfg = cfg["trainer"], cfg["data"], cfg["model"]
         device = _device_from_cfg(tcfg)
         _refuse_unported(cfg)
+        _check_mesh(tcfg, device, mesh)
+        if mesh is not None and mesh.group is not None:
+            device = mesh.device
+        say = print if mesh is None or mesh.is_main else (lambda *a, **k: None)
         ignored = [f"{k} ({why})" for k, why in _KEYS_READ_NOT_ACTED_ON.items() if _cfg_get(cfg, k) is not None]
         if ignored:
-            print("config keys read and not acted on by the port: " + "; ".join(ignored), flush=True)
+            say("config keys read and not acted on by the port: " + "; ".join(ignored), flush=True)
         seed = int(cfg.get("seed", 0))
         name = cfg["dataset_name"]
         if name.startswith("fake") and not dcfg.get("fake_mode"):
-            print(f"dataset '{name}' implies data.fake_mode=True", flush=True)
+            say(f"dataset '{name}' implies data.fake_mode=True", flush=True)
             dcfg["fake_mode"] = True
         train_info = _load_dataset(name, "train", dcfg) if cfg.get("train", True) else None
         val_info = _load_dataset(name, "validation", dcfg)
@@ -557,6 +637,8 @@ class Trainer:
             fused_epoch=bool(dcfg.get("fused_epoch", True)),
             fused_pipelined=bool(dcfg.get("fused_pipelined", False)),
             fused_dispatch_ahead=bool(dcfg.get("fused_dispatch_ahead", True)),
+            mesh=mesh,
+            corpus_sharding=dcfg.get("corpus_sharding") or "replicated",
         )
         t.loop = FitConfig(
             check_val_every_n_epoch=int(tcfg.get("check_val_every_n_epoch") or 1),
@@ -570,29 +652,29 @@ class Trainer:
             profile_steps=int(tcfg.get("profile_steps", 5)),
         )
         t.debug_nans = bool(tcfg.get("debug_nans"))
-        t.verbose = True
+        t.verbose = t.is_main
 
         # ----- logging / checkpoints (JAX :427-481)
         t.out_dir = Path(cfg["paths"]["output_dir"])
         t.out_dir.mkdir(parents=True, exist_ok=True)
-        t.loggers = build_loggers(cfg.get("logger"))
+        t.loggers = build_loggers(cfg.get("logger")) if t.is_main else []
         t.progress = ProgressTable(interval=int(cfg.get("progress_interval", 20)))
         cb_all = cfg.get("callbacks") or {}
         cb = cb_all.get("model_checkpoint")
-        if cb is None and "model_checkpoint" in cb_all:
-            t.ckpt = None  # callbacks=none: checkpointing disabled
+        if (cb is None and "model_checkpoint" in cb_all) or not t.is_main:
+            t.ckpt = None  # callbacks=none: checkpointing disabled; under a mesh rank 0 writes
         else:
             cb = cb or {}
             t.ckpt = CheckpointManager(Path(cb.get("dirpath", t.out_dir / "checkpoints")),
                                        monitor=cb.get("monitor", "map"), mode=cb.get("mode", "max"))
         t.ckpt_every_n_epochs = max(int((cb or {}).get("every_n_epochs") or 1), 1)
-        t.sampler_debug = bool(cb_all.get("sampler_debug"))
+        t.sampler_debug = bool(cb_all.get("sampler_debug")) and t.is_main
         ms = cb_all.get("model_summary")
-        if ms:
+        if ms and t.is_main:
             t.print_model_summary(int(ms.get("max_depth", 3)))
         t.rich_progress = (bool(cb_all.get("rich_progress_bar")) and not cfg.get("disable_progress_bar")
                            and sys.stdout.isatty())
-        t.progress.enabled = not t.rich_progress
+        t.progress.enabled = not t.rich_progress and t.is_main
         es = cb_all.get("early_stopping") or {}
         t.early_stopping = EarlyStopping(
             monitor=es.get("monitor", "map"), mode=str(es.get("mode", "max")),
@@ -600,10 +682,15 @@ class Trainer:
             check_finite=bool(es.get("check_finite", False)))
 
         n_params = sum(p.numel() for p in t.net.parameters())
-        print(f"model: yolov5 widen={ncfg.get('widen_factor', 1.0)} deepen={ncfg.get('deepen_factor', 1.0)} "
-              f"nc={len(t.classes)} params={n_params:,} | device={t.device} | dataset={name} "
-              f"train={len(train_info.samples) if train_info else 0} val={len(val_info.samples)}",
-              flush=True)
+        ranks = t.mesh.size if t.mesh is not None else 1
+        say(f"model: yolov5 widen={ncfg.get('widen_factor', 1.0)} deepen={ncfg.get('deepen_factor', 1.0)} "
+            f"nc={len(t.classes)} params={n_params:,} | device={t.device} x{ranks} ranks | dataset={name} "
+            f"train={len(train_info.samples) if train_info else 0} val={len(val_info.samples)}",
+            flush=True)
+        if not t.is_main:
+            if cfg.get("ckpt_path"):
+                t.restore(cfg["ckpt_path"])
+            return t
         (t.out_dir / "hparams.json").write_text(json.dumps({
             "num_params": n_params,
             "num_classes": len(t.classes),
@@ -621,7 +708,8 @@ class Trainer:
     def restore(self, path: Path) -> None:
         """Load a checkpoint's parameters, BN statistics, momentum buffers and
         step count; ``fit`` goes on from epoch ``step_count // steps_per_epoch``
-        (JAX :983-985)."""
+        (JAX :983-985). Under a mesh every rank reads it, after a barrier."""
+        barrier(self.mesh)
         restore_checkpoint(path, self.net, self.optimizer)
         self.epoch = self.optimizer.step_count // self.steps_per_epoch
 
@@ -658,7 +746,10 @@ class Trainer:
                 self.val_info, SampleReader(self.image_shape.width, self.classes, self.fake_mode,
                                             self.root_dir),
                 ValidationSampleAugmentor(), enable_ram_cache=self.enable_ram_cache)
-        return Prefetcher(self._val_dataset, self.batch_size, self.max_targets,
+        from object_detection_cib_torch.data.samplers import FixedSampler
+
+        sampler = FixedSampler(self.val_indices) if self.mesh is not None else None
+        return Prefetcher(self._val_dataset, self.evaluator.batch_size, self.max_targets, sampler=sampler,
                           num_threads=self.num_workers, drop_last=False, device=None)
 
     def _val_batches(self, total: int) -> int:
@@ -673,14 +764,14 @@ class Trainer:
         """mAP over the val set (or the part ``limit_val_batches`` or
         ``fast_dev_run`` leaves), through the feed the trainer chose."""
         if self.val_cache is not None:
-            nb = max(-(-len(self.val_cache) // self.batch_size), 1)
+            nb = max(-(-len(self.val_cache) // self.evaluator.batch_size), 1)
             metrics = self.evaluator.validate(self.val_cache, self._val_batches(nb))
         else:
             feed = self.val_prefetcher()
             batches = iter(feed)
             try:
                 metrics = self.evaluator.validate_batches(
-                    b for _, b in zip(range(self._val_batches(len(feed))), batches))
+                    (b for _, b in zip(range(self._val_batches(len(feed))), batches)), self.val_indices)
             finally:
                 batches.close()
         if self.verbose:
@@ -815,12 +906,14 @@ class Trainer:
                     self.ckpt.maybe_save_best(Snapshot(self.net, self.optimizer), last_val)
                 reason = self._early_stop_reason(last_val)
                 if reason is not None:
-                    print(f"early stopping: {reason}", flush=True)
+                    if self.is_main:
+                        print(f"early stopping: {reason}", flush=True)
                     if self.ckpt:
                         self.ckpt.save_last(Snapshot(self.net, self.optimizer))
                         # saves are off-thread: drain, so that a caller reading
                         # the checkpoint right after fit sees a complete 'last'
                         self.ckpt.wait_until_finished()
+                    barrier(self.mesh)
                     return last_val
             if self.ckpt and (epoch + 1) % self.ckpt_every_n_epochs == 0:
                 self.ckpt.save_last(boundary_snap or Snapshot(self.net, self.optimizer))
@@ -835,6 +928,7 @@ class Trainer:
             self.ckpt.save_last(Snapshot(self.net, self.optimizer))
         if self.ckpt:
             self.ckpt.wait_until_finished()
+        barrier(self.mesh)  # rank 0's checkpoint is whole before any rank goes on
         return last_val
 
     def _step_epoch(self, epoch: int, n_steps: int, on_step, prof, prof_window):
@@ -859,7 +953,7 @@ class Trainer:
         no_overflow = torch.zeros((), dtype=torch.int32, device=self.device)  # the host feed counts its own
         cols = []
         for i, (batch, ovf) in enumerate(batches):
-            if loop.profiler and prof is None and self.optimizer.step_count == prof_window[0]:
+            if loop.profiler and self.is_main and prof is None and self.optimizer.step_count == prof_window[0]:
                 prof = _start_profiler(self.device)  # then the trace, then False once written
             m = self.train_step(batch, table[i])
             cols.append(metric_column(m, no_overflow if ovf is None else ovf))
@@ -872,7 +966,7 @@ class Trainer:
                 on_step(epoch, i, m)
         if bar is not None:
             bar.close()
-        flat = torch.stack(cols, 1).cpu().numpy()
+        flat = self._sum_over_ranks(torch.stack(cols, 1)).cpu().numpy()
         if self.prefetcher is not None:
             host_dropped = self.prefetcher.overflow_total - host_dropped
         return flat, host_dropped, prof
@@ -931,7 +1025,7 @@ class Trainer:
         step0 = self.optimizer.step_count
         xs = self.pipeline.epoch_host_arrays(epoch_steps)
         n = int(xs[0].shape[0])
-        flat = self._fused_fn(xs, self.optimizer.hyper_table(step0, n))
+        flat = self._sum_over_ranks(self._fused_fn(xs, self.optimizer.hyper_table(step0, n)))
         self.optimizer.step_count = step0 + n
         if not flat.is_cuda:
             return flat, None, step0
@@ -941,6 +1035,17 @@ class Trainer:
         event.record()
         self._epoch_end_events.append((epoch, event))
         return host, event, step0
+
+    def _sum_over_ranks(self, flat: torch.Tensor) -> torch.Tensor:
+        """An epoch's metric matrix on the device summed over the mesh's
+        ranks in place, the ``lr`` row (every rank's) kept: one all-reduce
+        an epoch. Unchanged without a mesh."""
+        if self.mesh is None:
+            return flat
+        lr = flat[LR_ROW].clone()
+        all_reduce_sum_(flat, self.mesh.group)
+        flat[LR_ROW] = lr
+        return flat
 
     def device_epoch_walls(self) -> Dict[int, float]:
         """The fused epochs' device times, ``{epoch: seconds}``: between the
@@ -957,12 +1062,13 @@ class Trainer:
     def _warn_overflow(self, epoch: int, adrop: int, dropped: int, step: int) -> None:
         """The JAX trainer's warnings for the epoch's compaction drops and the
         targets beyond ``max_targets`` (:1196-1212)."""
-        if adrop:
+        if adrop and self.is_main:
             print(f"[epoch {epoch}] WARNING: {adrop} valid assignment slots dropped by loss-table "
                   "compaction this epoch; raise model.assign_compact_slots", flush=True)
         if dropped:
-            print(f"[epoch {epoch}] WARNING: {dropped} targets dropped by max_targets={self.max_targets} "
-                  "capacity this epoch", flush=True)
+            if self.is_main:
+                print(f"[epoch {epoch}] WARNING: {dropped} targets dropped by max_targets={self.max_targets} "
+                      "capacity this epoch", flush=True)
             self._log({"targets_dropped": float(dropped)}, step)
 
     def _early_stop_reason(self, last_val: Dict[str, float]) -> Optional[str]:
@@ -1095,12 +1201,12 @@ def _refuse_unported(cfg: dict) -> None:
     if mcfg.get("remat_policy"):
         raise NotImplementedError(f"model.remat_policy={mcfg['remat_policy']!r}: XLA rematerialisation "
                                   "is not ported (null is the only value)")
-    if (tcfg.get("num_devices") or 1) > 1:
-        raise NotImplementedError(f"trainer.num_devices={tcfg['num_devices']}: one card only; "
-                                  "multi-GPU is ROADMAP item A7")
-    if dcfg.get("corpus_sharding", "replicated") != "replicated":
-        raise NotImplementedError(f"data.corpus_sharding={dcfg['corpus_sharding']!r}: the sharded "
-                                  "corpus is multi-GPU, ROADMAP item A7")
+    sharding = dcfg.get("corpus_sharding") or "replicated"
+    if sharding not in ("replicated", "sharded"):
+        raise ValueError(f"data.corpus_sharding={sharding!r}: 'replicated' or 'sharded'")
+    if sharding == "sharded" and not (dcfg.get("pipeline") == "device" and dcfg.get("device_cache")):
+        raise ValueError("data.corpus_sharding=sharded spreads the corpus on the card over the ranks: it needs "
+                         "data.pipeline=device data.device_cache=True")
     if dcfg.get("pipeline") == "device" and dcfg.get("corpus_layout", "planar") != "planar":
         raise NotImplementedError(f"data.corpus_layout={dcfg['corpus_layout']!r}: the flat layout is a TPU "
                                   "tiling workaround and is not ported")
@@ -1109,6 +1215,44 @@ def _refuse_unported(cfg: dict) -> None:
             "data.warp_pallas=False pins the JAX package's dense bf16 einsum warp, which the port does "
             "not have: its fast warp is the K5 kernel (auto/True); data.warp_precision=exact is the "
             "kernel-free warp")
+
+
+def num_devices_from_cfg(tcfg: dict) -> int:
+    """The ranks ``trainer.num_devices`` asks for: null is every visible
+    card (JAX: every visible device), or one process on the CPU; more than
+    the cards visible raises."""
+    n = tcfg.get("num_devices")
+    if n is not None and int(n) < 1:
+        raise ValueError(f"trainer.num_devices={n}")
+    if tcfg.get("platform") == "cpu":
+        return 1 if n is None else int(n)
+    visible = torch.cuda.device_count()
+    if n is None:
+        if not visible:
+            raise RuntimeError("trainer.num_devices=null takes every visible card, and none is visible; "
+                               "trainer=cpu runs on the CPU")
+        return visible
+    if int(n) > visible:
+        raise ValueError(f"trainer.num_devices={n} but {visible} cards are visible")
+    return int(n)
+
+
+def _check_mesh(tcfg: dict, device: torch.device, mesh: Optional[DataMesh]) -> None:
+    """The config's ranks against the mesh a trainer is built on."""
+    import torch.distributed as dist
+
+    if mesh is None and dist.is_available() and dist.is_initialized():
+        raise NotImplementedError("this process joined a process group from the environment "
+                                  "(parallel.distributed.maybe_initialize_from_env): one process per host over "
+                                  "several hosts is a later slice, ROADMAP A; launch the ranks of one host "
+                                  "through cli.train with trainer.num_devices")
+    n = num_devices_from_cfg(tcfg)
+    ranks = 1 if mesh is None or mesh.group is None else mesh.size
+    if n != ranks:
+        raise ValueError(f"trainer.num_devices resolves to {n} ranks but this trainer is built on {ranks}: "
+                         "cli.train launches the ranks (parallel.distributed.launch)")
+    if mesh is not None and mesh.group is not None and mesh.device.type != device.type:
+        raise ValueError(f"the mesh is on {mesh.device} but trainer.platform selects {device.type}")
 
 
 def _anchors_from_cfg(anchor_cfg: dict) -> LevelAnchors:
@@ -1207,16 +1351,18 @@ def get_metric_value(metric_dict: Dict[str, float], metric_name) -> Optional[flo
     return float(metric_dict[metric_name])
 
 
-def train(cfg: dict) -> Dict[str, float]:
+def train(cfg: dict, mesh: Optional[DataMesh] = None) -> Dict[str, float]:
     """The entry task (parity: kod/lightning/tasks/trainer.py train()): fit,
-    then test, then predict, then finalize the loggers."""
-    trainer = Trainer.from_config(cfg)
+    then test, then predict, then finalize the loggers; with ``mesh``, this
+    rank's part (every rank returns the same metrics)."""
+    trainer = Trainer.from_config(cfg, mesh)
     metrics: Dict[str, float] = {}
     if cfg.get("train", True):
         metrics = trainer.fit()
     if cfg.get("test", False):
         metrics = trainer.validate()
-        print(json.dumps(metrics, indent=2))
+        if trainer.is_main:
+            print(json.dumps(metrics, indent=2))
     if cfg.get("predict", False):
         trainer.predict(trainer.out_dir / "predictions.json")
     for lg in trainer.loggers:  # close run-scoped backends (tensorboard/wandb/mlflow)

@@ -12,7 +12,8 @@ they still write real
 files, wandb's offline run directory and MLflow's FileStore layout, so no
 credentials or network are needed. A logger whose client or writer cannot
 be made (``tensorboard`` not installed, say) warns once and becomes a
-``NoOpLogger``. One process: no rank-zero guard.
+``NoOpLogger``. Under data parallelism the trainer builds loggers on rank 0
+only (the JAX package's ``build_loggers`` returns none elsewhere).
 
 Capability parity: the reference's pluggable logger set (kod/configs/
 logger/*: csv, tensorboard, wandb, mlflow) and headless progress table

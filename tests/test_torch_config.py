@@ -149,9 +149,13 @@ def test_every_config_target_is_covered():
 
 
 def test_target_without_a_counterpart_raises_and_others_import_as_written():
-    missing = t_engine.REFERENCE_PACKAGE + ".parallel.mesh.make_mesh"
-    with pytest.raises(ImportError, match="object_detection_cib_torch.parallel.mesh.make_mesh"):
+    missing = t_engine.REFERENCE_PACKAGE + ".test_utils.anchor_boxes.voc_anchors"
+    with pytest.raises(ImportError, match="object_detection_cib_torch.test_utils.anchor_boxes.voc_anchors"):
         t_engine.instantiate({"_target_": missing})
+    from object_detection_cib_torch.parallel.mesh import make_mesh
+
+    assert t_engine.instantiate({"_target_": t_engine.REFERENCE_PACKAGE + ".parallel.mesh.make_mesh",
+                                 "_partial_": True}).func is make_mesh
     with pytest.raises(ImportError, match="has no counterpart"):
         t_engine.instantiate({"_target_": t_engine.REFERENCE_PACKAGE + ".data.samplers.NoSuchSampler"})
     od = t_engine.instantiate({"_target_": "collections.OrderedDict", "a": 1})

@@ -777,3 +777,111 @@ def test_boundary_snapshot_holds_the_epoch_state_on_card(dev, tmp_path, determin
     assert all(torch.equal(v, ref_state[k].cpu()) for k, v in first["net"].items())
     end = t.net.state_dict()
     assert not all(torch.equal(v, end[k].cpu()) for k, v in first["net"].items())
+
+
+# ------------------------------------------------- several cards: data parallelism
+
+@pytest.fixture
+def two_cards(dev):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs 2 cards, {n} visible")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+def test_kernels_launch_on_their_tensors_card_from_a_fresh_thread(two_cards):
+    """K1, K2, K4 and K5 called from a new thread, whose current device is
+    card 0, on tensors on card 1: each launches there (on card 1's stream)
+    and equals its plain version bitwise."""
+    import threading
+
+    d1 = two_cards[1]
+    torch.cuda.set_device(0)
+    out, errors = {}, []
+
+    def work():
+        try:
+            out["current"] = torch.cuda.current_device()
+            boxes, live = _boxes(2, 300, 250, seed=5)
+            b, l = boxes.to(d1), live.to(d1)
+            out["nms"] = nms_ops.greedy_nms_mask(b, l, 0.5), nms_ops.greedy_nms_mask_plain(b, l, 0.5)
+            g = torch.Generator().manual_seed(1)
+            src = torch.randint(0, 256, (20, 3, 64, 64), dtype=torch.uint8, generator=g).to(d1)
+            idx = torch.tensor([3, 0, 19, 7], dtype=torch.int32, device=d1)
+            out["gather"] = gather_ops.gather_rows_planar(src, idx), gather_ops.gather_rows_plain(src, idx)
+            x = _hsv_input("integral").to(torch.bfloat16).to(d1)
+            r = torch.tensor(_HSV_GAINS, device=d1)
+            out["hsv"] = hsv_ops.hsv_planar(x, r), hsv_ops.hsv_planar_plain(x, r)
+            imgs, taps = _random_taps(2, 64, 64, seed=3)
+            args = [imgs.to(d1)] + [t.to(d1) for t in taps]
+            out["warp"] = (warp_ops.warp_quadrants(*args, out_dtype=torch.bfloat16),
+                           warp_ops.warp_quadrants_plain(*args, out_dtype=torch.bfloat16))
+            torch.cuda.synchronize(d1)
+        except Exception as e:  # handed to the test's thread
+            errors.append(e)
+
+    th = threading.Thread(target=work)
+    th.start()
+    th.join(timeout=300)
+    assert not th.is_alive() and not errors, errors
+    assert out["current"] == 0
+    for name in ("nms", "gather", "hsv", "warp"):
+        got, want = out[name]
+        assert got.device == d1 and torch.equal(got, want), name
+
+
+def _nccl_steps(mesh, steps):
+    """On this rank's card: ``steps`` f32 yolov5n steps at 64 px, global
+    B = 8 with mixup, through the step loop and the fused epoch (a CUDA
+    graph holding the NCCL collectives after 2 eager steps), over the
+    replicated and the sharded corpus: the state after each."""
+    from object_detection_cib_torch.core.types import FeatureShape, default_anchors
+    from object_detection_cib_torch.data.device_pipeline import DeviceDataPipeline
+    from object_detection_cib_torch.data.host_augment import AugParams
+    from object_detection_cib_torch.data.synthetic import build_fake_manifest
+    from object_detection_cib_torch.models.yolov5 import build_network
+    from object_detection_cib_torch.train.optim import OptimizerConfig, SmartSGD
+    from object_detection_cib_torch.train.steps import make_train_step
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0) if mesh is None else mesh.device
+    info = build_fake_manifest(num_images=48, num_classes=3, image_size=64, seed=2)
+    out = {}
+    for sharding in ("replicated", "sharded") if mesh is not None else ("replicated",):
+        for loop in ("steps", "fused"):
+            pipe = DeviceDataPipeline(info, 64, 8, AugParams(), max_targets=20, seed=3, device=dev,
+                                      feed_dtype=torch.float32, mesh=mesh, corpus_sharding=sharding, mixup_prob=0.5)
+            net = build_network(3, "n", device=dev, seed=0)
+            opt = SmartSGD(net, OptimizerConfig(), 6)
+            step = make_train_step(net, default_anchors(), FeatureShape(64, 64), opt, mesh=mesh)
+            if loop == "steps":
+                for batch, _ in pipe.epoch(steps):
+                    step(batch, opt.hyper_table(opt.step_count, 1, dev)[0])
+            else:
+                fn = pipe.build_fused_epoch_fn(lambda b, hp: step(b, hp), stack_metrics=True)
+                fn(pipe.epoch_host_arrays(steps), opt.hyper_table(0, steps))
+                assert fn.graphs, "the fused epoch ran without a graph"
+            torch.cuda.synchronize(dev)
+            out[(sharding, loop)] = {k: v.detach().cpu().numpy() for k, v in net.state_dict().items()}
+    return out
+
+
+def test_nccl_ranks_on_two_cards_equal_one_card(two_cards):
+    """Two NCCL ranks on cards 0 and 1, four steps each way: the graphed
+    fused epoch (its collectives captured) bitwise the step loop on each
+    rank, the sharded corpus bitwise the replicated one, both ranks
+    bitwise alike, and the state within f32 parity tolerance (atol 1e-5 +
+    rtol 1e-4) of one process stepping the whole global batch on card 0."""
+    from object_detection_cib_torch.parallel.distributed import launch
+
+    ranks = launch(_nccl_steps, 2, (4,), device_type="cuda", timeout_s=300, join_timeout_s=900)
+    one = _nccl_steps(None, 4)[("replicated", "steps")]
+    for res in ranks:
+        ref = res[("replicated", "steps")]
+        for key, state in res.items():
+            assert all(np.array_equal(state[k], ref[k]) for k in ref), key
+        for k, v in one.items():
+            np.testing.assert_allclose(ref[k], v, atol=1e-5, rtol=1e-4, err_msg=k)
+    assert all(np.array_equal(ranks[0][("replicated", "steps")][k], ranks[1][("replicated", "steps")][k])
+               for k in one)

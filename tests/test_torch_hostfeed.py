@@ -204,7 +204,7 @@ def test_host_fed_producer_error_reaches_consumer(jpegs):
     root, info, _ = jpegs
     fed = _port(info, root, fake_mode=False, device_cache=False)
 
-    def broken(indices):
+    def broken(indices, keep=slice(None)):
         raise OSError("disk gone")
 
     fed._load_group = broken

@@ -45,6 +45,14 @@ def test_copied_data_modules_are_scanned_and_point_at_the_port(module):
     assert "object_detection_cib_tpu" not in re.sub(r'""".*?"""', "", text, flags=re.S)
 
 
+@pytest.mark.parametrize("module", ["parallel/__init__.py", "parallel/mesh.py", "parallel/distributed.py"])
+def test_parallel_modules_are_scanned(module):
+    """The data-parallel layer is the JAX package's ``parallel/``, which
+    imports JAX; its port must not."""
+    path = PORT / module
+    assert path in _sources() and not FORBIDDEN.search(path.read_text())
+
+
 def test_no_jax_imports_in_port_sources():
     offenders = [
         f"{p.relative_to(ROOT)}: {m.group(0).strip()}"

@@ -398,8 +398,8 @@ def test_predict_over_the_host_feed(tmp_path):
 
 REFUSED = {
     "model.remat_policy=conv_out": "model.remat_policy",
-    "trainer.num_devices=2": "A7",
-    "data.corpus_sharding=sharded": "A7",
+    "trainer.num_devices=2": "trainer.num_devices",  # two ranks: cli.train launches them
+    "data.corpus_sharding=sharded": "data.corpus_sharding",  # the host pipeline has no corpus to shard
     "data.warp_pallas=False": "data.warp_pallas",
     "trainer.platform=mps": "trainer.platform",
 }
