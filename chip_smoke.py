@@ -5,6 +5,7 @@ Run from the root of a checkout, on a machine with one card:
 
     python3 chip_smoke.py [--baseline DIR ...]
     python3 chip_smoke.py --phase ddp   # phases 1, 2 and 13 alone (on 2-4 cards for 13 (c))
+    python3 chip_smoke.py --phase hosts # phases 1, 2 and 14 alone (on 4 cards for 14 (b))
 
 ``--baseline DIR`` (repeatable) also builds the four kernel sources
 (``nms.cu``, ``gather.cu``, ``hsv.cu``, ``warp.cu``) of another checkout at
@@ -168,10 +169,11 @@ result line):
     name (``cuFuncGetName``) and those of NCCL counted; finite losses and
     mAP. (b) Two gloo ranks sharing this card, the step loop at a global
     B=64 (32 a rank), 10 steps and one validation: K2/K4/K5 10 on each
-    rank, K1 once on each rank's 64-image shard; the ranks' weights
-    bitwise equal; the first three losses within rtol 1e-3 of one process
-    of the same seed; the merged mAP dict equal to one process's over the
-    whole val set with the ranks' weights. (c) With two or more cards,
+    rank, K1 twice on each rank's 64-image shard (a rank validates at its
+    share of the batch, 32); the ranks' weights bitwise equal; the first
+    three losses within rtol 1e-3 of one process of the same seed; the
+    merged mAP dict equal to one process's over the whole val set with the
+    ranks' weights, in batches of the ranks' 32. (c) With two or more cards,
     N = min(count, 4) NCCL ranks over the config ``cli.train trainer=mesh``
     composes (yolov5s@416, 64 images a card, 1,280 fake images a card, two
     fused epochs, a quarter of the val set), the replicated and then the
@@ -181,7 +183,28 @@ result line):
     step and each rank's idle share, peak memory per rank; with one card it
     prints that (c) needs two. ``--phase ddp`` runs phases 1, 2 and 13 alone
     (its last lines: the ranks' launches, the card, the result);
-14. the ``kernels`` JSON line (with each path's launches), the card line,
+14. hosts: several hosts joined from the environment, each host a process
+    tree of its own (this script run with ``--hosts-child``, its children
+    the host's ranks). (a) Two hosts under ``KOD_*``, one gloo rank each on
+    this card, a host's batch of 32 (global 64), over phase 13's 640 fake
+    images: 10 steps of the step loop, then 10 of the fused epoch (run
+    eagerly: a gloo group cannot be captured), each validated: K2/K4/K5 10
+    on each rank for each loop and K1 twice a validation (a rank's 64
+    images in batches of its host's 32); the ranks' weights
+    bitwise equal; each host's first plan equal to ``_epoch_plan`` on the
+    CPU for that host, the two different; the first three fused losses
+    within rtol 1e-3 of one process at B=64 started from rank 0's state
+    after the step loop (every gap printed); both ranks reading the
+    one-process mAP dict (in batches of 32, the ranks' own). (b) With four cards, phase 13 (c)'s config at a
+    host's batch of 128 (64 a card, global 256): one host of four cards
+    (``launch``), then two hosts of two (``CUDA_VISIBLE_DEVICES`` 0,1 and
+    2,3) by ``KOD_*`` and by ``torch.distributed.run`` (c10d rendezvous on
+    127.0.0.1): launches, the weights bitwise the one host's (else the
+    largest difference, and the phase fails), img/s over the fit's windows and over a
+    profiled 10-step epoch, NCCL kernel ms a step, idle share and peak
+    memory per rank; with fewer cards it prints that (b) needs four.
+    ``--phase hosts`` runs phases 1, 2 and 14 alone;
+15. the ``kernels`` JSON line (with each path's launches), the card line,
     and the result line last.
 """
 
@@ -360,6 +383,16 @@ def finite_map(m) -> bool:
     """Every summary of an mAP dict finite (a class without ground truth in
     the val set reads NaN, as in the JAX package)."""
     return all(math.isfinite(v) for k, v in m.items() if "_class_" not in k)
+
+
+def one_process_map(t, eval_batch: int) -> dict:
+    """The mAP dict of ``t``, a trainer of one process, over its whole
+    validation set in batches of ``eval_batch``: the batch each rank of the
+    run it is held against validates at."""
+    from object_detection_cib_torch.train.trainer import Evaluator
+
+    t.evaluator = Evaluator(t.net, t.anchors, t.classes, eval_batch, **t.evaluator.nms, device=t.device)
+    return t.validate()
 
 
 def same_map(a, b) -> bool:
@@ -1081,10 +1114,12 @@ def _busy_idle(prof):
     return busy / 1e3, window / 1e3, nccl / 1e3
 
 
-def _ddp_mesh_run(mesh, cfg):
+def _ddp_mesh_run(mesh, cfg, keep_state=False):
     """Phase 13 (c), one rank of ``cli.train``'s data-parallel run of ``cfg``
     (``train(cfg, mesh)``'s trainer; no mesh: one card alone): two fused
-    epochs validated once, then a profiled 10-step fused epoch."""
+    epochs validated once, then a profiled 10-step fused epoch. With
+    ``keep_state`` a digest of the weights at the end and, on rank 0, the
+    weights (phase 14 (b))."""
     from torch.profiler import ProfilerActivity, profile
 
     from object_detection_cib_torch.parallel.distributed import all_reduce_sum_, reduce_scatter_sum
@@ -1118,7 +1153,15 @@ def _ddp_mesh_run(mesh, cfg):
         epoch(PROF_STEPS)
         torch.cuda.synchronize(dev)
     busy, window, nccl = _busy_idle(prof)
-    return dict(counts=counts, calls=calls, map=m, peak=peak, wall=wall,
+    kept = {}
+    if keep_state:
+        import hashlib
+
+        state = {k: v.detach().cpu() for k, v in t.net.state_dict().items()}
+        kept = dict(digest=hashlib.sha256(b"".join(v.float().numpy().tobytes() for v in state.values())).hexdigest(),
+                    state=state if mesh is None or mesh.is_main else None,
+                    layout=None if mesh is None else (mesh.size, mesh.rank, mesh.hosts, str(mesh.device)))
+    return dict(**kept, counts=counts, calls=calls, map=m, peak=peak, wall=wall,
                 ips_epochs=[i / w for i, w in zip(t.epoch_imgs, t.epoch_walls)],
                 ips=sum(t.epoch_imgs) / sum(t.epoch_walls), device_walls=t.device_epoch_walls(),
                 kernel_nodes=len(names), nccl_nodes=sum(1 for x in names if x and "nccl" in x.lower()),
@@ -1133,28 +1176,15 @@ def phase_ddp(card):
     card over the step loop against one process, (c) with two or more
     cards, ``cli.train trainer=mesh`` on N = min(count, 4) NCCL ranks
     against one card. Returns the ranks' launch counts."""
-    import warnings
-
     import numpy as np
 
     from object_detection_cib_torch.config import compose
-    from object_detection_cib_torch.parallel import distributed
     from object_detection_cib_torch.train.trainer import Trainer
-
-    def launch(*args, **kw):
-        """``distributed.launch``, its warnings (a rank terminated after
-        handing back its result) printed."""
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            out = distributed.launch(*args, **kw)
-        for w in caught:
-            log(f"[ddp] launcher warning: {w.message}")
-        return out
 
     t_phase = time.perf_counter()
     out = {}
     # (a) one NCCL rank, the fused epoch
-    (a,) = launch(_ddp_fused_rank, 1, device_type="cuda", timeout_s=300, join_timeout_s=600)
+    (a,) = launch_logged("ddp", _ddp_fused_rank, 1, device_type="cuda", timeout_s=300, join_timeout_s=600)
     steps = DDP_N // TRAIN_B
     want = {"gather_rows_planar": steps, "hsv_planar": steps, "warp_quadrants": steps,
             "greedy_nms_mask": -(-DDP_VAL // TRAIN_B)}
@@ -1178,9 +1208,9 @@ def phase_ddp(card):
     out["a"] = a["counts"]
 
     # (b) two gloo ranks on this card, the step loop, against one process
-    ranks = launch(_ddp_gloo_rank, 2, device_type="cuda", backend="gloo", devices=[0, 0], timeout_s=300,
-                   join_timeout_s=600)
-    shard_blocks = -(-(DDP_VAL // 2) // TRAIN_B)
+    ranks = launch_logged("ddp", _ddp_gloo_rank, 2, device_type="cuda", backend="gloo", devices=[0, 0],
+                          timeout_s=300, join_timeout_s=600)
+    shard_blocks = -(-(DDP_VAL // 2) // (TRAIN_B // 2))  # each rank validates at its share of the batch
     for r, res in enumerate(ranks):
         want = {"gather_rows_planar": DDP_STEPS, "hsv_planar": DDP_STEPS, "warp_quadrants": DDP_STEPS,
                 "greedy_nms_mask": shard_blocks}
@@ -1198,7 +1228,7 @@ def phase_ddp(card):
     if not np.allclose(got, first, rtol=1e-3, atol=0):
         fail(f"[ddp] (b) first three losses {got.tolist()} vs one process {first.tolist()} beyond rtol 1e-3")
     one.net.load_state_dict(ranks[0]["state"])
-    whole = one.validate()
+    whole = one_process_map(one, TRAIN_B // 2)
     merged = {k: v for k, v in ranks[0]["map"].items() if k != "images_per_sec"}
     if not (same_map(merged, whole) and same_map(merged, {k: v for k, v in ranks[1]["map"].items()
                                                           if k != "images_per_sec"})):
@@ -1231,9 +1261,11 @@ def phase_ddp(card):
             runs = {}
             runs["1 card"] = [_ddp_mesh_run(None, cfg(1))]
             torch.cuda.empty_cache()  # rank 0 shares card 0 with this process
-            runs[f"{n} cards"] = launch(_ddp_mesh_run, n, (cfg(n),), timeout_s=600, join_timeout_s=1200)
-            runs[f"{n} cards, sharded"] = launch(_ddp_mesh_run, n, (cfg(n, "data.corpus_sharding=sharded"),),
-                                                timeout_s=600, join_timeout_s=1200)
+            runs[f"{n} cards"] = launch_logged("ddp", _ddp_mesh_run, n, (cfg(n),), timeout_s=600,
+                                               join_timeout_s=1200)
+            runs[f"{n} cards, sharded"] = launch_logged("ddp", _ddp_mesh_run, n,
+                                                        (cfg(n, "data.corpus_sharding=sharded"),),
+                                                        timeout_s=600, join_timeout_s=1200)
         base = runs["1 card"][0]["ips"]
         for name, rs in runs.items():
             r0 = rs[0]
@@ -1263,12 +1295,323 @@ def phase_ddp(card):
     return out
 
 
+# ------------------------------------------------------------ 14 hosts
+HOSTS_B = 32  # phase 14 (a): the batch of one host (a global batch of 64 over two)
+HOSTS_MESH_B = 128  # phase 14 (b): the batch of one host of two cards (64 a card)
+
+
+def _hosts_rank_a(mesh):
+    """Phase 14 (a), the one gloo rank of a host of two: 10 steps of the
+    step loop, then 10 of the fused epoch (eager: a gloo group cannot be
+    captured in a CUDA graph), each epoch validated."""
+    import hashlib
+
+    import numpy as np
+
+    from object_detection_cib_torch.train.trainer import Trainer
+
+    _ddp_card()
+    train_info, val_info = _ddp_infos(DDP_N, DDP_VAL)
+    t = Trainer(train_info, val_info, size="s", image_size=TRAIN_S, batch_size=HOSTS_B, max_targets=MAX_TARGETS,
+                seed=0, dtype=torch.bfloat16, device=mesh.device, mesh=mesh, max_epochs=2, fused_epoch=False)
+    _zero_kernels()
+    m_step = t.fit(max_epochs=1, epoch_steps=DDP_STEPS)
+    counts_step = _read_kernels()
+    plan = t.pipeline.consumed_plan_log[0]
+    after_step = ({k: v.detach().cpu().clone() for k, v in t.net.state_dict().items()},
+                  {"step_count": t.optimizer.step_count,
+                   "momentum": {k: v.detach().cpu().clone() for k, v in t.optimizer.buffers.items()}})
+    t.fused_epoch = True
+    _zero_kernels()
+    m = t.fit(max_epochs=2, epoch_steps=DDP_STEPS)
+    torch.cuda.synchronize()
+    counts_fused = _read_kernels()
+    state = {k: v.detach().cpu() for k, v in t.net.state_dict().items()}
+    digest = hashlib.sha256(b"".join(v.float().numpy().tobytes() for v in state.values())).hexdigest()
+    return dict(layout=(mesh.size, mesh.rank, mesh.hosts, mesh.host, mesh.local_rank), plan=plan,
+                counts_step=counts_step, counts_fused=counts_fused, map_step=m_step, map=m,
+                losses_step=np.asarray(t.epoch_metrics[0]["total"]).tolist(),
+                losses=np.asarray(t.epoch_metrics[1]["total"]).tolist(), digest=digest,
+                after_step=after_step if mesh.is_main else None, state=state if mesh.is_main else None,
+                val_images=len(t.val_cache), fused_graph=t._fused_fn.graph)
+
+
+def _hosts_cfg(root: Path, out: Path, ranks_a_host: int, hosts: int, *extra):
+    """Phase 14 (b)'s config (phase 13 (c)'s at ``hosts * ranks_a_host``
+    cards): yolov5s@416 bf16, 64 images and 1,280 fake images a card, two
+    fused epochs validated once on a quarter of the val set."""
+    from object_detection_cib_torch.config import compose
+
+    cards = hosts * ranks_a_host
+    return compose(root / "configs", "train", [
+        "experiment=yv5s", "trainer=mesh", f"trainer.num_devices={ranks_a_host}", "data.pipeline=device",
+        "data.device_cache=True", "dataset_name=fake", f"data.fake_num_images={MESH_PER_CARD * cards}",
+        f"data.batch_size={TRAIN_B * ranks_a_host}", "trainer.max_epochs=2", "trainer.check_val_every_n_epoch=2",
+        "trainer.limit_val_batches=0.25", "logger=csv", "hydra=static", "extras.enforce_tags=False",
+        "print_config=False", "extras.print_config=False", f"paths.output_dir={out}", *extra])
+
+
+def hosts_child(kind: str, out: Path) -> None:
+    """A host of phase 14, run in its own process tree with its
+    environment: ``a``, the launcher of one gloo rank on card 0 under
+    ``KOD_*``; ``b-kod``, the launcher of two NCCL ranks under ``KOD_*``;
+    ``b-torchrun``, one rank under torchrun's variables. Writes its ranks'
+    results to ``out`` (a pickle; torchrun: one file a rank)."""
+    import pickle
+
+    from object_detection_cib_torch.parallel import distributed
+
+    layout = distributed.env_layout()
+    if layout is None:
+        fail(f"hosts child {kind}: neither torchrun's nor the KOD_* variables are set")
+    root = Path(__file__).resolve().parent
+    if kind == "a":
+        res = distributed.launch(_hosts_rank_a, 1, device_type="cuda", backend="gloo", devices=[0],
+                                 hosts=layout.hosts, host=layout.host, coordinator=layout.address, timeout_s=300,
+                                 join_timeout_s=900)
+    elif kind == "b-kod":
+        cfg = _hosts_cfg(root, out.parent / f"kod{layout.host}", 2, layout.hosts)
+        res = distributed.launch(_ddp_mesh_run, 2, (cfg, True), hosts=layout.hosts, host=layout.host,
+                                 coordinator=layout.address, timeout_s=600, join_timeout_s=1200)
+    elif kind == "b-torchrun":
+        mesh = distributed.join_torchrun(layout, "cuda", timeout_s=600)
+        cfg = _hosts_cfg(root, out.parent / f"torchrun{layout.host}", layout.local_size, layout.hosts)
+        res = [_ddp_mesh_run(mesh, cfg, True)]
+        distributed.barrier(mesh)
+        distributed.leave_group(mesh.device)
+        out = out.parent / f"{out.stem}{layout.rank}.pkl"
+    else:
+        fail(f"hosts child: unknown kind {kind!r}")
+    out.write_bytes(pickle.dumps(res))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _run_trees(name: str, cmds, timeout: float):
+    """Start every (argv, environment) at once, wait for all; fail unless
+    each exits 0 within ``timeout`` seconds. Every process is ended."""
+    import os
+
+    procs, t0 = [], time.perf_counter()
+    try:
+        for argv, env in cmds:
+            log_path = Path(tempfile.mkstemp(prefix="hosts-", suffix=".log")[1])
+            procs.append((subprocess.Popen(argv, env={**os.environ, **env}, stdout=log_path.open("w"),
+                                           stderr=subprocess.STDOUT, start_new_session=True), log_path))
+        for proc, log_path in procs:
+            left = max(timeout - (time.perf_counter() - t0), 1.0)
+            try:
+                code = proc.wait(timeout=left)
+            except subprocess.TimeoutExpired:
+                fail(f"[hosts] {name}: a process tree did not end within {timeout} s:\n"
+                     f"{log_path.read_text()[-3000:]}")
+            if code != 0:
+                fail(f"[hosts] {name}: a process tree exited {code}:\n{log_path.read_text()[-6000:]}")
+    finally:
+        import signal
+
+        for proc, log_path in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=30)
+            log_path.unlink(missing_ok=True)
+    return time.perf_counter() - t0
+
+
+def phase_hosts(card):
+    """Phase 14: several hosts joined from the environment. (a) two hosts of
+    one gloo rank each on this card, through ``KOD_*``: the step loop, then
+    the fused epoch, against one process at the same global batch; (b) with
+    four cards, two hosts of two NCCL cards each (``CUDA_VISIBLE_DEVICES``
+    0,1 and 2,3), through ``KOD_*`` and through ``torch.distributed.run``,
+    against phase 13 (c)'s four cards on one host at the same global batch.
+    Returns the ranks' launch counts."""
+    import pickle
+
+    import numpy as np
+
+    from object_detection_cib_torch.data.device_pipeline import DeviceDataPipeline
+    from object_detection_cib_torch.data.host_augment import AugParams
+    from object_detection_cib_torch.parallel.mesh import DataMesh
+    from object_detection_cib_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    me = str(Path(__file__).resolve())
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="hosts-") as tmp:
+        tmp = Path(tmp)
+        # (a) two hosts of one gloo rank on this card, KOD_*
+        addr = f"127.0.0.1:{_free_port()}"
+        cmds = [([sys.executable, me, "--hosts-child", "a", str(tmp / f"a{h}.pkl")],
+                 {"KOD_COORDINATOR_ADDRESS": addr, "KOD_NUM_PROCESSES": "2", "KOD_PROCESS_ID": str(h)})
+                for h in range(2)]
+        wall = _run_trees("(a)", cmds, 900)
+        ranks = [pickle.loads((tmp / f"a{h}.pkl").read_bytes())[0] for h in range(2)]
+    val_blocks = -(-(DDP_VAL // 2) // HOSTS_B)  # each rank validates at its share of its host's batch
+    for r, res in enumerate(ranks):
+        if res["layout"] != (2, r, 2, r, 0):
+            fail(f"[hosts] (a) rank {r}: layout (size, rank, hosts, host, local rank) {res['layout']}")
+        want = {"gather_rows_planar": DDP_STEPS, "hsv_planar": DDP_STEPS, "warp_quadrants": DDP_STEPS,
+                "greedy_nms_mask": val_blocks}
+        for loop in ("counts_step", "counts_fused"):
+            for k, n in want.items():
+                if res[loop][k] != n:
+                    fail(f"[hosts] (a) rank {r} {loop} launched {k} {res[loop][k]} times, want {n}")
+        if not (np.isfinite(res["losses"]).all() and finite_map(res["map"])):
+            fail(f"[hosts] (a) rank {r}: losses or mAP not finite")
+    if ranks[0]["digest"] != ranks[1]["digest"]:
+        fail("[hosts] (a) the two ranks' weights differ")
+    train_info, val_info = _ddp_infos(DDP_N, DDP_VAL)
+    for h, res in enumerate(ranks):  # each host's first plan is _epoch_plan's for that host, on the CPU
+        cpu = DeviceDataPipeline(train_info, TRAIN_S, HOSTS_B, AugParams(), max_targets=MAX_TARGETS, seed=0,
+                                 device="cpu", device_cache=False,
+                                 mesh=DataMesh(2, h, torch.device("cpu"), object(), "gloo", 2))
+        if not np.array_equal(res["plan"], cpu._epoch_plan()[0]):
+            fail(f"[hosts] (a) host {h}'s first plan differs from _epoch_plan on the CPU")
+    if np.array_equal(ranks[0]["plan"], ranks[1]["plan"]):
+        fail("[hosts] (a) the two hosts ran the same plan")
+    # one process at the global batch: its own step loop (its plan is not the
+    # hosts'), then rank 0's state, then the fused epoch: the same batches
+    one = Trainer(train_info, val_info, size="s", image_size=TRAIN_S, batch_size=2 * HOSTS_B,
+                  max_targets=MAX_TARGETS, seed=0, dtype=torch.bfloat16, device="cuda", max_epochs=2,
+                  fused_epoch=False)
+    one.fit(max_epochs=1, epoch_steps=DDP_STEPS)
+    net_state, opt_state = ranks[0]["after_step"]
+    one.net.load_state_dict(net_state)
+    one.optimizer.load_state_dict(opt_state)
+    one.fused_epoch = True
+    one.fit(max_epochs=2, epoch_steps=DDP_STEPS)
+    want = np.asarray(one.epoch_metrics[1]["total"])
+    got = np.asarray(ranks[0]["losses"])
+    gaps = np.abs(got - want) / np.abs(want)
+    if not np.allclose(got[:3], want[:3], rtol=1e-3, atol=0):  # phase 13 (b)'s rule: bf16 drifts step by step
+        fail(f"[hosts] (a) fused losses {got.tolist()} vs one process {want.tolist()}: the first three beyond "
+             "rtol 1e-3")
+    one.net.load_state_dict(ranks[0]["state"])
+    whole = one_process_map(one, HOSTS_B)
+    for r, res in enumerate(ranks):
+        merged = {k: v for k, v in res["map"].items() if k != "images_per_sec"}
+        if not same_map(merged, whole):
+            fail(f"[hosts] (a) rank {r}'s mAP dict {merged} differs from one process's {whole}")
+    log(f"[hosts] (a) 2 hosts x 1 gloo rank on cuda:0 via KOD_* (two process trees), yolov5s@{TRAIN_S} bf16, "
+        f"host batch {HOSTS_B} (global {2 * HOSTS_B}), {DDP_STEPS} steps of the step loop then {DDP_STEPS} of the "
+        f"fused epoch (graph {ranks[0]['fused_graph']}: gloo is not captured), each validated: launches step loop "
+        f"rank 0 {ranks[0]['counts_step']}, rank 1 {ranks[1]['counts_step']}; fused rank 0 "
+        f"{ranks[0]['counts_fused']}, rank 1 {ranks[1]['counts_fused']} (K1 over each rank's "
+        f"{ranks[0]['val_images']} of {DDP_VAL} val images); each host's first plan = _epoch_plan on the CPU for "
+        f"that host, the two plans differ; weights bitwise equal on both ranks; fused losses {got.tolist()} vs "
+        f"one process at B={2 * HOSTS_B} {want.tolist()}: relative gaps {gaps.tolist()} (the first three within rtol "
+        f"1e-3); both ranks "
+        f"read the one-process mAP dict (map {whole['map']:.6g}); {wall:.2f} s for both trees | {card}")
+    out["a"] = {k: sum(res[loop][k] for res in ranks for loop in ("counts_step", "counts_fused"))
+                for k in ranks[0]["counts_step"]}
+    del one
+
+    # (b) two hosts of two NCCL cards
+    count = torch.cuda.device_count()
+    if count < 4:
+        log(f"[hosts] (b) needs 4 cards, this machine shows {count}: not run")
+    else:
+        out.update(_phase_hosts_b(card, me))
+    log(f"[hosts] phase 14 {time.perf_counter() - t_phase:.2f} s | {card}")
+    return out
+
+
+def _phase_hosts_b(card, me):
+    """Phase 14 (b): 2 x 2 NCCL cards through KOD_* and torchrun against
+    4 cards on one host, each at a global batch of 256."""
+    import pickle
+
+    root = Path(__file__).resolve().parent
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="hosts-b-") as tmp:
+        tmp = Path(tmp)
+        torch.cuda.empty_cache()
+        runs["1 host x 4"] = launch_logged("hosts", _ddp_mesh_run, 4, (_hosts_cfg(root, tmp / "one", 4, 1), True),
+                                           timeout_s=600, join_timeout_s=1200)
+        trees = {}
+        addr = f"127.0.0.1:{_free_port()}"
+        cmds = [([sys.executable, me, "--hosts-child", "b-kod", str(tmp / f"kod{h}.pkl")],
+                 {"CUDA_VISIBLE_DEVICES": f"{2 * h},{2 * h + 1}", "KOD_COORDINATOR_ADDRESS": addr,
+                  "KOD_NUM_PROCESSES": "2", "KOD_PROCESS_ID": str(h)}) for h in range(2)]
+        trees["2 hosts x 2, KOD_*"] = _run_trees("(b) KOD_*", cmds, 1500)
+        runs["2 hosts x 2, KOD_*"] = [x for h in range(2) for x in pickle.loads((tmp / f"kod{h}.pkl").read_bytes())]
+        port = _free_port()
+        cmds = [([sys.executable, "-m", "torch.distributed.run", "--nnodes", "2", "--nproc-per-node", "2",
+                  "--node-rank", str(h), "--rdzv-backend", "c10d", "--rdzv-endpoint", f"127.0.0.1:{port}",
+                  "--rdzv-id", "phase14", "--rdzv-conf", f"is_host={1 - min(h, 1)}", "--max-restarts", "0",
+                  me, "--hosts-child", "b-torchrun", str(tmp / "torchrun.pkl")],
+                 {"CUDA_VISIBLE_DEVICES": f"{2 * h},{2 * h + 1}"}) for h in range(2)]
+        trees["2 hosts x 2, torchrun"] = _run_trees("(b) torchrun", cmds, 1500)
+        runs["2 hosts x 2, torchrun"] = [pickle.loads((tmp / f"torchrun{r}.pkl").read_bytes())[0] for r in range(4)]
+    base = runs["1 host x 4"]
+    ref = base[0]["state"]
+    counts = {}
+    for name, rs in runs.items():
+        r0 = rs[0]
+        steps_c = 2 * r0["steps"]
+        if (r0["batch"] != TRAIN_B * (4 if name.startswith("1 host") else 2)
+                or r0["steps"] != MESH_PER_CARD // TRAIN_B):
+            fail(f"[hosts] (b) {name}: host batch {r0['batch']}, {r0['steps']} steps an epoch")
+        for r, res in enumerate(rs):
+            for k in ("gather_rows_planar", "hsv_planar", "warp_quadrants"):
+                if res["counts"][k] != steps_c:
+                    fail(f"[hosts] (b) {name} rank {r} launched {k} {res['counts'][k]} times, want {steps_c}")
+            if not finite_map(res["map"]):
+                fail(f"[hosts] (b) {name} rank {r}: mAP not finite {res['map']}")
+        if len({res["digest"] for res in rs}) != 1:
+            fail(f"[hosts] (b) {name}: the ranks' weights differ")
+        if len({json.dumps({k: v for k, v in res["map"].items() if k != "images_per_sec"}) for res in rs}) != 1:
+            fail(f"[hosts] (b) {name}: the ranks read different mAP dicts")
+        if rs[0]["digest"] != base[0]["digest"]:
+            gap = max(float((rs[0]["state"][k].float() - v.float()).abs().max()) for k, v in ref.items())
+            fail(f"[hosts] (b) {name}: weights not bitwise those of 1 host x 4 (largest difference {gap:.6g})")
+        weights = "bitwise equal to 1 host x 4"
+        idle = [round(1 - res["busy_ms"] / res["window_ms"], 4) if res["window_ms"] else None for res in rs]
+        tree = f"; {trees[name]:.2f} s for both trees" if name in trees else ""
+        prof_ips = 4 * TRAIN_B * r0["prof_steps"] / r0["window_ms"] * 1e3 if r0["window_ms"] else float("nan")
+        log(f"[hosts] (b) {name}: yolov5s@{TRAIN_S} bf16 global B={4 * TRAIN_B} fused epoch, {r0['steps']} steps an "
+            f"epoch x 2, layouts (size, rank, hosts, card) {[res['layout'] for res in rs]}: {r0['ips']:.2f} img/s over "
+            f"both epochs' windows (rank 0, host clock; per epoch {[round(x, 2) for x in r0['ips_epochs']]}); "
+            f"profiled {r0['prof_steps']} steps: {prof_ips:.2f} img/s, NCCL kernels "
+            f"{r0['nccl_ms'] / r0['prof_steps']:.4f} ms a step, busy {r0['busy_ms'] / r0['prof_steps']:.4f} of "
+            f"{r0['window_ms'] / r0['prof_steps']:.4f} ms a step; idle share per rank {idle}; peak memory per rank "
+            f"{[round(res['peak'] / 2**30, 3) for res in rs]} GiB; launches rank 0 {r0['counts']}; NCCL graph nodes "
+            f"{r0['nccl_nodes']}; weights {weights}; map {r0['map']['map']:.6g}{tree} | {card}")
+        if name != "1 host x 4":
+            counts[name] = {k: sum(res["counts"][k] for res in rs) for k in r0["counts"]}
+    return {"b_kod": counts["2 hosts x 2, KOD_*"], "b_torchrun": counts["2 hosts x 2, torchrun"]}
+
+
+def launch_logged(tag: str, *args, **kw):
+    """``parallel.distributed.launch``, its warnings (a rank terminated
+    after handing back its result) printed under ``[tag]``."""
+    import warnings
+
+    from object_detection_cib_torch.parallel import distributed
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = distributed.launch(*args, **kw)
+    for w in caught:
+        log(f"[{tag}] launcher warning: {w.message}")
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path, action="append", default=[],
                     help="root of another checkout whose four kernel sources are timed beside")
-    ap.add_argument("--phase", choices=["all", "ddp"], default="all",
-                    help="ddp: phases 1, 2 and 13 alone (data parallelism; (c) needs two or more cards)")
+    ap.add_argument("--phase", choices=["all", "ddp", "hosts"], default="all",
+                    help="ddp: phases 1, 2 and 13 alone (data parallelism; (c) needs two or more cards); "
+                         "hosts: phases 1, 2 and 14 alone (several hosts; (b) needs four cards)")
+    ap.add_argument("--hosts-child", nargs=2, metavar=("KIND", "OUT"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     # ---------------------------------------------------------------- 1 device
     if not torch.cuda.is_available():
@@ -1277,6 +1620,9 @@ def main() -> None:
     if not (root / "object_detection_cib_torch").is_dir():
         fail(f"object_detection_cib_torch/ not found beside {Path(__file__).name}")
     sys.path.insert(0, str(root))
+    if args.hosts_child:  # a host of phase 14, started by phase_hosts
+        hosts_child(args.hosts_child[0], Path(args.hosts_child[1]))
+        return
 
     import numpy as np
 
@@ -1325,6 +1671,13 @@ def main() -> None:
                           csrc=b / "object_detection_cib_torch" / "ops" / "csrc")
         baselines[b] = {n: ctypes.CDLL(str(p)) for n, p in built.items()}
         log(f"[build] baseline {b}: {', '.join(built)} in {time.perf_counter() - t0:.2f} s")
+    if args.phase == "hosts":
+        hosts = phase_hosts(card)
+        print(json.dumps({"hosts_launches": hosts}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
     if args.phase == "ddp":
         ddp = phase_ddp(card)
         print(json.dumps({"ddp_launches": ddp}), flush=True)
@@ -2106,8 +2459,12 @@ def main() -> None:
 
     # ----------------------------------------------------------------- 13 ddp
     ddp = phase_ddp(card)
+    torch.cuda.empty_cache()
 
-    # -------------------------------------------------------------- 14 report
+    # --------------------------------------------------------------- 14 hosts
+    hosts = phase_hosts(card)
+
+    # -------------------------------------------------------------- 15 report
     src = "object_detection_cib_torch/ops/csrc/"
     rows = [
         ("greedy_nms_mask", "nms.cu", "object_detection_cib_tpu/ops/pallas_nms.py:131", serve_launches),
@@ -2134,7 +2491,8 @@ def main() -> None:
                                  **{f"jpeg_{part}": n[name] for part, n in jpeg.items()},
                                  "cli": {part: n[name] for part, n in cli.items()},
                                  "fused": fused[name],
-                                 "ddp": {part: n[name] for part, n in ddp.items()}},
+                                 "ddp": {part: n[name] for part, n in ddp.items()},
+                                 "hosts": {part: n[name] for part, n in hosts.items()}},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

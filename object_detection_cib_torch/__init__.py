@@ -10,7 +10,7 @@ letterbox, a general affine, the exact warp; training and validation
 from JPEG files through the three feeds, with the data CLI; and the
 runtime: config composition, the trainer from a config, checkpoints,
 loggers and the training CLI; data-parallel training over the cards
-of one host):
+of one host or of several, joined from the environment):
 
 - ``core``    box math, the IoU family, batched NMS (``non_max_suppression``)
               and the YOLOv5 label assigner
@@ -39,9 +39,13 @@ of one host):
               ``Trainer.from_config``; ``fit``), ``train(cfg)``, and
               ``torch.save`` checkpoints (``checkpoint.py``)
 - ``utils``   the metric loggers (CSV, TensorBoard, W&B, MLflow)
-- ``parallel`` data parallelism over the cards of one host: the rank layout
-              (``mesh.py``), process groups, the collectives and the
-              launcher of one process per card (``distributed.py``)
+- ``parallel`` data parallelism over the cards of one host or of several:
+              the rank layout (``mesh.py``), process groups joined by the
+              launcher of one process per card or from the environment
+              (torchrun's and the ``KOD_*`` variables), the collectives
+              (``distributed.py``)
+- ``entry``   the entry points of a compile check: the yolov5s forward and
+              a dry run of one train step over several ranks
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``trainer=cpu`` for the CLI).

@@ -18,12 +18,25 @@ Several cards: ``trainer.num_devices`` N > 1 (``trainer=mesh`` sets null,
 every visible card; ``trainer=mesh_sim`` 8 gloo ranks on the CPU) makes a
 job spawn N ranks, one process per card (``parallel/distributed.py:
 launch``), each running the same composed config as one rank of a
-data-parallel run whose ``data.batch_size`` is the global batch
-(``train/trainer.py``). The job returns rank 0's result; a rank that fails
-fails the job. As in the JAX CLI, ``KOD_COORDINATOR_ADDRESS`` joins a
-group from the environment, which the trainer then refuses (several hosts
-are a later slice, ROADMAP A).
+data-parallel run whose ``data.batch_size`` is the batch of one host (on
+one host the global batch; ``train/trainer.py``). The job returns rank 0's
+result; a rank that fails fails the job.
 
+Several hosts, after the config is composed (the group's backend follows
+``trainer.platform``: null is NCCL on the cards, and no card raises;
+``trainer=cpu`` is gloo on the CPU), either way one group of hosts x N
+ranks, one per card, with a global batch of hosts x ``data.batch_size``:
+
+  * torchrun's variables (``python -m torch.distributed.run --nnodes H
+    --nproc-per-node N ... -m object_detection_cib_torch.cli.train ...``):
+    each process is one rank, joins in place on card ``LOCAL_RANK`` and runs
+    the job there; ``trainer.num_devices`` resolves to ``LOCAL_WORLD_SIZE``;
+  * the JAX package's ``KOD_COORDINATOR_ADDRESS``, ``KOD_NUM_PROCESSES`` and
+    ``KOD_PROCESS_ID``, one command per host: it spawns its host's N ranks,
+    which join one group over the store that host 0 serves at the
+    coordinator's address; the command itself is not a rank.
+
+Every host runs the same overrides. ``-m`` sweeps run on one host only.
 Run as a program, the CLI binds tensorboard to its no-TensorFlow stub
 before anything imports it (``utils/loggers.py:
 tensorboard_without_tensorflow``), so the default ``logger=many_loggers``
@@ -39,10 +52,17 @@ import sys
 import traceback
 import warnings
 from pathlib import Path
+from typing import Optional
 
 from object_detection_cib_torch.config import compose
-from object_detection_cib_torch.parallel.distributed import is_main_process, launch, maybe_initialize_from_env
-from object_detection_cib_torch.train.trainer import get_metric_value, num_devices_from_cfg, train
+from object_detection_cib_torch.parallel.distributed import (
+    HostLayout,
+    env_layout,
+    join_torchrun,
+    launch,
+    leave_group,
+)
+from object_detection_cib_torch.train.trainer import device_from_cfg, get_metric_value, num_devices_from_cfg, train
 from object_detection_cib_torch.utils.loggers import tensorboard_without_tensorflow
 
 DEFAULT_CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs"
@@ -103,31 +123,34 @@ def main(argv=None):
     config_dir = DEFAULT_CONFIG_DIR
     if argv and argv[0].startswith("--config-dir="):
         config_dir = Path(argv.pop(0).split("=", 1)[1])
-    import torch
-
-    maybe_initialize_from_env("cuda" if torch.cuda.is_available() else "cpu")
+    layout = env_layout()  # torchrun's or the KOD_* variables; raises where they disagree
     if "-m" in argv or "--multirun" in argv:
         argv = [a for a in argv if a not in ("-m", "--multirun")]
         fixed, dims = _sweep_dims(argv)
         if dims:
+            if layout is not None:
+                raise NotImplementedError("-m/--multirun sweeps run on one host: this environment names "
+                                          f"{layout.hosts} hosts ({layout.route})")
             return multirun(config_dir, fixed, dims)
-    return run_job(compose(config_dir, "train", argv))
+    return run_job(compose(config_dir, "train", argv), layout)
 
 
-def run_job(cfg):
+def run_job(cfg, layout: Optional[HostLayout] = None):
     """One run of ``train(cfg)`` under the ``extras`` (warnings filter, tag
     enforcement, the config tree), in this process or, for
-    ``trainer.num_devices`` > 1, in one spawned process per rank; returns
-    the ``optimized_metric`` when one is named, else the metric dict. A
-    failure writes ``error.log`` to the output directory and is raised
-    again."""
+    ``trainer.num_devices`` > 1, in one spawned process per rank; over the
+    hosts of ``layout`` as one rank joined in place (torchrun) or as a
+    host's launcher (``KOD_*``). Returns the ``optimized_metric`` when one
+    is named, else the metric dict. A failure writes ``error.log`` to the
+    output directory and is raised again."""
+    main_process = layout is None or (layout.host == 0 and not layout.local_rank)
     extras = cfg.get("extras") or {}
     if extras.get("ignore_warnings"):
         warnings.filterwarnings("ignore")
     if extras.get("enforce_tags") and not cfg.get("tags"):
         raise ValueError("extras.enforce_tags=True but no tags provided — pass 'tags=[...]' "
                          "(ref hydra_utils/rich.py enforce_tags)")
-    if extras.get("print_config", cfg.get("print_config", True)) and is_main_process():
+    if extras.get("print_config", cfg.get("print_config", True)) and main_process:
         import yaml
 
         print("── config " + "─" * 50)
@@ -135,16 +158,24 @@ def run_job(cfg):
         print("─" * 60, flush=True)
     try:
         tcfg = cfg.get("trainer") or {}
-        ranks = num_devices_from_cfg(tcfg)
-        if ranks > 1:
-            device_type = "cpu" if tcfg.get("platform") == "cpu" else "cuda"
-            metrics = launch(_rank_job, ranks, (cfg,), device_type=device_type)[0]
+        device_type = device_from_cfg(tcfg).type  # no card under platform null raises here
+        if layout is not None and layout.route == "torchrun":
+            mesh = join_torchrun(layout, device_type)
+            try:
+                metrics = _rank_job(mesh, cfg)
+            finally:
+                leave_group(mesh.device)
+        elif layout is not None:
+            metrics = launch(_rank_job, num_devices_from_cfg(tcfg), (cfg,), device_type=device_type,
+                             hosts=layout.hosts, host=layout.host, coordinator=layout.address)[0]
+        elif num_devices_from_cfg(tcfg) > 1:
+            metrics = launch(_rank_job, num_devices_from_cfg(tcfg), (cfg,), device_type=device_type)[0]
         else:
             metrics = train(cfg)
         opt_name = cfg.get("optimized_metric")
         if opt_name:
             value = get_metric_value(metrics, opt_name)
-            if is_main_process():
+            if main_process:
                 print(f"optimized_metric {opt_name}={value}", flush=True)
             return value
         return metrics
@@ -159,14 +190,14 @@ def _rank_job(mesh, cfg):
     """One rank of a job, the entry point of its process: ``train(cfg,
     mesh)`` with tensorboard bound to its no-TensorFlow stub (as the CLI
     program binds it) and, on the CPU, this rank's ``torch.set_num_threads``
-    share of the host's cores."""
+    share of its host's cores."""
     tensorboard_without_tensorflow()
     if mesh.device.type == "cpu":
         import os
 
         import torch
 
-        torch.set_num_threads(max(min(torch.get_num_threads(), (os.cpu_count() or 1) // mesh.size), 1))
+        torch.set_num_threads(max(min(torch.get_num_threads(), (os.cpu_count() or 1) // mesh.local_size), 1))
     return train(cfg, mesh)
 
 

@@ -54,28 +54,48 @@ of every step itself, on the card as a CUDA graph replayed once per step.
 Both give the same batches from the same seed.
 
 Data parallelism (``mesh``, a ``parallel.mesh.DataMesh`` with a process
-group; the JAX package's single-process mesh): ``batch_size`` is the global
-batch B and each rank makes its rows of it. Every rank draws the global
-epoch plan and the global draws of each step from identically seeded
-generators, and keeps its columns: the quads of its primaries (rows
-``[r B/N, (r+1) B/N)``), their mixup partners and their draws (JAX's
-``epoch_host_arrays`` with ``P(None, "data")``). So an N-rank run's batches
-are, row for row, the 1-rank run's. Each rank then gathers (K2), warps
-(K5) and jitters (K4) its own groups. Host-fed, a rank loads only its own
-groups (JPEG files; in fake mode it draws the whole group's content, as
-the content of a fake group is seeded by the group, and keeps its rows).
-``corpus_sharding="sharded"`` (JAX ``make_sharded_corpus_gather``) holds
-rank r's rows ``[r P, (r+1) P)`` of the corpus images, P = ceil(N/ranks)
-(the last shard padded with zero rows, as the JAX package pads), beside the
-whole (small) sizes and targets: for a step's global group each rank
+group; the JAX package's mesh): ``batch_size`` is the batch B of one host
+(the JAX package's per-process batch; on one host the global batch), the
+global batch is ``hosts * B`` and each rank makes its rows of it. Every
+rank draws its plans from identically seeded generators, so every host
+advances the sampler, ``pyrng`` and the generator alike and epochs stay in
+step:
+
+  * the step loop (``epoch``): host h's plan is the JAX package's
+    ``_epoch_plan(shard_for_host=True)`` at ``process_index`` h: its
+    interleaved shard of the epoch stream (``samplers.shard_indices``) and
+    co-samples from ``default_rng((seed, h))``; on one host the whole plan.
+    A rank keeps its columns of its host's plan (the quads of its
+    primaries, rows ``[l B/L, (l+1) B/L)`` for local rank l of L, their
+    mixup partners);
+  * the fused epoch (``epoch_host_arrays``): one global plan at ``hosts *
+    B``, the same on every host, of which each rank keeps its columns by
+    its global rank (JAX's ``epoch_host_arrays`` with ``P(None, "data")``),
+    so a run over H hosts of L ranks trains row for row like one host of
+    H L ranks and like one process at the same global batch.
+
+The draws of each step are the global batch's from the one generator, and a
+rank keeps its rows by its global rank: one stream advanced alike on every
+host, each host's rows its own (the port cannot reproduce the JAX
+package's per-host ``fold_in`` of threefry keys, ROADMAP). Each rank then
+gathers (K2), warps (K5) and jitters (K4) its own groups; the JAX package
+turns its Pallas gather, HSV and warp off when ``process_count() > 1`` (a
+GSPMD workaround), the port keeps its kernels on every rank. Host-fed, a
+rank loads only its own groups (JPEG files; in fake mode it draws the
+whole group's content, as the content of a fake group is seeded by the
+group, and keeps its rows). ``corpus_sharding="sharded"`` (JAX
+``make_sharded_corpus_gather``) holds rank r's rows ``[r P, (r+1) P)`` of
+the corpus images, P = ceil(N/ranks) (the last shard padded with zero
+rows, as the JAX package pads), beside the whole (small) sizes and
+targets: for a step's global group (over several hosts in the step loop,
+every host's plan side by side, each rank drawing them all) each rank
 gathers the rows it holds with K2, zeroes the rest, and one
 ``reduce_scatter`` (a sum, exact in uint8 since one rank holds each row)
 deals each rank its own rows, bitwise the replicated corpus's.
 
 Not ported: the flat (N, 8, D/8) corpus layout, a TPU tiling workaround
 (it raises ``NotImplementedError``; K3's kernel still exists, in
-``ops/gather.py``), ``device_put_row_major`` (a TPU layout pin) and the
-multi-host plans, one per host (ROADMAP A).
+``ops/gather.py``), and ``device_put_row_major`` (a TPU layout pin).
 """
 
 from __future__ import annotations
@@ -94,6 +114,7 @@ import torch
 from object_detection_cib_torch.data import native_loader
 from object_detection_cib_torch.data.cache import DatasetInfo
 from object_detection_cib_torch.data.host_augment import AugParams
+from object_detection_cib_torch.data.samplers import shard_indices
 from object_detection_cib_torch.ops.augment import (
     AffineBatchValues,
     DeviceSample,
@@ -115,7 +136,7 @@ from object_detection_cib_torch.ops.graph import CapturedGraph
 from object_detection_cib_torch.ops.hsv import hsv_planar
 from object_detection_cib_torch.ops.warp import FILL
 from object_detection_cib_torch.parallel.distributed import reduce_scatter_sum
-from object_detection_cib_torch.parallel.mesh import DataMesh, batch_sharding
+from object_detection_cib_torch.parallel.mesh import DataMesh, batch_sharding, host_batch_sharding
 from object_detection_cib_torch.train.steps import Batch
 from object_detection_cib_torch.utils.device import resolve_device, to_unit
 from object_detection_cib_torch.utils.fs import get_root_dir
@@ -539,8 +560,9 @@ class DeviceDataPipeline:
             raise ValueError(f"the sharded corpus's exchange on the card needs NCCL, not {self.mesh.backend}")
         self.info = dataset_info
         self.S = target_size
-        self.B = batch_size  # the global batch
-        self.rows = batch_sharding(self.mesh, batch_size)  # this rank's rows of it
+        self.B = batch_size  # the batch of one host
+        self.hosts, self.host = (self.mesh.hosts, self.mesh.host) if self.mesh is not None else (1, 0)
+        self.rows = batch_sharding(self.mesh, batch_size * self.hosts)  # this rank's rows of the global batch
         self.aug = aug_params
         self.max_targets = max_targets
         self.mixup_prob = mixup_prob
@@ -603,20 +625,27 @@ class DeviceDataPipeline:
         self._overflow_done += int(n)
 
     # -------------------------- the epoch --------------------------
-    def _epoch_plan(self) -> Tuple[np.ndarray, np.ndarray]:
+    def _epoch_plan(self, B: Optional[int] = None, shard_for_host: bool = True) -> Tuple[np.ndarray, np.ndarray]:
         """One epoch's corpus rows per step, ``(groups, secs)``, drawn as the
-        JAX package draws them in one process, advancing the sampler and
-        ``pyrng`` alike: ``groups`` (steps, 4B) with mosaic or (steps, B)
-        without, ``secs`` (steps, 4B) under mixup, else (steps, 0)."""
+        JAX package's ``_epoch_plan(B, shard_for_host)`` draws them in the
+        process of this host (``process_index`` = host, ``process_count`` =
+        hosts), advancing the sampler and ``pyrng`` alike on every host:
+        ``groups`` (steps, 4B) with mosaic or (steps, B) without, ``secs``
+        (steps, 4B) under mixup, else (steps, 0); ``B`` by default the
+        host's batch."""
+        return self._draw_plans(self.B if B is None else B, shard_for_host, [self.host])[0]
+
+    def _draw_plans(self, B: int, shard_for_host: bool, hosts: Sequence[int]) -> list:
+        """``_epoch_plan`` for each host of ``hosts`` from one advance of the
+        sampler and ``pyrng``: their ``(groups, secs)``. This host's plan is
+        logged, and ``_plan_steps`` set to the steps every host's plan has."""
         n = len(self.info.samples)
         if self.sampler is not None:
             epoch_idx = np.asarray(self.sampler.epoch_indices())
         else:
             epoch_idx = np.random.default_rng(self.pyrng.randrange(2**31)).permutation(n)
-        epoch_idx = np.asarray(epoch_idx, np.int64)
-        n_batches = len(epoch_idx) // self.B
-        n_prim = n_batches * self.B
-        rng = np.random.default_rng(self.pyrng.randrange(2**31))
+        sharded_host = shard_for_host and self.hosts > 1
+        seed = self.pyrng.randrange(2**31)
         # read after epoch_indices(): the class-aware sampler replaces its
         # pool every epoch
         pool = getattr(self.sampler, "sampler_indices", None)
@@ -625,52 +654,76 @@ class DeviceDataPipeline:
         if self.image_repeat_factors is not None:
             p = np.asarray(self.image_repeat_factors, np.float64)
             p = p / p.sum()
+        plans = []
+        for h in hosts:
+            idx = np.asarray(shard_indices(epoch_idx, h, self.hosts) if sharded_host else epoch_idx, np.int64)
+            # per-host co-samples, from one pyrng advance shared by the hosts
+            rng = np.random.default_rng((seed, h) if sharded_host else seed)
 
-        def draw(k):
-            if k == 0:
-                return np.zeros((0,), np.int64)
-            return pool[rng.choice(len(pool), size=k, p=p)]
+            def draw(k):
+                if k == 0:
+                    return np.zeros((0,), np.int64)
+                return pool[rng.choice(len(pool), size=k, p=p)]
 
-        if self.use_mosaic:
-            # per primary: [primary, co1, co2, co3] shuffled within the quad
-            quads = np.concatenate([epoch_idx[:n_prim, None], draw(3 * n_prim).reshape(n_prim, 3)], 1)
-            quads = rng.permuted(quads, axis=1)
-            groups = quads.reshape(n_batches, 4 * self.B)
+            n_batches = len(idx) // B
+            n_prim = n_batches * B
+            if self.use_mosaic:
+                # per primary: [primary, co1, co2, co3] shuffled within the quad
+                quads = np.concatenate([idx[:n_prim, None], draw(3 * n_prim).reshape(n_prim, 3)], 1)
+                quads = rng.permuted(quads, axis=1)
+                groups = quads.reshape(n_batches, 4 * B)
+            else:
+                groups = idx[:n_prim].reshape(n_batches, B)
+            if self.mixup_prob > 0.0:
+                secs = draw(4 * n_prim).reshape(n_batches, 4 * B)
+            else:
+                secs = np.zeros((n_batches, 0), np.int64)
+            if h == self.host:
+                # mixup co-mosaics are counted whatever the per-image coin,
+                # which is drawn on the card
+                self.consumed_plan_log.append(np.concatenate([groups, secs], 1) if secs.size else groups)
+            plans.append((groups, secs))
+        # the smallest host's shard: every host runs as many steps
+        self._plan_steps = (len(epoch_idx) // self.hosts if sharded_host else len(epoch_idx)) // B
+        return plans
+
+    def _planned(self, max_steps: Optional[int], fused: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+        """The plan this rank's gathers read from: the fused epoch's one
+        global plan at ``hosts * B``; the step loop's host plan or, over a
+        sharded corpus on several hosts, every host's plan side by side in
+        host order (each row a global group). Cut to the steps every host
+        has, then to ``max_steps`` (the whole plan is logged); its rows
+        checked on the host to lie in the corpus."""
+        if fused:
+            plans = [self._epoch_plan(self.B * self.hosts, shard_for_host=False)]
+        elif self.sharded and self.hosts > 1:
+            plans = self._draw_plans(self.B, True, range(self.hosts))
         else:
-            groups = epoch_idx[:n_prim].reshape(n_batches, self.B)
-        if self.mixup_prob > 0.0:
-            secs = draw(4 * n_prim).reshape(n_batches, 4 * self.B)
-        else:
-            secs = np.zeros((n_batches, 0), np.int64)
-        # mixup co-mosaics are counted whatever the per-image coin, which is
-        # drawn on the card
-        self.consumed_plan_log.append(np.concatenate([groups, secs], 1) if secs.size else groups)
-        return groups, secs
-
-    def _planned(self, max_steps: Optional[int]) -> Tuple[np.ndarray, np.ndarray]:
-        """``_epoch_plan`` (global under a mesh) cut to ``max_steps`` steps
-        (the whole plan is logged), its rows checked on the host to lie in
-        the corpus."""
-        groups, secs = self._epoch_plan()
-        if max_steps is not None:
-            groups, secs = groups[:max_steps], secs[:max_steps]
+            plans = [self._epoch_plan()]
+        steps = self._plan_steps if max_steps is None else min(self._plan_steps, int(max_steps))
+        groups = np.concatenate([g[:steps] for g, _ in plans], 1)
+        secs = np.concatenate([s[:steps] for _, s in plans], 1)
         n = len(self.info.samples)
         for rows in (groups, secs):
             if rows.size and (rows.min() < 0 or rows.max() >= n):
                 raise IndexError(f"epoch plan row outside [0, {n})")
         return groups, secs
 
-    def _columns(self, rows: np.ndarray) -> slice:
-        """This rank's columns of a plan's rows (the quads of its primaries)."""
-        return batch_sharding(self.mesh, rows.shape[1])
+    def _columns(self, rows: np.ndarray, fused: bool = False) -> slice:
+        """This rank's columns of a plan's rows (the quads of its
+        primaries): of the fused epoch's global plan by its global rank, of
+        its host's plan by its rank on the host."""
+        return (batch_sharding if fused else host_batch_sharding)(self.mesh, rows.shape[1])
 
-    def _rank_plan(self, groups: np.ndarray, secs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    def _rank_plan(self, groups: np.ndarray, secs: np.ndarray,
+                   fused: bool = False) -> Tuple[np.ndarray, np.ndarray]:
         """The plan this rank's gathers read: its columns, or the whole
         global plan over a sharded corpus (every rank takes part in every
         row's exchange)."""
         if self.mesh is None or self.sharded:
             return groups, secs
-        return groups[:, self._columns(groups)], secs[:, self._columns(secs)] if secs.size else secs
+        return (groups[:, self._columns(groups, fused)],
+                secs[:, self._columns(secs, fused)] if secs.size else secs)
 
     def gather(self, idx: torch.Tensor) -> DeviceSample:
         """Corpus rows ``idx`` (one K2 launch) and their sizes and targets.
@@ -736,8 +789,8 @@ class DeviceDataPipeline:
 
     def draw(self) -> AugmentDraws:
         """One step's draws from the pipeline's generator: under a mesh the
-        global batch's, of which this rank keeps its rows."""
-        draws = draw_augment(self.gen, self.B, self.S, self.aug, self.use_mosaic, self.mixup_prob)
+        global batch's (``hosts * B``), of which this rank keeps its rows."""
+        draws = draw_augment(self.gen, self.B * self.hosts, self.S, self.aug, self.use_mosaic, self.mixup_prob)
         return draws if self.mesh is None else draws.rows(self.rows)
 
     def gather_augment(self, idx: torch.Tensor, draws: AugmentDraws,
@@ -771,7 +824,7 @@ class DeviceDataPipeline:
     def _host_fed(self, groups: np.ndarray, secs: np.ndarray, plan: torch.Tensor,
                   plan2: Optional[torch.Tensor]) -> Iterator[Tuple[DeviceSample, Optional[DeviceSample]]]:
         """Per step, the (primary, secondary) samples on the device: a producer
-        thread loads the step's groups (this rank's columns of the global
+        thread loads the step's groups (this rank's columns of its host's
         ``groups`` and ``secs``) on the host up to ``prefetch`` steps ahead;
         this generator uploads them in step order. A producer's exception is
         raised here."""
@@ -849,9 +902,10 @@ class DeviceDataPipeline:
         iterating ``epoch`` advances them; ``max_steps`` cuts the plan. The
         JAX package's version also returns a key per step; here the draws
         come from the pipeline's generator, in step order. Under a mesh the
-        plan is this rank's columns of the global plan, or the whole global
-        plan over a sharded corpus."""
-        groups, secs = self._rank_plan(*self._planned(max_steps))
+        plan is one global plan at ``hosts * B`` (JAX's multi-host fused
+        plan; on one host the step loop's), of which this rank takes its
+        columns, or the whole of it over a sharded corpus."""
+        groups, secs = self._rank_plan(*self._planned(max_steps, fused=True), fused=True)
         xs = (groups, secs) if self.mixup_prob > 0.0 else (groups,)
         pin = self.device.type == "cuda"
         return tuple(torch.from_numpy(x.astype(np.int32)).pin_memory() if pin
@@ -952,8 +1006,8 @@ class FusedEpoch:
             raise ValueError("a CUDA graph needs the pipeline on the card")
         if self.graph and pipe.mesh is not None and pipe.mesh.backend != "nccl":
             raise ValueError(f"the fused epoch on the card captures its collectives in a CUDA graph, which the "
-                             f"{pipe.mesh.backend} backend cannot be captured in: use NCCL, or the step loop "
-                             "(data.fused_epoch=False)")
+                             f"{pipe.mesh.backend} backend cannot be captured in: use NCCL, the step loop "
+                             "(data.fused_epoch=False) or an eager fused epoch (graph=False)")
         self.pipe, self.train_step = pipe, train_step
         self.pipelined, self.stack_metrics = bool(pipelined), bool(stack_metrics)
         self.graphs: dict = {}  # "body" (and "last" when pipelined): CapturedGraph

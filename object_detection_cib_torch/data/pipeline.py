@@ -22,8 +22,12 @@ collate). The same seed gives the same samples:
 
 The dataset shares one ``rng`` and one ``pyrng`` across the Prefetcher's
 worker threads, as in the JAX package, so its stream is reproducible with
-``num_threads=1`` only. Not ported: ``shard_for_host`` (the multi-host
-feed, ROADMAP A7).
+``num_threads=1`` only. Over several hosts (``hosts > 1``) every host
+draws the same epoch stream from an identically seeded sampler and feeds
+its interleaved shard of it (``samplers.shard_indices``; the JAX package's
+``DistributedSampler`` analog), by the host index and count the caller
+passes where the JAX package reads ``jax.process_index()`` and
+``jax.process_count()``.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import torch
 from object_detection_cib_torch.data.cache import DatasetInfo
 from object_detection_cib_torch.data.host_augment import mixup, mosaic4
 from object_detection_cib_torch.data.reader import AugmentedSample, SampleReader
+from object_detection_cib_torch.data.samplers import shard_indices
 from object_detection_cib_torch.train.steps import Batch
 from object_detection_cib_torch.utils.device import resolve_device, to_unit
 from object_detection_cib_torch.utils.threads import put_unless_stopped
@@ -180,7 +185,10 @@ class Prefetcher:
     With ``rows`` (a rank's rows of a global batch, ``parallel.mesh.
     batch_sharding``) each batch is made whole, from the whole seeded
     stream, and only those rows are yielded; ``overflow_total`` counts the
-    whole batch's.
+    whole batch's. With ``hosts > 1`` the epoch is host ``host``'s
+    interleaved shard of the stream over ``hosts`` hosts (JAX
+    ``shard_for_host=True``); ``rows`` are then this rank's rows of its
+    host's batch.
     """
 
     def __init__(
@@ -195,9 +203,16 @@ class Prefetcher:
         device: Union[str, torch.device, None] = "cuda",
         feed_dtype: torch.dtype = torch.float32,
         rows: Optional[slice] = None,
+        host: int = 0,
+        hosts: int = 1,
     ):
+        if not 0 <= host < hosts:
+            raise ValueError(f"host {host} of {hosts} hosts")
         self.dataset = dataset
         self.rows = rows
+        # multi-host training: every host draws the identical epoch stream
+        # and takes its interleaved shard
+        self.host, self.hosts = host, hosts
         self.batch_size = batch_size
         self.max_targets = max_targets
         self.sampler = sampler
@@ -217,13 +232,19 @@ class Prefetcher:
 
     def _epoch_indices(self) -> np.ndarray:
         if self.sampler is not None:
-            return np.asarray(self.sampler.epoch_indices())
-        return np.arange(len(self.dataset))
+            idx = np.asarray(self.sampler.epoch_indices())
+        else:
+            idx = np.arange(len(self.dataset))
+        if self.hosts > 1:
+            idx = shard_indices(idx, self.host, self.hosts)
+        return idx
 
     def __len__(self) -> int:
         # samplers define the epoch length (repeat-factor/class-aware epochs
-        # differ from the dataset size)
+        # differ from the dataset size; per-host val shards are subsets)
         n = len(self.sampler) if self.sampler is not None else len(self.dataset)
+        if self.hosts > 1:  # this host's interleaved shard
+            n = n // self.hosts + (1 if self.host < n % self.hosts else 0)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[Batch]:

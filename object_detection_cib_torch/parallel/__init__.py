@@ -1,1 +1,1 @@
-"""Data parallelism over the cards of one host: the rank layout and its collectives."""
+"""Data parallelism over the cards of one host or of several: the rank layout and its collectives."""

@@ -48,24 +48,35 @@ workaround). ``trainer.platform`` null means
 the card: there is no fallback to the CPU, which ``trainer=cpu`` selects.
 
 Data parallelism (``mesh``, a ``parallel.mesh.DataMesh`` with a process
-group, one per rank; ``cli.train`` launches the ranks for
-``trainer.num_devices`` N > 1, null meaning every visible card): the
-single-process mesh of the JAX package. ``batch_size`` is the global batch
-and must divide by N; each rank trains on its rows of every global batch
-(``data/device_pipeline.py``, or the host pipeline's whole batch cut to its
-rows), the step is the global one (``train/steps.py``), and
-``steps_per_epoch`` is ``len(train) // batch_size`` as on one card. The
-per-epoch metric matrix is summed over the ranks (``lr`` excepted) before
-its one copy to the host, so the losses, ``assign_drop`` and
-``targets_dropped`` count every rank. Validation is sharded by rank
-(``shard_indices``: rank r takes images r, r+N, ...), each rank through its
-own validation cache or host feed with K1 on its card, and the records are
-merged in image order (``eval/coco_map.py``), so every rank reads the
-one-process mAP dict, and early stopping and "best" agree. Rank 0 writes
-the checkpoints, the loggers' files, ``hparams.json`` and the console
-lines; every rank waits for the others at the end of ``fit`` and before
-reading a checkpoint. A mesh without a group (one card) is the one-process
-path, bit for bit.
+group, one per rank; ``cli.train`` launches the ranks of a host for
+``trainer.num_devices`` N > 1, null meaning every visible card, or joins
+them from the environment over several hosts): the JAX package's mesh, a
+JAX process being a port host. ``batch_size`` is the batch of one host,
+as in the JAX trainer (:339-350): the global batch is ``hosts *
+batch_size``, each of a host's N ranks trains on ``batch_size / N`` rows,
+and ``steps_per_epoch`` is ``len(train) // (batch_size * hosts)``; on one
+host ``batch_size`` is the global batch, as on one card. Each rank makes
+its rows (``data/device_pipeline.py``: the step loop from its host's plan,
+the fused epoch from one global plan; the host pipeline's batch of its
+host, seeded ``seed + host * 1000003`` and fed from its host's shard of the
+stream, cut to its rows), the step is the global one (``train/steps.py``).
+The per-epoch metric matrix is summed over the ranks (``lr`` excepted)
+before its one copy to the host, so the losses, ``assign_drop`` and
+``targets_dropped`` count every rank. The images an epoch records follow
+the JAX rule (:1101-1103): the fused epoch counts the global batch, the
+step loop its host's. Validation is sharded by rank over every rank of the
+group (``shard_indices``: rank r takes images r, r+R, ...), each rank
+through its own validation cache or host feed with K1 on its card in
+batches of ``batch_size / N`` (a JAX host's batch split over its local
+devices, :853-859), and the records are merged in image order
+(``eval/coco_map.py``), so every rank reads the one-process mAP dict (JAX's
+host shards after ``sync_across_processes``), and early stopping and "best"
+agree. Global rank 0 writes the checkpoints, the loggers' files,
+``hparams.json`` and the console lines; every rank waits for the others at
+the end of ``fit`` and reads ``ckpt_path`` on resume (as JAX's Orbax
+restore does on every process), so the path must be visible from every
+host. A mesh without a group (one card) is the one-process path, bit for
+bit.
 
 ``Evaluator.validate`` is the counterpart of ``Trainer._validate_device``
 (:832-956) and ``Evaluator.validate_batches`` of ``Trainer.validate``'s
@@ -78,9 +89,6 @@ padded to B with zero images. Either way the host converts and scores batch
 i-1 while the card runs batch i (a one-deep pipeline: results come back by
 a non-blocking copy into pinned memory, and the host waits on that copy's
 event only).
-
-Not here: several hosts, one process each, joined from the environment
-(ROADMAP A).
 """
 
 from __future__ import annotations
@@ -123,7 +131,7 @@ from object_detection_cib_torch.parallel.distributed import (
     barrier,
     broadcast_module_,
 )
-from object_detection_cib_torch.parallel.mesh import DataMesh, batch_sharding
+from object_detection_cib_torch.parallel.mesh import DataMesh, host_batch_sharding
 from object_detection_cib_torch.train.checkpoint import CheckpointManager, Snapshot, restore_checkpoint
 from object_detection_cib_torch.train.loss import LossParams
 from object_detection_cib_torch.train.optim import OptimizerConfig, SmartSGD, WarmupParams
@@ -375,8 +383,11 @@ class Trainer:
     ``mesh`` (a ``DataMesh`` with a process group, as ``parallel.
     distributed.launch`` gives each rank) makes this one rank of a
     data-parallel run (module docstring); ``device`` must then be the
-    mesh's. ``corpus_sharding="sharded"`` spreads the corpus on the card
-    over the ranks.
+    mesh's and ``batch_size`` is its host's batch.
+    ``corpus_sharding="sharded"`` spreads the corpus on the card over the
+    ranks. The fused epoch is captured in a CUDA graph on the card, and run
+    eagerly there under a gloo group, whose collectives a graph cannot
+    hold.
     """
 
     def __init__(
@@ -437,9 +448,10 @@ class Trainer:
         if self.mesh is not None:
             if self.device != self.mesh.device:
                 raise ValueError(f"device {self.device} is not the mesh's {self.mesh.device}")
-            if batch_size % self.mesh.size:
-                raise ValueError(f"data.batch_size={batch_size} (the global batch) does not divide over "
-                                 f"{self.mesh.size} ranks")
+            if batch_size % self.mesh.local_size:
+                raise ValueError(f"data.batch_size={batch_size} (the batch of one host) does not divide over "
+                                 f"{self.mesh.local_size} ranks")
+        self.hosts, self.host = (self.mesh.hosts, self.mesh.host) if self.mesh is not None else (1, 0)
         self.is_main = self.mesh is None or self.mesh.is_main
         self.pipeline_name, self.device_cache = pipeline, bool(device_cache)
         self.fused_epoch, self.fused_pipelined = bool(fused_epoch), bool(fused_pipelined)
@@ -476,18 +488,22 @@ class Trainer:
             from object_detection_cib_torch.data.pipeline import DetectionDataset, Prefetcher
             from object_detection_cib_torch.data.samplers import ShuffleSampler
 
+            # per-host augment streams (JAX :262-268); the sampler's stream
+            # is every host's, sharded by the Prefetcher
             train_ds = DetectionDataset(
                 train_info, SampleReader(image_size, self.classes, self.fake_mode, root_dir),
                 train_augmentor or TrainSampleAugmentor(aug_params), enable_ram_cache=enable_ram_cache,
                 use_mosaic=use_mosaic, mosaic_target_size=image_size, mixup_prob=mixup_prob,
-                sampler=sampler, seed=seed)
+                sampler=sampler, seed=seed + self.host * 1000003)
             self.prefetcher = Prefetcher(
                 train_ds, batch_size, max_targets, sampler=sampler or ShuffleSampler(train_info, seed=seed),
                 num_threads=self.num_workers, device=self.device, feed_dtype=feed_dtype,
-                rows=batch_sharding(self.mesh, batch_size) if self.mesh is not None else None)
+                rows=host_batch_sharding(self.mesh, batch_size) if self.mesh is not None else None,
+                host=self.host, hosts=self.hosts)
         if corpus_sharding != "replicated" and self.pipeline is None:
             raise ValueError("corpus_sharding='sharded' is the device pipeline's corpus on the card")
-        self.steps_per_epoch = max(len(train_info.samples) // batch_size, 1) if train_info else 1
+        # each of the hosts feeds its batch of a global one a step (JAX :339-350)
+        self.steps_per_epoch = max(len(train_info.samples) // (batch_size * self.hosts), 1) if train_info else 1
         self.optimizer = SmartSGD(self.net, optimizer._replace(max_epochs=self.max_epochs),
                                   self.steps_per_epoch)
         class_weights = None
@@ -513,10 +529,11 @@ class Trainer:
             self.val_cache = ValDeviceCache(val_info, self.val_indices, image_size,
                                             max_targets, fake_mode=self.fake_mode, root_dir=root_dir)
         self._val_dataset = None
-        # under a mesh each rank's validation batches are still B images (of
-        # its shard): the eval step's shapes, and so each image's result,
-        # are those of one process
-        self.evaluator = Evaluator(self.net, self.anchors, val_info.classes, batch_size=batch_size,
+        # under a mesh each rank validates at its share of the host's batch,
+        # as each local device of a JAX host does (JAX :853-859): the
+        # batches a rank runs are those of its host in JAX
+        eval_batch = batch_size // self.mesh.local_size if self.mesh is not None else batch_size
+        self.evaluator = Evaluator(self.net, self.anchors, val_info.classes, batch_size=eval_batch,
                                    conf_thres=val_conf_thres, iou_thres=val_iou_thres, max_nms=val_max_nms,
                                    device=self.device, mesh=self.mesh)
         self.epoch = 0  # epochs trained so far
@@ -549,11 +566,12 @@ class Trainer:
     def from_config(cls, cfg: dict, mesh: Optional[DataMesh] = None) -> "Trainer":
         """A trainer for a composed config, as the JAX ``Trainer(cfg)``; with
         ``mesh``, this rank's (``cli.train`` launches the ranks of
-        ``trainer.num_devices`` > 1)."""
+        ``trainer.num_devices`` > 1); in a process that joined a group from
+        the environment, that group's rank."""
         tcfg, dcfg, mcfg = cfg["trainer"], cfg["data"], cfg["model"]
-        device = _device_from_cfg(tcfg)
+        device = device_from_cfg(tcfg)
         _refuse_unported(cfg)
-        _check_mesh(tcfg, device, mesh)
+        mesh = _check_mesh(tcfg, device, mesh)
         if mesh is not None and mesh.group is not None:
             device = mesh.device
         say = print if mesh is None or mesh.is_main else (lambda *a, **k: None)
@@ -684,7 +702,8 @@ class Trainer:
         n_params = sum(p.numel() for p in t.net.parameters())
         ranks = t.mesh.size if t.mesh is not None else 1
         say(f"model: yolov5 widen={ncfg.get('widen_factor', 1.0)} deepen={ncfg.get('deepen_factor', 1.0)} "
-            f"nc={len(t.classes)} params={n_params:,} | device={t.device} x{ranks} ranks | dataset={name} "
+            f"nc={len(t.classes)} params={n_params:,} | device={t.device} x{ranks} ranks on {t.hosts} hosts | "
+            f"dataset={name} "
             f"train={len(train_info.samples) if train_info else 0} val={len(val_info.samples)}",
             flush=True)
         if not t.is_main:
@@ -708,7 +727,8 @@ class Trainer:
     def restore(self, path: Path) -> None:
         """Load a checkpoint's parameters, BN statistics, momentum buffers and
         step count; ``fit`` goes on from epoch ``step_count // steps_per_epoch``
-        (JAX :983-985). Under a mesh every rank reads it, after a barrier."""
+        (JAX :983-985). Under a mesh every rank reads it, after a barrier:
+        over several hosts the path must be visible from every host."""
         barrier(self.mesh)
         restore_checkpoint(path, self.net, self.optimizer)
         self.epoch = self.optimizer.step_count // self.steps_per_epoch
@@ -819,9 +839,10 @@ class Trainer:
         ``max(int(steps * limit_train_batches), 1)``. ``epoch_steps`` caps
         the steps of either loop (an integer, the port's own knob).
         ``on_step(epoch, step, metrics)`` runs after each step is enqueued.
-        Per epoch, the images and the wall time (host clock, ending in the
-        host fetch of the epoch's metrics; fetch to fetch in the fused loop)
-        are recorded, and the per-step metrics and the targets dropped by
+        Per epoch, the images (the fused epoch's global batches, the step
+        loop's host batches: the JAX rule) and the wall time (host clock,
+        ending in the host fetch of the epoch's metrics; fetch to fetch in
+        the fused loop) are recorded, and the per-step metrics and the targets dropped by
         ``max_targets`` come back to the host in one copy of one
         ``f32[7, steps]`` matrix (``METRIC_ROWS``, overflow last):
         ``epoch_metrics`` holds per step ``total``, ``box``, ``obj``,
@@ -870,7 +891,8 @@ class Trainer:
                 flat, host_dropped, prof = self._step_epoch(epoch, n_steps, on_step, prof, prof_window)
             n = flat.shape[1]
             self.epoch_walls.append(time.perf_counter() - t0)
-            self.epoch_imgs.append(n * self.batch_size)
+            # the JAX rule (:1101-1103): the fused epoch's global batch, the step loop's host batch
+            self.epoch_imgs.append(n * self.batch_size * (self.hosts if fused else 1))
             metrics = {k: flat[j] for j, k in enumerate(METRIC_ROWS)}
             if self._overfit_cache is not None:
                 dropped = 0  # replayed batches: counted where they were made
@@ -1001,7 +1023,7 @@ class Trainer:
         if self._fused_fn is None:
             self._fused_fn = self.pipeline.build_fused_epoch_fn(
                 lambda batch, hp: self.train_step(batch, hp), pipelined=self.fused_pipelined,
-                stack_metrics=True)
+                stack_metrics=True, graph=False if self.mesh is not None and self.mesh.backend == "gloo" else None)
         pending, self._fused_inflight = self._fused_inflight, None
         if pending is None:
             pending = self._enqueue_epoch(epoch, epoch_steps)
@@ -1185,10 +1207,13 @@ def _cfg_get(cfg: dict, dotted: str):
     return node
 
 
-def _device_from_cfg(tcfg: dict) -> torch.device:
+def device_from_cfg(tcfg: dict) -> torch.device:
     """``trainer.platform``: null is the card (no fallback), "cpu" the CPU."""
     platform = tcfg.get("platform")
     if platform in (None, "cuda", "gpu"):
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"trainer.platform={platform or 'null'} runs on the card, and "
+                               "torch.cuda.is_available() is False: trainer=cpu runs on the CPU (device='cpu')")
         return resolve_device("cuda")
     if platform == "cpu":
         return torch.device("cpu")
@@ -1237,22 +1262,28 @@ def num_devices_from_cfg(tcfg: dict) -> int:
     return int(n)
 
 
-def _check_mesh(tcfg: dict, device: torch.device, mesh: Optional[DataMesh]) -> None:
-    """The config's ranks against the mesh a trainer is built on."""
+def _check_mesh(tcfg: dict, device: torch.device, mesh: Optional[DataMesh]) -> Optional[DataMesh]:
+    """The mesh a trainer of this config is built on, a group joined from
+    the environment included (``join_torchrun`` and ``launch`` hand over
+    theirs); its ranks on a host against the config's
+    ``trainer.num_devices``. A group joined with no mesh handed over
+    raises: its hosts are the caller's to say."""
     import torch.distributed as dist
 
     if mesh is None and dist.is_available() and dist.is_initialized():
-        raise NotImplementedError("this process joined a process group from the environment "
-                                  "(parallel.distributed.maybe_initialize_from_env): one process per host over "
-                                  "several hosts is a later slice, ROADMAP A; launch the ranks of one host "
-                                  "through cli.train with trainer.num_devices")
+        raise ValueError("this process joined a process group but no DataMesh was handed over: pass the mesh "
+                         "(join_torchrun returns one; after initialize_multihost, make_mesh(device=..., "
+                         "hosts=num_processes)) to Trainer.from_config or train")
     n = num_devices_from_cfg(tcfg)
-    ranks = 1 if mesh is None or mesh.group is None else mesh.size
+    grouped = mesh is not None and mesh.group is not None
+    ranks = mesh.local_size if grouped else 1
     if n != ranks:
-        raise ValueError(f"trainer.num_devices resolves to {n} ranks but this trainer is built on {ranks}: "
-                         "cli.train launches the ranks (parallel.distributed.launch)")
-    if mesh is not None and mesh.group is not None and mesh.device.type != device.type:
+        raise ValueError(f"trainer.num_devices resolves to {n} ranks a host but this trainer is built on {ranks} "
+                         f"(of {mesh.size if grouped else 1} over {mesh.hosts if grouped else 1} hosts): cli.train "
+                         "launches the ranks (parallel.distributed.launch)")
+    if grouped and mesh.device.type != device.type:
         raise ValueError(f"the mesh is on {mesh.device} but trainer.platform selects {device.type}")
+    return mesh
 
 
 def _anchors_from_cfg(anchor_cfg: dict) -> LevelAnchors:

@@ -325,7 +325,7 @@ def test_helpers_single_process_match_jax_contracts():
     assert tdist.maybe_initialize_from_env() is jdist.maybe_initialize_from_env() is False
     assert tdist.initialize_multihost() is False
     assert tdist.backend_for("cuda") == "nccl" and tdist.backend_for("cpu") == "gloo"
-    m = tmesh.make_mesh()
+    m = tmesh.make_mesh(device="cpu")
     assert (m.size, m.rank, m.group) == (1, 0, None)
 
 
