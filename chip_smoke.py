@@ -6,6 +6,7 @@ Run from the root of a checkout, on a machine with one card:
     python3 chip_smoke.py [--baseline DIR ...]
     python3 chip_smoke.py --phase ddp   # phases 1, 2 and 13 alone (on 2-4 cards for 13 (c))
     python3 chip_smoke.py --phase hosts # phases 1, 2 and 14 alone (on 4 cards for 14 (b))
+    python3 chip_smoke.py --phase rest  # phases 1, 2 and 15 alone (15 (e) on every card visible)
 
 ``--baseline DIR`` (repeatable) also builds the four kernel sources
 (``nms.cu``, ``gather.cu``, ``hsv.cu``, ``warp.cu``) of another checkout at
@@ -164,8 +165,8 @@ result line):
     epoch (yolov5s@416, B=64, bf16, 640 fake images, 10 steps, validation
     of 128): K2/K4/K5 10 each by replay, K1 2; the all-reduces issued equal
     the step bodies run in Python (2 warm-up steps and one capture per
-    graph) times (3 per BatchNorm + the loss's counts + the gradient
-    bucket) + the epoch's metric sum; the graph's kernel nodes read by
+    graph) times (3 per BatchNorm + the compaction's counts + the loss's
+    counts + the gradient bucket) + the epoch's metric sum; the graph's kernel nodes read by
     name (``cuFuncGetName``) and those of NCCL counted; finite losses and
     mAP. (b) Two gloo ranks sharing this card, the step loop at a global
     B=64 (32 a rank), 10 steps and one validation: K2/K4/K5 10 on each
@@ -204,7 +205,39 @@ result line):
     profiled 10-step epoch, NCCL kernel ms a step, idle share and peak
     memory per rank; with fewer cards it prints that (b) needs four.
     ``--phase hosts`` runs phases 1, 2 and 14 alone;
-15. the ``kernels`` JSON line (with each path's launches), the card line,
+15. rest: what the port ran last on one host, at phase 8's width over a
+    640-image fake corpus on the card. (a) Each ``model.remat_policy``
+    (``conv_out``, ``conv_out_bn_stats``, ``nothing``) against none, run
+    twice for the card's own run-to-run gap, with
+    ``cudnn.deterministic``: a fused fit of 4 steps at 416 B=64, then a
+    timed fused epoch of 10 replays (K2/K4/K5 10 each by replay), and the
+    step loop at 640 B=32 (JAX's remat resolution): the gradients, the
+    parameters after SmartSGD and the running statistics bitwise those
+    without remat (else the largest gap, which may be no more than twice
+    the run-to-run gap), peak memory (``max_memory_allocated`` above what
+    was allocated before) and ms a step; then, over NCCL ranks (one, or
+    two where two cards are visible; the global BatchNorm, its all-reduces
+    captured in the graph), a fused
+    fit of 4 steps of each policy against none (twice): bitwise as above,
+    K2/K4/K5 4 each and K1 1 on each rank, and the all-reduces issued a step body
+    3 x BN + 3, plus 2 x BN under ``conv_out`` and ``nothing`` (the
+    recompute reissues the statistics' sums). (b) ``data.warp_pallas=False``:
+    one fused epoch (K5 0, K2 and K4 once a step) beside K5's, img/s each;
+    the dense warp's pixels on the same rows and draws (HSV off) within
+    JAX's fast class of K5's (<= 2 units, >= 85% equal), boxes, labels and
+    masks equal. (c) Two gloo ranks on this card, the step loop at a
+    global B=64 in f32 under a planted overflow
+    (``assign_compact_slots=2``), against one process: ``assign_drop``
+    equal step for step, the first three losses within rtol 1e-5, K2/K4/K5
+    3 each and K1 1 on each rank; and the loss's forward and backward at
+    a rank's static table over four cards, before (128 x B_local slots a
+    level) and after (min(128 x B_global, K)). (d) The same two ranks on
+    the host pipeline (fake canvases), one epoch: the batches made by each
+    rank (rank 0 every step, rank 1 none) and the feed's img/s. (e)
+    ``entry.dryrun_multichip`` on every card visible: the step, the fused
+    epoch and the sharded corpus's fused epoch, with rank 0's launches.
+    ``--phase rest`` runs phases 1, 2 and 15 alone;
+16. the ``kernels`` JSON line (with each path's launches), the card line,
     and the result line last.
 """
 
@@ -212,6 +245,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import gc
 import json
 import math
 import statistics
@@ -1191,7 +1225,7 @@ def phase_ddp(card):
     for k, n in want.items():
         if a["counts"][k] != n:
             fail(f"[ddp] (a) launched {k} {a['counts'][k]} times, want {n}")
-    per_step = 3 * a["n_bn"] + 2  # BatchNorm: 2 forward, 1 backward; the loss's counts; the gradient bucket
+    per_step = 3 * a["n_bn"] + 3  # BatchNorm: 2 forward, 1 backward; compaction and loss counts; the gradient
     python_steps = a["warmup"] + len(a["graphs"])  # eager warm-up steps, then one capture per graph
     if a["calls"] != python_steps * per_step + 1:
         fail(f"[ddp] (a) {a['calls']} all-reduces issued, want {python_steps} x {per_step} + 1 (the epoch's metrics)")
@@ -1201,7 +1235,7 @@ def phase_ddp(card):
         f"{steps} steps + validation of {DDP_VAL}: launches {a['counts']} (training kernels by replay); "
         f"graphs {a['graphs']} captured after {a['warmup']} eager steps; all-reduces issued {a['calls']} = "
         f"{python_steps} step bodies run in Python (warm-up and captures) x {per_step} ({a['n_bn']} BatchNorms "
-        f"x 3 + loss counts + gradient bucket) + 1 epoch metric sum; kernel nodes {a['kernel_nodes']}, "
+        f"x 3 + compaction counts + loss counts + gradient bucket) + 1 epoch metric sum; kernel nodes {a['kernel_nodes']}, "
         f"of them named nccl {a['nccl_nodes']} {a['nccl']}, unnamed {a['unnamed']}; losses {a['losses'][0]:.4f}->"
         f"{a['losses'][-1]:.4f}; map {a['map']['map']:.6g}; fit {a['wall']:.2f} s; peak {a['peak'] / 2**30:.3f} "
         f"GiB | {card}")
@@ -1589,6 +1623,356 @@ def _phase_hosts_b(card, me):
     return {"b_kod": counts["2 hosts x 2, KOD_*"], "b_torchrun": counts["2 hosts x 2, torchrun"]}
 
 
+# ------------------------------------------------------------ 15 rest
+REST_STEPS = 4  # phase 15 (a): the fused fit of each policy (2 eager warm-up steps, then 2 replays)
+REST_TIMED = 10  # phase 15 (a): the timed fused epoch of each policy (replays)
+REMAT_S, REMAT_B, REMAT_N = 640, 32, 96  # phase 15 (a): the step loop at 640 (JAX's remat resolution)
+OVERFLOW_SLOTS = 2  # phase 15 (c): assign_compact_slots an image, a planted overflow
+OVERFLOW_STEPS = 3  # phase 15 (c): step-loop steps under the overflow
+LOSS_REPS = 10  # phase 15 (c): the loss's forward and backward timed this many times
+TRAINING_KERNELS = ("gather_rows_planar", "hsv_planar", "warp_quadrants")
+
+
+def _same_state(a: dict, b: dict) -> float:
+    """The largest absolute difference between two tensor dicts (0 when bitwise equal)."""
+    return max(float((a[k].double() - b[k].double()).abs().max()) if a[k].numel() else 0.0 for k in a)
+
+
+def _rest_rank(mesh):
+    """Phase 15 (c) and (d), one of two gloo ranks on one card: the step loop
+    under a planted overflow (3 steps, f32), then one epoch of the host
+    feed (bf16)."""
+    import numpy as np
+
+    from object_detection_cib_torch.train.trainer import Trainer
+
+    _ddp_card()
+    train_info, val_info = _ddp_infos(DDP_N, TRAIN_B)
+    kw = dict(size="s", image_size=TRAIN_S, batch_size=TRAIN_B, max_targets=MAX_TARGETS, seed=0,
+              dtype=torch.bfloat16, device=mesh.device, mesh=mesh, max_epochs=1)
+    t = Trainer(train_info, val_info, fused_epoch=False, assign_compact_slots=OVERFLOW_SLOTS,
+                **{**kw, "dtype": None})
+    _zero_kernels()
+    m = t.fit(max_epochs=1, epoch_steps=OVERFLOW_STEPS)
+    torch.cuda.synchronize()
+    em = t.epoch_metrics[0]
+    c2 = dict(losses=np.asarray(em["total"]).tolist(), drops=np.asarray(em["assign_drop"]).tolist(),
+              counts=_read_kernels(), map=m)
+    del t
+    h = Trainer(train_info, val_info, pipeline="host", fake_mode=True, num_workers=8, **kw)
+    _zero_kernels()
+    t0 = time.perf_counter()
+    m = h.fit(max_epochs=1)
+    wall = time.perf_counter() - t0
+    return dict(c2=c2, made=h.prefetcher.batches_made, steps=h.steps_per_epoch, counts=_read_kernels(),
+                ips=h.epoch_imgs[0] / h.epoch_walls[0], wait=h.prefetcher.wait_seconds, wall=wall, map=m)
+
+
+def _rest_remat_rank(mesh):
+    """Phase 15 (a), one rank of an NCCL group: a fused fit of each remat
+    policy (no remat twice) with the global BatchNorm, whose all-reduces the
+    recompute reissues inside the captured graph under ``conv_out`` and
+    ``nothing`` and leaves alone under ``conv_out_bn_stats``."""
+    from object_detection_cib_torch.models.layers import BatchNorm
+    from object_detection_cib_torch.parallel.distributed import all_reduce_sum_
+    from object_detection_cib_torch.train.steps import REMAT_SAVES
+    from object_detection_cib_torch.train.trainer import Trainer
+
+    _ddp_card()
+    torch.backends.cudnn.deterministic = True
+    train_info, val_info = _ddp_infos(DDP_N, TRAIN_B)
+    runs = {}
+    for name in ("none", "none again", *sorted(REMAT_SAVES)):
+        t = Trainer(train_info, val_info, size="s", image_size=TRAIN_S, batch_size=TRAIN_B, max_targets=MAX_TARGETS,
+                    seed=0, dtype=torch.bfloat16, device=mesh.device, mesh=mesh, max_epochs=1,
+                    remat_policy=None if name.startswith("none") else name)
+        _zero_kernels()
+        calls = all_reduce_sum_.calls
+        t.fit(max_epochs=1, epoch_steps=REST_STEPS)
+        torch.cuda.synchronize()
+        fn = t._fused_fn
+        runs[name] = dict(calls=all_reduce_sum_.calls - calls, counts=_read_kernels(),
+                          python_steps=fn.WARMUP_STEPS + len(fn.graphs),
+                          n_bn=sum(isinstance(m, BatchNorm) for m in t.net.modules()),
+                          state={k: v.detach().cpu() for k, v in t.net.state_dict().items()},
+                          grads={n: p.grad.detach().cpu() for n, p in t.net.named_parameters()})
+        del t, fn
+        gc.collect()  # the trainer's CUDA graphs hold NCCL work and sit in reference cycles
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    floor = {k: _same_state(runs["none again"][k], runs["none"][k]) for k in ("grads", "state")}
+    return {name: dict(calls=r["calls"], counts=r["counts"], python_steps=r["python_steps"], n_bn=r["n_bn"],
+                       floor=floor, rank=mesh.rank, gap={k: _same_state(r[k], runs["none"][k]) for k in ("grads", "state")})
+            for name, r in runs.items()}
+
+
+def phase_rest(card):
+    """Phase 15: what the port ran last on one host. (a) the remat
+    policies, (b) the dense bf16 warp, (c) the overflow compaction over
+    ranks, (d) one decode a host, (e) the entry's dry runs. Returns the
+    launch counts of its paths."""
+    import numpy as np
+
+    from object_detection_cib_torch.core.assigner import Assignment, assign_targets, compact_level_assignment
+    from object_detection_cib_torch.core.types import FeatureShape, default_anchors
+    from object_detection_cib_torch.data.device_pipeline import DeviceCorpus, DeviceDataPipeline
+    from object_detection_cib_torch.data.host_augment import AugParams, HSVParams
+    from object_detection_cib_torch.data.synthetic import build_fake_manifest
+    from object_detection_cib_torch.entry import dryrun_multichip
+    from object_detection_cib_torch.models.yolov5 import build_network
+    from object_detection_cib_torch.train.loss import yolov5_loss
+    from object_detection_cib_torch.train.optim import OptimizerConfig, SmartSGD
+    from object_detection_cib_torch.train.steps import REMAT_SAVES, make_train_step
+    from object_detection_cib_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    _ddp_card()
+    aug = AugParams()  # configs/data/augmentations/aug_params.yaml
+    train_info, val_info = _ddp_infos(DDP_N, TRAIN_B)
+    corpus = DeviceCorpus.fake(train_info, TRAIN_S, dev)
+    steps = DDP_N // TRAIN_B
+    kw = dict(size="s", image_size=TRAIN_S, batch_size=TRAIN_B, aug_params=aug, max_targets=MAX_TARGETS,
+              seed=0, dtype=torch.bfloat16, device=dev, corpus=corpus, max_epochs=1)
+    out = {}
+    policies = ("none", "none again", *sorted(REMAT_SAVES))
+
+    # (a) remat: each policy against none (twice, for the card's own run-to-run gap)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    fused, looped = {}, {}
+    for name in policies:
+        policy = None if name.startswith("none") else name
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = Trainer(train_info, val_info, remat_policy=policy, **kw)
+        t.fit(max_epochs=1, epoch_steps=REST_STEPS)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        state = {k: v.detach().clone() for k, v in t.net.state_dict().items()}
+        grads = {n: p.grad.detach().clone() for n, p in t.net.named_parameters()}
+        fn, pipe, opt = t._fused_fn, t.pipeline, t.optimizer
+        xs = pipe.epoch_host_arrays(REST_TIMED)
+        table = opt.hyper_table(opt.step_count, REST_TIMED)
+        _zero_kernels()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        flat = fn(xs, table)
+        ev[1].record()
+        torch.cuda.synchronize()
+        counts = _read_kernels()
+        for k in TRAINING_KERNELS:
+            if counts[k] != REST_TIMED:
+                fail(f"[rest] (a) {name}: the fused epoch launched {k} {counts[k]} times, want {REST_TIMED}")
+        if not torch.isfinite(flat[0]).all():
+            fail(f"[rest] (a) {name}: losses not finite {flat[0].tolist()}")
+        fused[name] = dict(state=state, grads=grads, peak=peak, ms=ev[0].elapsed_time(ev[1]) / REST_TIMED,
+                           counts=counts, losses=t.epoch_metrics[0]["total"].tolist())
+        out[f"a {name}"] = counts
+        del t, fn, pipe, opt, flat
+        gc.collect()  # the trainer's CUDA graphs sit in reference cycles
+        torch.cuda.empty_cache()
+    info640 = build_fake_manifest(num_images=REMAT_N, num_classes=NC, image_size=REMAT_S, seed=0)
+    pipe640 = DeviceDataPipeline(info640, REMAT_S, REMAT_B, aug, max_targets=MAX_TARGETS, seed=0, device=dev)
+    batches = [b for b, _ in pipe640.epoch(3)]
+    for name in policies:
+        policy = None if name.startswith("none") else name
+        net = build_network(NC, "s", dtype=torch.bfloat16, device=dev, seed=0)
+        opt = SmartSGD(net, OptimizerConfig(), len(pipe640))
+        step = make_train_step(net, default_anchors(), FeatureShape(REMAT_S, REMAT_S), opt, remat_policy=policy)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(batches[0])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        state = {k: v.detach().clone() for k, v in net.state_dict().items()}
+        grads = {n: p.grad.detach().clone() for n, p in net.named_parameters()}
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            step(b)
+        torch.cuda.synchronize()
+        looped[name] = dict(state=state, grads=grads, peak=peak,
+                            ms=(time.perf_counter() - t0) * 1e3 / (len(batches) - 1))
+        del net, opt, step
+        torch.cuda.empty_cache()
+    del pipe640, batches
+    torch.backends.cudnn.deterministic = deterministic
+    for where, runs in (("fused epoch 416 B=64", fused), ("step loop 640 B=32", looped)):
+        ref = runs["none"]
+        floor = {k: _same_state(runs["none again"][k], ref[k]) for k in ("grads", "state")}
+        for name in policies[1:]:
+            r = runs[name]
+            gap = {k: _same_state(r[k], ref[k]) for k in ("grads", "state")}
+            # the gap to no remat may be no larger than twice the gap of a second run without remat
+            if any(gap[k] > 2 * floor[k] for k in gap):
+                fail(f"[rest] (a) {where} {name}: gap to no remat {gap} beyond twice the run-to-run gap {floor}")
+            log(f"[rest] (a) remat {name}, {where} (yolov5s bf16, cudnn.deterministic): gradients "
+                f"{'bitwise equal' if gap['grads'] == 0 else 'max gap %.3e' % gap['grads']}, parameters and "
+                f"running statistics {'bitwise equal' if gap['state'] == 0 else 'max gap %.3e' % gap['state']} "
+                f"to no remat (run-to-run gap {floor}); peak memory (max_memory_allocated above what was "
+                f"allocated before {'the trainer was built' if 'fused' in where else 'the first step'}) "
+                f"{r['peak'] / 2**30:.3f} GiB (none {ref['peak'] / 2**30:.3f}); "
+                f"{'step' if 'fused' not in where else 'fused step'} {r['ms']:.4f} ms (none {ref['ms']:.4f})"
+                + (f"; launches by replay {r['counts']}" if "counts" in r else "") + f" | {card}")
+    # the same under a process group of NCCL ranks (one, or two where two
+    # cards are visible): the global BatchNorm's all-reduces captured in the
+    # graph, reissued by the recompute
+    n_g = min(torch.cuda.device_count(), 2)
+    gs = launch_logged("rest", _rest_remat_rank, n_g, device_type="cuda", timeout_s=300, join_timeout_s=600)
+    for name, r in ((name, r) for g in gs for name, r in g.items()):
+        extra = 0 if name in ("none", "none again", "conv_out_bn_stats") else 2 * r["n_bn"]
+        per_step = 3 * r["n_bn"] + 3 + extra
+        want = {k: REST_STEPS for k in TRAINING_KERNELS} | {"greedy_nms_mask": 1}
+        for k, n in want.items():
+            if r["counts"][k] != n:
+                fail(f"[rest] (a) {r['rank']} of {n_g} NCCL ranks, {name}: launched {k} {r['counts'][k]} times, "
+                     f"want {n}")
+        if r["calls"] != r["python_steps"] * per_step + 1:
+            fail(f"[rest] (a) {r['rank']} of {n_g} NCCL ranks, {name}: {r['calls']} all-reduces issued, want "
+                 f"{r['python_steps']} x {per_step} + 1")
+        if any(r["gap"][k] > 2 * r["floor"][k] for k in r["gap"]):
+            fail(f"[rest] (a) {r['rank']} of {n_g} NCCL ranks, {name}: gap to no remat {r['gap']} beyond twice "
+                 f"the run-to-run gap {r['floor']}")
+        log(f"[rest] (a) remat {name}, launch({n_g} NCCL ranks) rank {r['rank']}, fused fit of {REST_STEPS} steps "
+            f"at {TRAIN_S} global B={TRAIN_B} (yolov5s bf16, global BatchNorm, cudnn.deterministic): gradients, "
+            f"parameters and running statistics "
+            f"{'bitwise equal' if not any(r['gap'].values()) else 'max gap %s' % r['gap']} to no remat (run-to-run "
+            f"gap {r['floor']}); all-reduces issued {r['calls']} = {r['python_steps']} step bodies run in Python x "
+            f"{per_step} ({r['n_bn']} BatchNorms x 3 + 3 + {extra} reissued by the recompute) + 1; launches "
+            f"{r['counts']} | {card}")
+    out["a NCCL"] = {k: sum(r["counts"][k] for g in gs for r in g.values()) for k in gs[0]["none"]["counts"]}
+
+    # (b) the dense bf16 warp, one fused epoch, beside K5
+    ips = {}
+    for name, wp in (("K5", "auto"), ("dense", False)):
+        t = Trainer(train_info, val_info, warp_pallas=wp, **kw)
+        _zero_kernels()
+        m = t.fit(max_epochs=1)
+        torch.cuda.synchronize()
+        counts = _read_kernels()
+        want = {"gather_rows_planar": steps, "hsv_planar": steps, "warp_quadrants": steps if name == "K5" else 0}
+        for k, n in want.items():
+            if counts[k] != n:
+                fail(f"[rest] (b) {name} warp: launched {k} {counts[k]} times, want {n}")
+        if not (np.isfinite(t.epoch_metrics[0]["total"]).all() and finite_map(m)):
+            fail(f"[rest] (b) {name} warp: losses or mAP not finite")
+        ips[name] = t.epoch_imgs[0] / t.epoch_walls[0]
+        out[f"b {name}"] = counts
+        log(f"[rest] (b) {name} warp (data.warp_pallas={wp}): one fused epoch of {steps} steps at yolov5s@"
+            f"{TRAIN_S} B={TRAIN_B} bf16, {ips[name]:.2f} img/s (host clock, capture included); launches "
+            f"{counts} | {card}")
+        del t
+        torch.cuda.empty_cache()
+    plain = aug._replace(hsv_params=HSVParams.no_aug())
+    pk, pd = (DeviceDataPipeline(train_info, TRAIN_S, TRAIN_B, plain, max_targets=MAX_TARGETS, seed=0, device=dev,
+                                 corpus=corpus, feed_dtype=torch.float32, warp_pallas=wp) for wp in ("auto", False))
+    groups, _ = pk._epoch_plan()
+    idx = torch.from_numpy(groups[0].astype(np.int32)).to(dev)
+    d = pk.draw()
+    _zero_kernels()
+    bk, _ = pk.gather_augment(idx, d)
+    n_k5 = _read_kernels()["warp_quadrants"]
+    bd, _ = pd.gather_augment(idx, d)
+    n_dense = _read_kernels()["warp_quadrants"] - n_k5
+    diff = (bk.images - bd.images).abs() * 255.0
+    worst, equal = float(diff.max()), float((diff < 1e-3).float().mean())
+    if n_k5 != 1 or n_dense != 0:
+        fail(f"[rest] (b) warp launches: K5 path {n_k5} (want 1), dense {n_dense} (want 0)")
+    if worst > 2.0 + 1e-3 or equal < 0.85:
+        fail(f"[rest] (b) dense warp vs K5 beyond the fast class: max {worst}/255, {equal} equal")
+    if not (torch.equal(bk.boxes, bd.boxes) and torch.equal(bk.labels, bd.labels) and torch.equal(bk.mask, bd.mask)):
+        fail("[rest] (b) dense warp vs K5: boxes, labels or mask differ")
+    log(f"[rest] (b) dense vs K5 warp on the same rows and draws, HSV off: max pixel difference {worst:.4f}/255, "
+        f"{equal:.6f} of pixels equal (gate: <= 2, >= 0.85); boxes, labels, mask equal; img/s dense "
+        f"{ips['dense']:.2f} beside K5 {ips['K5']:.2f} | {card}")
+    del pk, pd, bk, bd
+
+    # (c) and (d): two gloo ranks on this card against one process
+    ranks = launch_logged("rest", _rest_rank, 2, device_type="cuda", backend="gloo", devices=[0, 0],
+                          timeout_s=300, join_timeout_s=900)
+    # each rank validates its half of the 64 val images at its share of the batch
+    want_c = {"gather_rows_planar": OVERFLOW_STEPS, "hsv_planar": OVERFLOW_STEPS,
+              "warp_quadrants": OVERFLOW_STEPS, "greedy_nms_mask": -(-(TRAIN_B // 2) // (TRAIN_B // 2))}
+    # in f32: with a few slots a level kept, the loss averages few terms, and
+    # bf16's rounding (which differs with the rows a card holds) would no
+    # longer average out of the comparison of the compaction
+    one = Trainer(train_info, val_info, fused_epoch=False, assign_compact_slots=OVERFLOW_SLOTS,
+                  **{**kw, "dtype": None})
+    one.fit(max_epochs=1, epoch_steps=OVERFLOW_STEPS)
+    em = one.epoch_metrics[0]
+    want_drops, want_losses = np.asarray(em["assign_drop"]), np.asarray(em["total"])
+    for r, res in enumerate(ranks):
+        got = res["c2"]
+        if not np.array_equal(np.asarray(got["drops"]), want_drops) or not want_drops.sum() > 0:
+            fail(f"[rest] (c) rank {r}: assign_drop {got['drops']} vs one process {want_drops.tolist()}")
+        # f32: sound runs read relative gaps of 2.3e-7 at most (PERF.md, section 6)
+        if not np.allclose(got["losses"], want_losses, rtol=1e-5, atol=0):
+            fail(f"[rest] (c) rank {r}: losses {got['losses']} vs one process {want_losses.tolist()} beyond rtol 1e-5")
+        for k, n in want_c.items():
+            if got["counts"][k] != n:
+                fail(f"[rest] (c) rank {r}: launched {k} {got['counts'][k]} times, want {n}")
+        if not finite_map(got["map"]):
+            fail(f"[rest] (c) rank {r}: mAP not finite {got['map']}")
+    gap_c = max(float(np.max(np.abs(np.asarray(res["c2"]["losses"]) / want_losses - 1))) for res in ranks)
+    del one
+    # the loss's cost at the static table size over four cards, before (the per-rank cap) and after
+    net = build_network(NC, "s", dtype=torch.bfloat16, device=dev, seed=0)
+    pipe = DeviceDataPipeline(train_info, TRAIN_S, TRAIN_B, aug, max_targets=MAX_TARGETS, seed=0, device=dev,
+                              corpus=corpus)
+    batch, _ = next(iter(pipe.epoch(1)))
+    with torch.no_grad():
+        heads = net.train()(batch.images)
+    assignment = assign_targets(batch.boxes, batch.labels, batch.mask, FeatureShape(TRAIN_S, TRAIN_S),
+                                default_anchors())
+    K = int(assignment.ll.valid.shape[0])
+    loss_ms = {}
+    for name, size in (("before: 128 x B_local", 128 * TRAIN_B), ("after: min(128 x B_global, K)",
+                                                                  min(128 * TRAIN_B * 4, K))):
+        a = Assignment(*(compact_level_assignment(lv, size) for lv in assignment.levels()))
+        leaves = type(heads)(*(h._replace(raw=h.raw.detach().requires_grad_()) for h in heads.levels()))
+
+        def loss_step():
+            yolov5_loss(leaves, a, FeatureShape(TRAIN_S, TRAIN_S)).total.backward()
+
+        loss_ms[name] = cuda_ms(loss_step, LOSS_REPS)
+    del net, pipe, heads, leaves
+    log(f"[rest] (c) two gloo ranks on cuda:0, step loop yolov5s@{TRAIN_S} global B={TRAIN_B} f32, "
+        f"assign_compact_slots={OVERFLOW_SLOTS} (a planted overflow): assign_drop a step {ranks[0]['c2']['drops']} "
+        f"equal to one process's {want_drops.tolist()}; losses {ranks[0]['c2']['losses']} vs "
+        f"{want_losses.tolist()} (largest relative gap {gap_c:.3e}, gate rtol 1e-5); launches rank 0 "
+        f"{ranks[0]['c2']['counts']}, rank 1 {ranks[1]['c2']['counts']}; the loss's forward and backward at a "
+        f"rank's static table of four cards (B=64 a card, K={K}): {loss_ms} ms | {card}")
+    made = [res["made"] for res in ranks]
+    if made != [ranks[0]["steps"], 0]:
+        fail(f"[rest] (d) batches made per rank {made}, want [{ranks[0]['steps']}, 0]: one decode a host")
+    for r, res in enumerate(ranks):
+        if any(res["counts"][k] for k in TRAINING_KERNELS) or not finite_map(res["map"]):
+            fail(f"[rest] (d) rank {r}: training kernels on the host feed {res['counts']} or mAP not finite")
+    log(f"[rest] (d) two gloo ranks on cuda:0, host pipeline (fake canvases, 8 threads) yolov5s@{TRAIN_S} "
+        f"global B={TRAIN_B}, one epoch of {ranks[0]['steps']} steps: batches made rank 0 {made[0]}, rank 1 "
+        f"{made[1]} (1x a host); {ranks[0]['ips']:.2f} img/s, rank 0 waited {ranks[0]['wait']:.2f} s on its "
+        f"queue; launches rank 0 {ranks[0]['counts']} | {card}")
+    out["c"] = {k: ranks[0]["c2"]["counts"][k] + ranks[1]["c2"]["counts"][k] for k in ranks[0]["counts"]}
+    out["d"] = {k: ranks[0]["counts"][k] + ranks[1]["counts"][k] for k in ranks[0]["counts"]}
+    del corpus
+    torch.cuda.empty_cache()
+
+    # (e) the entry's dry runs on the cards visible
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    r0 = dryrun_multichip(n, device_type="cuda")
+    log(f"[rest] (e) entry.dryrun_multichip({n}) on {n} cards: (1) loss {r0['loss']:.4f}; (3) fused epoch "
+        f"{len(r0['fused']['losses'])} steps, launches rank 0 {r0['fused']['launches']}; (4) sharded corpus "
+        f"{r0['sharded']['held_rows']} rows a rank, launches rank 0 {r0['sharded']['launches']}; weights equal "
+        f"on every rank; {time.perf_counter() - t0:.2f} s | {card}")
+    out["e"] = {k: r0["fused"]["launches"].get(k, 0) + r0["sharded"]["launches"].get(k, 0)
+                for k in ranks[0]["counts"]}
+    log(f"[rest] phase 15 {time.perf_counter() - t_phase:.2f} s | {card}")
+    return out
+
+
 def launch_logged(tag: str, *args, **kw):
     """``parallel.distributed.launch``, its warnings (a rank terminated
     after handing back its result) printed under ``[tag]``."""
@@ -1608,9 +1992,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path, action="append", default=[],
                     help="root of another checkout whose four kernel sources are timed beside")
-    ap.add_argument("--phase", choices=["all", "ddp", "hosts"], default="all",
+    ap.add_argument("--phase", choices=["all", "ddp", "hosts", "rest"], default="all",
                     help="ddp: phases 1, 2 and 13 alone (data parallelism; (c) needs two or more cards); "
-                         "hosts: phases 1, 2 and 14 alone (several hosts; (b) needs four cards)")
+                         "hosts: phases 1, 2 and 14 alone (several hosts; (b) needs four cards); "
+                         "rest: phases 1, 2 and 15 alone")
     ap.add_argument("--hosts-child", nargs=2, metavar=("KIND", "OUT"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     # ---------------------------------------------------------------- 1 device
@@ -1671,6 +2056,13 @@ def main() -> None:
                           csrc=b / "object_detection_cib_torch" / "ops" / "csrc")
         baselines[b] = {n: ctypes.CDLL(str(p)) for n, p in built.items()}
         log(f"[build] baseline {b}: {', '.join(built)} in {time.perf_counter() - t0:.2f} s")
+    if args.phase == "rest":
+        rest = phase_rest(card)
+        print(json.dumps({"rest_launches": rest}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
     if args.phase == "hosts":
         hosts = phase_hosts(card)
         print(json.dumps({"hosts_launches": hosts}), flush=True)
@@ -2463,8 +2855,12 @@ def main() -> None:
 
     # --------------------------------------------------------------- 14 hosts
     hosts = phase_hosts(card)
+    torch.cuda.empty_cache()
 
-    # -------------------------------------------------------------- 15 report
+    # ---------------------------------------------------------------- 15 rest
+    rest = phase_rest(card)
+
+    # -------------------------------------------------------------- 16 report
     src = "object_detection_cib_torch/ops/csrc/"
     rows = [
         ("greedy_nms_mask", "nms.cu", "object_detection_cib_tpu/ops/pallas_nms.py:131", serve_launches),
@@ -2492,7 +2888,8 @@ def main() -> None:
                                  "cli": {part: n[name] for part, n in cli.items()},
                                  "fused": fused[name],
                                  "ddp": {part: n[name] for part, n in ddp.items()},
-                                 "hosts": {part: n[name] for part, n in hosts.items()}},
+                                 "hosts": {part: n[name] for part, n in hosts.items()},
+                                 "rest": {part: n[name] for part, n in rest.items()}},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -30,8 +30,9 @@ Per step of batch B:
   2. the group's images (K2 on the card, or the host-fed upload), their
      sizes, and their per-image targets gathered from arrays on the card;
   3. ``augment_group``. With mosaic and an axis-aligned affine, the fused
-     mosaic + warp (``ops/augment.py``: K5 at ``warp_precision="fast"``, two
-     f32 matrix products at ``"exact"``) with the horizontal flip folded
+     mosaic + warp (``ops/augment.py``: K5 at ``warp_precision="fast"``,
+     two bf16 matrix products under ``warp_pallas=False`` (``"fast_dense"``),
+     two f32 ones at ``"exact"``) with the horizontal flip folded
      into its taps, HSV (K4, bf16), flip of the boxes. Otherwise the
      composed path: the 2S x 2S mosaic canvas or the centred letterbox, the
      cast to f32, ``affine_batch`` (per-pixel bilinear sampling for a
@@ -116,6 +117,7 @@ from object_detection_cib_torch.data.cache import DatasetInfo
 from object_detection_cib_torch.data.host_augment import AugParams
 from object_detection_cib_torch.data.samplers import shard_indices
 from object_detection_cib_torch.ops.augment import (
+    WARP_PRECISIONS,
     AffineBatchValues,
     DeviceSample,
     affine_batch,
@@ -232,7 +234,8 @@ def augment_group(sample: DeviceSample, draws: AugmentDraws, target_size: int, a
     the JAX package's stage dtype), the flip folded into the warp. Otherwise
     the composed path in f32: the canvas (or, without mosaic, G = the
     sample's own images, letterboxed), ``affine_batch``, HSV, ``flip_batch``.
-    HSV is K4 on the card on both paths.
+    HSV is K4 on the card on both paths. ``warp_precision="fast_dense"``
+    takes the dense bf16 warp in place of K5 (``mosaic_affine_batch``).
     """
     axis_aligned = aug.affine_params.axis_aligned()
     if use_mosaic and axis_aligned:
@@ -325,8 +328,8 @@ def build_device_augment_fn(
     ``primary`` holds 4B images with mosaic and B without; under mixup
     ``secondary`` holds the 4B images of the partner mosaics.
     """
-    if warp_precision not in ("fast", "exact"):
-        raise ValueError(f"warp_precision must be 'fast' or 'exact', got {warp_precision!r}")
+    if warp_precision not in WARP_PRECISIONS:
+        raise ValueError(f"warp_precision must be one of {WARP_PRECISIONS}, got {warp_precision!r}")
     if mixup_prob > 0.0 and not use_mosaic:
         raise ValueError("mixup requires mosaic (ref detection.py:58-59)")
 
@@ -543,6 +546,7 @@ class DeviceDataPipeline:
         prefetch: int = 2,
         mesh: Optional[DataMesh] = None,
         corpus_sharding: str = "replicated",
+        warp_pallas: Union[bool, str] = "auto",
     ):
         if corpus_layout != "planar":
             raise NotImplementedError(
@@ -576,6 +580,14 @@ class DeviceDataPipeline:
         self.image_repeat_factors = getattr(sampler, "image_repeat_factors", None)
         self.pyrng = pyrandom.Random(seed)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        # the fast warp's kernel, resolved as the JAX package resolves its
+        # Pallas warp: "auto" or True take K5, False (or "false") pins the
+        # dense bf16 products; the exact warp has no kernel
+        if warp_precision not in ("fast", "exact"):
+            raise ValueError(f"warp_precision must be 'fast' or 'exact', got {warp_precision!r}")
+        if warp_precision == "fast" and str(warp_pallas).lower() == "false":
+            warp_precision = "fast_dense"
+        self.warp_precision = warp_precision
         self.augment_fn = build_device_augment_fn(
             target_size, aug_params, mixup_prob, max_targets, use_mosaic,
             warp_precision, feed_dtype)

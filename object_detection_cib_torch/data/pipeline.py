@@ -27,7 +27,11 @@ draws the same epoch stream from an identically seeded sampler and feeds
 its interleaved shard of it (``samplers.shard_indices``; the JAX package's
 ``DistributedSampler`` analog), by the host index and count the caller
 passes where the JAX package reads ``jax.process_index()`` and
-``jax.process_count()``.
+``jax.process_count()``. With several ranks on a host (``RowShare``) local
+rank 0 makes the host's batches, once, and deals each rank its rows over
+a gloo group of the host's ranks (``scatter``), as a JAX host makes its
+batch once and splits it over its devices; the other ranks draw nothing
+from their dataset.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterator, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Iterator, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -174,6 +178,20 @@ def upload(batch: Batch, device: torch.device, feed_dtype: torch.dtype = torch.f
     return Batch(to_unit(images).to(feed_dtype), *targets)
 
 
+class RowShare(NamedTuple):
+    """The ranks of one host sharing one ``Prefetcher``'s batches: ``group``
+    (a gloo group of the host's ranks, ``parallel.distributed.host_group``),
+    ``src`` (the global rank of local rank 0, which makes the batches),
+    ``size`` (ranks on the host), ``rank`` (this rank's local rank) and
+    ``image_shape`` (h, w of the batches' images)."""
+
+    group: object
+    src: int
+    size: int
+    rank: int
+    image_shape: Tuple[int, int]
+
+
 class Prefetcher:
     """Threaded batch producer with a bounded queue (double buffering).
 
@@ -188,7 +206,11 @@ class Prefetcher:
     whole batch's. With ``hosts > 1`` the epoch is host ``host``'s
     interleaved shard of the stream over ``hosts`` hosts (JAX
     ``shard_for_host=True``); ``rows`` are then this rank's rows of its
-    host's batch.
+    host's batch. With ``share`` (a ``RowShare``) the host's batch is made
+    once, by local rank 0, which deals each local rank its rows
+    (``rows`` must be this rank's) and the batch's overflow count; the other
+    ranks only receive. ``batches_made`` counts the batches this process
+    made.
     """
 
     def __init__(
@@ -205,11 +227,19 @@ class Prefetcher:
         rows: Optional[slice] = None,
         host: int = 0,
         hosts: int = 1,
+        share: Optional[RowShare] = None,
     ):
         if not 0 <= host < hosts:
             raise ValueError(f"host {host} of {hosts} hosts")
+        if share is not None:
+            b = batch_size // share.size
+            if batch_size % share.size or rows != slice(share.rank * b, (share.rank + 1) * b):
+                raise ValueError(f"rows {rows} are not local rank {share.rank}'s of {share.size} "
+                                 f"in a batch of {batch_size}")
         self.dataset = dataset
         self.rows = rows
+        self.share = share
+        self.batches_made = 0
         # multi-host training: every host draws the identical epoch stream
         # and takes its interleaved shard
         self.host, self.hosts = host, hosts
@@ -261,6 +291,13 @@ class Prefetcher:
             )
         )
 
+        if self.share is not None and self.share.rank > 0:  # local rank 0 makes the batches
+            for _ in range(n_batches):
+                batch, ovf = self._receive()
+                self.overflow_total += ovf
+                yield batch if self.device is None else upload(batch, self.device, self.feed_dtype)
+            return
+
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
@@ -275,6 +312,7 @@ class Prefetcher:
                         ]
                         samples = list(pool.map(self.dataset.__getitem__, chunk))
                         item = collate_fixed(samples, self.max_targets, self.pin_memory)
+                        self.batches_made += 1
                         if not put_unless_stopped(q, item, stop):
                             return
             except Exception as e:  # surface worker errors to the consumer
@@ -295,8 +333,45 @@ class Prefetcher:
                     raise item
                 batch, ovf = item
                 self.overflow_total += ovf  # counted as the batch is handed out
-                if self.rows is not None:
+                if self.share is not None:
+                    batch = self._deal(batch, ovf)
+                elif self.rows is not None:
                     batch = Batch(*(t[self.rows] for t in batch))
                 yield batch if self.device is None else upload(batch, self.device, self.feed_dtype)
         finally:
             stop.set()
+
+    def _fields(self, batch: Batch, ovf: torch.Tensor) -> list:
+        """What a deal carries: the batch (the mask as bytes) and its overflow."""
+        return [*batch[:3], batch.mask.view(torch.uint8), ovf]
+
+    def _deal(self, batch: Batch, ovf: int) -> Batch:
+        """Local rank 0: scatter each local rank its rows of the host's batch
+        and the batch's overflow; -> this rank's rows."""
+        import torch.distributed as dist
+
+        n = self.share.size
+        mine = []
+        for t in self._fields(batch, torch.full((n,), ovf, dtype=torch.int64)):
+            chunks = list(t.chunk(n))
+            out = torch.empty(chunks[0].shape, dtype=t.dtype, pin_memory=self.pin_memory)
+            dist.scatter(out, chunks, src=self.share.src, group=self.share.group)
+            mine.append(out)
+        return Batch(*mine[:3], mine[3].view(torch.bool))
+
+    def _receive(self) -> Tuple[Batch, int]:
+        """Another local rank: its rows of the host's batch from local rank 0,
+        and the batch's overflow."""
+        import torch.distributed as dist
+
+        b, (h, w), T = self.batch_size // self.share.size, self.share.image_shape, self.max_targets
+
+        def empty(shape, dtype):
+            return torch.empty(shape, dtype=dtype, pin_memory=self.pin_memory)
+
+        template = Batch(empty((b, h, w, 3), torch.uint8), empty((b, T, 4), torch.float32),
+                         empty((b, T), torch.int32), empty((b, T), torch.bool))
+        fields = self._fields(template, empty((1,), torch.int64))
+        for t in fields:
+            dist.scatter(t, None, src=self.share.src, group=self.share.group)
+        return template, int(fields[-1])

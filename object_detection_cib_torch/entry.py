@@ -1,17 +1,21 @@
 """Entry points for a compile check and a multi-card check: a forward on
-the card, and a dry run of one training step over several ranks.
+the card, and dry runs of training over several ranks.
 
 The port's counterpart of the repo's ``__graft_entry__.py`` (the JAX
 package's): ``entry()`` gives ``(fn, example_args)``, the yolov5s forward at
 640 px in bf16 with example inputs on the card, and ``dryrun_multichip(n)``
-runs one full train step (forward, assignment, loss, backward, SmartSGD,
-with the global BatchNorm statistics and the gradient all-reduce) over
-``n`` ranks spawned by ``parallel.distributed.launch``, one card each, and
-checks a finite loss and equal weights on every rank. Both run on the card
-unless the caller asks for the CPU (``device="cpu"``, ``device_type="cpu"``:
-gloo ranks). The JAX entry's DP x SP and fused-epoch dry runs are not here:
-the port has no spatial sharding (ROADMAP A), and its fused epoch over
-ranks is driven by ``chip_smoke.py`` phase 13.
+runs, over ``n`` ranks spawned by ``parallel.distributed.launch``, one card
+each, the JAX entry's dry runs 1, 3 and 4: (1) one full train step
+(forward, assignment, loss, backward, SmartSGD, with the global BatchNorm
+statistics and the gradient all-reduce); (3) one fused epoch of the
+production loop (gather, augment and train step a step, pipelined; a CUDA
+graph a step on the card) over the corpus on the card; (4) the same over a
+corpus sharded over the ranks, each rank holding ``8B / n`` of its rows.
+Each checks finite losses and equal weights on every rank, and on the card
+that each fused epoch launched K2, K4 and K5 once a step. Both entry
+points run on the card unless the caller asks for the CPU
+(``device="cpu"``, ``device_type="cpu"``: gloo ranks). The JAX entry's DP x
+SP dry run (2) is not here: the port has no spatial sharding (ROADMAP A.3).
 
   python -m object_detection_cib_torch.entry [n]   # the forward, then n ranks
 """
@@ -27,13 +31,20 @@ import numpy as np
 import torch
 
 from object_detection_cib_torch.core.types import FeatureShape, default_anchors
+from object_detection_cib_torch.data.device_pipeline import DeviceDataPipeline
+from object_detection_cib_torch.data.host_augment import AugParams
+from object_detection_cib_torch.data.synthetic import build_fake_manifest
 from object_detection_cib_torch.models.yolov5 import build_network
+from object_detection_cib_torch.ops.gather import gather_rows_planar
+from object_detection_cib_torch.ops.hsv import hsv_planar
+from object_detection_cib_torch.ops.warp import warp_quadrants
 from object_detection_cib_torch.parallel.distributed import all_reduce_sum_, launch
 from object_detection_cib_torch.parallel.mesh import shard_batch_pytree
 from object_detection_cib_torch.train.optim import OptimizerConfig, SmartSGD
 from object_detection_cib_torch.train.steps import Batch, make_train_step
 
 NUM_CLASSES = 10
+KERNELS = (gather_rows_planar, hsv_planar, warp_quadrants)  # a fused step's: K2, K4, K5
 
 
 def entry(device: Union[str, torch.device] = "cuda"):
@@ -60,10 +71,37 @@ def _dryrun_batch(B: int, img: int, T: int = 8) -> Batch:
     return Batch(*(torch.from_numpy(a) for a in (images, boxes, labels, mask)))
 
 
+def _digest(net: torch.nn.Module) -> str:
+    return hashlib.sha256(b"".join(v.detach().cpu().double().numpy().tobytes()
+                                   for v in net.state_dict().values())).hexdigest()
+
+
+def _fused_run(mesh, img: int, sharding: str) -> dict:
+    """Dry runs 3 and 4 on one rank: one pipelined fused epoch at a global
+    batch of two images a rank over ``8B`` fake images (``max_targets``
+    24), the corpus replicated or sharded: the losses summed over the
+    ranks, the weights' digest and the corpus rows this rank holds."""
+    B = 2 * mesh.size
+    pipe = DeviceDataPipeline(build_fake_manifest(num_images=8 * B, num_classes=NUM_CLASSES, seed=0), img, B,
+                              AugParams(), max_targets=24, seed=0, fake_mode=True, device=mesh.device,
+                              feed_dtype=torch.float32, mesh=mesh, corpus_sharding=sharding)
+    net = build_network(NUM_CLASSES, "s", device=mesh.device, seed=0)
+    opt = SmartSGD(net, OptimizerConfig(max_epochs=300), steps_per_epoch=len(pipe))
+    step = make_train_step(net, default_anchors(), FeatureShape(img, img), opt, mesh=mesh)
+    xs = pipe.epoch_host_arrays()
+    before = {k.__name__: k.launches for k in KERNELS}
+    flat = pipe.build_fused_epoch_fn(step, pipelined=True, stack_metrics=True)(xs, opt.hyper_table(0, len(xs[0])))
+    losses = flat[0].double()
+    all_reduce_sum_(losses, mesh.group)
+    return dict(losses=losses.cpu().tolist(), digest=_digest(net), held_rows=int(pipe.corpus.shape[0]),
+                launches={k.__name__: k.launches - before[k.__name__] for k in KERNELS})
+
+
 def _dryrun_rank(mesh, img: int) -> dict:
-    """One rank of the dry run: its rows of a global batch of two images a
-    rank, one step; the loss summed over the ranks and a digest of the
-    weights. On the CPU a rank takes its share of the host's cores."""
+    """One rank of the dry runs. (1) its rows of a global batch of two images
+    a rank, one step: the loss summed over the ranks and a digest of the
+    weights; then (3) and (4), ``_fused_run``. On the CPU a rank takes its
+    share of the host's cores."""
     if mesh.device.type == "cpu":
         torch.set_num_threads(max(min(torch.get_num_threads(), (os.cpu_count() or 1) // mesh.local_size), 1))
     net = build_network(NUM_CLASSES, "s", device=mesh.device, seed=0)
@@ -73,23 +111,44 @@ def _dryrun_rank(mesh, img: int) -> dict:
     m = step(Batch(*(t.to(mesh.device) for t in batch)))
     loss = m.total.detach().double().reshape(1)
     all_reduce_sum_(loss, mesh.group)
-    state = b"".join(v.detach().cpu().double().numpy().tobytes() for v in net.state_dict().values())
-    return dict(loss=float(loss), digest=hashlib.sha256(state).hexdigest())
+    return dict(loss=float(loss), digest=_digest(net), fused=_fused_run(mesh, img, "replicated"),
+                sharded=_fused_run(mesh, img, "sharded"))
 
 
 def dryrun_multichip(n_devices: int, device_type: str = "cuda", image_size: int = 64,
                      join_timeout_s: float = 600.0) -> dict:
-    """One full train step of yolov5s at ``image_size`` over ``n_devices``
-    ranks (NCCL on cards 0..n-1, or gloo on the CPU); raises unless the loss
-    is finite and every rank holds the same weights. Returns rank 0's
-    ``{"loss", "digest"}``."""
+    """The dry runs of yolov5s at ``image_size`` over ``n_devices`` ranks
+    (NCCL on cards 0..n-1, or gloo on the CPU): one train step, a fused
+    epoch, a fused epoch over a sharded corpus (module docstring). Raises
+    unless every loss is finite, every rank holds the same weights after
+    each, and each rank holds ``8B / n`` rows of the sharded corpus.
+    Returns rank 0's ``{"loss", "digest", "fused", "sharded"}``."""
     ranks = launch(_dryrun_rank, n_devices, (image_size,), device_type=device_type, join_timeout_s=join_timeout_s)
-    if not np.isfinite(ranks[0]["loss"]):
-        raise RuntimeError(f"dry run: loss {ranks[0]['loss']} is not finite")
+    r0 = ranks[0]
+    if not np.isfinite(r0["loss"]):
+        raise RuntimeError(f"dry run: loss {r0['loss']} is not finite")
     if len({r["digest"] for r in ranks}) != 1:
         raise RuntimeError("dry run: the ranks' weights differ after the step")
-    print(f"dryrun DP OK: {n_devices} ranks ({device_type}) loss={ranks[0]['loss']:.4f}", flush=True)
-    return ranks[0]
+    print(f"dryrun DP OK: {n_devices} ranks ({device_type}) loss={r0['loss']:.4f}", flush=True)
+    images = 8 * 2 * n_devices  # 8B
+    for part in ("fused", "sharded"):
+        if not np.isfinite(r0[part]["losses"]).all():
+            raise RuntimeError(f"dry run {part}: losses {r0[part]['losses']} are not all finite")
+        if len({r[part]["digest"] for r in ranks}) != 1:
+            raise RuntimeError(f"dry run {part}: the ranks' weights differ after the epoch")
+    held = [r["sharded"]["held_rows"] for r in ranks]
+    if held != [images // n_devices] * n_devices:
+        raise RuntimeError(f"dry run sharded: rows held {held}, want {images // n_devices} a rank")
+    steps = len(r0["fused"]["losses"])
+    for part in ("fused", "sharded") if device_type == "cuda" else ():  # the CPU runs the plain versions
+        if any(n != steps for r in ranks for n in r[part]["launches"].values()):
+            raise RuntimeError(f"dry run {part}: launches {[r[part]['launches'] for r in ranks]}, want {steps} "
+                               "of each kernel on each rank")
+    print(f"dryrun fused-epoch OK: {n_devices} ranks ({device_type}) {len(r0['fused']['losses'])} steps, "
+          f"last loss={r0['fused']['losses'][-1]:.4f}", flush=True)
+    print(f"dryrun sharded-corpus fused-epoch OK: {n_devices} ranks ({device_type}) corpus {images} rows at "
+          f"{images // n_devices} a rank, last loss={r0['sharded']['losses'][-1]:.4f}", flush=True)
+    return r0
 
 
 if __name__ == "__main__":

@@ -22,17 +22,34 @@ Not ported: ``SpaceToDepthStem``. It computes the same function as the 6x6/2
 pad-2 stem conv from the same (6, 6, 3, C) parameter; it existed only to map
 a 3-channel conv onto the TPU's 128-lane matrix unit. The port runs the stem
 as a plain 6x6/2 pad-2 conv, so a flax tree trained with the space-to-depth
-stem converts unchanged. ``TaggedBatchNorm``'s remat tags and the
-``BN_FORCE_F32_STATS`` measurement knob are TPU-only as well.
+stem converts unchanged. The ``BN_FORCE_F32_STATS`` measurement knob is
+TPU-only as well.
+
+Rematerialisation (``train/steps.py``, ``remat_policy``; ``Remat``,
+``set_remat``): the JAX package tags the conv outputs (``conv_out``) and
+``TaggedBatchNorm``'s batch statistics (``bn_stats``) by name and
+checkpoints the whole forward, which XLA recomputes piece by piece inside
+the backward. Here each ``ConvBnAct`` of a training forward is one
+non-reentrant ``torch.utils.checkpoint`` region under a selective policy
+that finds the conv output and the local statistics by their operators
+(``aten.convolution``, ``aten.var_mean``) and recomputes the rest when the
+backward reaches the layer. One region over the whole forward would
+recompute all of it at the backward's first step and hold it all at once,
+the peak memory of no remat (measured, PERF.md). The recompute moves no
+running statistic a second time and, where the policy saves the
+statistics, reuses the global ones of the forward rather than issuing
+their all-reduces again.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from object_detection_cib_torch.parallel.distributed import all_reduce_sum_
 
@@ -48,16 +65,22 @@ class _GlobalBatchNorm(torch.autograd.Function):
     is this rank's times the group's size. Backward: the per-channel sums of
     ``dy`` and ``dy * x_hat`` are summed over the ranks (one all-reduce) for
     ``dx``; the weight's and bias's gradients are this rank's sums, which
-    the train step's gradient all-reduce adds up.
+    the train step's gradient all-reduce adds up. ``stats``, the (mean, var)
+    this batch already gave, skips the two forward all-reduces: the
+    recompute of a remat policy that saves the statistics.
     """
 
     @staticmethod
-    def forward(ctx, x, weight, bias, group, ranks: int, eps: float):
+    def forward(ctx, x, weight, bias, group, ranks: int, eps: float, stats=None):
         C = x.shape[1]
         count = x.numel() // C * ranks
-        mean = all_reduce_sum_(x.sum((0, 2, 3)), group) / count
-        d = x - mean[:, None, None]
-        var = all_reduce_sum_((d * d).sum((0, 2, 3)), group) / count
+        if stats is None:
+            mean = all_reduce_sum_(x.sum((0, 2, 3)), group) / count
+            d = x - mean[:, None, None]
+            var = all_reduce_sum_((d * d).sum((0, 2, 3)), group) / count
+        else:  # the statistics this batch already gave (a recompute that saves them)
+            mean, var = (t.detach() for t in stats)
+            d = x - mean[:, None, None]
         invstd = torch.rsqrt(var + eps)
         x_hat = d * invstd[:, None, None]
         ctx.save_for_backward(x_hat, invstd, weight)
@@ -74,7 +97,43 @@ class _GlobalBatchNorm(torch.autograd.Function):
         both = all_reduce_sum_(torch.cat([sum_dy, sum_dy_xhat]), ctx.group)
         mean_dy, mean_dy_xhat = both[:C] / ctx.count, both[C:] / ctx.count
         dx = (dy - mean_dy[:, None, None] - x_hat * mean_dy_xhat[:, None, None]) * (invstd * weight)[:, None, None]
-        return dx, sum_dy_xhat, sum_dy, None, None, None
+        return dx, sum_dy_xhat, sum_dy, None, None, None, None
+
+
+class Remat:
+    """A remat policy shared by the layers of one network (``set_remat``):
+    the outputs of the operators ``saves`` are kept for the backward,
+    everything else of a ``ConvBnAct`` is recomputed there; ``save_stats``,
+    the batch statistics among them (``conv_out_bn_stats``). ``recomputing``
+    is true while the backward recomputes a layer."""
+
+    def __init__(self, saves: Sequence = ()):
+        self.saves = tuple(saves)
+        self.save_stats = torch.ops.aten.var_mean.correction in self.saves
+        self.recomputing = False
+
+    def _policy(self, ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in self.saves else CheckpointPolicy.PREFER_RECOMPUTE
+
+    @contextlib.contextmanager
+    def _recompute(self, ctx):
+        self.recomputing = True
+        try:
+            with ctx:
+                yield
+        finally:
+            self.recomputing = False
+
+    def contexts(self):
+        """The checkpoint's ``context_fn``: the selective policy's forward
+        and recompute contexts, the recompute marked on this state."""
+        forward_ctx, recompute_ctx = create_selective_checkpoint_contexts(self._policy)
+        return forward_ctx, self._recompute(recompute_ctx)
+
+    def run(self, fn, x: torch.Tensor) -> torch.Tensor:
+        """``fn(x)`` as one checkpoint region (no RNG state kept: the network
+        draws nothing, and a CUDA graph capture must not read the generator)."""
+        return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False, context_fn=self.contexts)
 
 
 class BatchNorm(nn.Module):
@@ -99,6 +158,8 @@ class BatchNorm(nn.Module):
         self.eps = eps
         self.momentum = momentum
         self.group = None  # a process group: statistics over the global batch
+        self.remat: Optional[Remat] = None  # set by the train step's rematerialisation
+        self._stats = None  # the global (mean, var) of the last forward, kept for its recompute
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -111,15 +172,23 @@ class BatchNorm(nn.Module):
                 training=False, eps=self.eps,
             )
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        remat = self.remat
+        recomputing = remat is not None and remat.recomputing
         if self.group is not None:
             import torch.distributed as dist
 
+            keep = remat is not None and remat.save_stats
             y, mean, var = _GlobalBatchNorm.apply(x32, self.weight.to(x32.dtype), self.bias.to(x32.dtype),
-                                                  self.group, dist.get_world_size(self.group), self.eps)
-            self._move_running(mean, var)
+                                                  self.group, dist.get_world_size(self.group), self.eps,
+                                                  self._stats if keep and recomputing else None)
+            if keep and not recomputing:
+                self._stats = (mean, var)
+            if not recomputing:
+                self._move_running(mean, var)
             return y.to(x.dtype)
         var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
-        self._move_running(mean, var)
+        if not recomputing:
+            self._move_running(mean, var)
         scale = torch.rsqrt(var + self.eps) * self.weight
         y = (x32 - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
@@ -137,6 +206,14 @@ def sync_batchnorm(net: nn.Module, group) -> None:
     for m in net.modules():
         if isinstance(m, BatchNorm):
             m.group = group
+
+
+def set_remat(net: nn.Module, remat: Optional[Remat]) -> None:
+    """Give every ``ConvBnAct`` and ``BatchNorm`` of ``net`` the train step's
+    ``Remat`` policy (None: no rematerialisation)."""
+    for m in net.modules():
+        if isinstance(m, (ConvBnAct, BatchNorm)):
+            m.remat = remat
 
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
@@ -165,8 +242,14 @@ class ConvBnAct(nn.Module):
         pad = (k - 1) // 2 if padding is None else padding
         self.conv = nn.Conv2d(in_channels, features, k, stride, pad, bias=False)
         self.bn = BatchNorm(features)
+        self.remat: Optional[Remat] = None  # set by the train step's rematerialisation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat is not None and self.training and torch.is_grad_enabled():
+            return self.remat.run(self._forward, x)
+        return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.silu(self.bn(conv2d(x, self.conv)))
 
 

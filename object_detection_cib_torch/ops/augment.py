@@ -7,9 +7,10 @@ arithmetic is per channel, so the layout changes no value):
   * ``mosaic_affine_batch``: the production path, a 4-image mosaic fused
     with an axis-aligned affine warp (degrees = shear = perspective = 0).
     ``precision="fast"`` is the sparse kernel of ``ops/warp.py`` (K5) over
-    tap scalars; ``precision="exact"`` is two f32 matrix products over dense
-    windowed tap matrices, as the JAX package computes it (no kernel there
-    either).
+    tap scalars; ``precision="fast_dense"`` (the JAX package's fast warp
+    under ``warp_pallas=False``) two matrix products over dense windowed tap
+    matrices in bf16; ``precision="exact"`` is the two products in f32, as
+    the JAX package computes it (no kernel there either).
   * the composed path for every other recipe: ``mosaic4_batch`` (the 2S x 2S
     canvas, by index arithmetic instead of the TPU's pad + roll + select),
     ``affine_batch`` (the dense separable warp when axis-aligned, else the
@@ -407,6 +408,10 @@ def _tap_matrix_windowed(s: torch.Tensor, n: int, lo: torch.Tensor, hi: torch.Te
     return _dense_taps(*_tap_scalars_windowed(s, lo, hi), n)
 
 
+# the fused mosaic warp's precisions: K5, the dense bf16 products, the dense f32 products
+WARP_PRECISIONS = ("fast", "fast_dense", "exact")
+
+
 def mosaic_affine_batch(
     sample: DeviceSample,
     centers: torch.Tensor,
@@ -426,15 +431,22 @@ def mosaic_affine_batch(
     caller (``flip_boxes``).
 
     ``precision="fast"`` is one launch of K5 (``ops/warp.py``), bf16
-    operands with f32 accumulation. ``precision="exact"`` is
+    operands with f32 accumulation. ``precision="fast_dense"`` is the
+    JAX package's dense bf16 branch (its ``warp_pallas=False``):
+    ``img - FILL``, ``Ax`` and ``Ay`` stored in bf16, the x pass a bf16
+    product (accumulated in f32, stored in bf16), the y pass accumulated in
+    f32 over the bf16 values (a product of two bf16 values is exact in f32,
+    and bf16 values are exact in TF32, so the card's TF32 switch changes
+    nothing), then ``round(out + FILL)``; it launches no kernel.
+    ``precision="exact"`` is
     ``FILL + sum_q Ay_q @ (img_q - FILL) @ Ax_q^T`` in f32 over dense
     windowed tap matrices, which reproduces the composed path
     (``affine_batch(mosaic4_batch(...), axis_aligned=True)``) up to the
     summation order ahead of the rounding; as in the JAX package it is two
     plain matrix products and launches no kernel.
     """
-    if precision not in ("fast", "exact"):
-        raise ValueError(f"precision must be 'fast' or 'exact', got {precision!r}")
+    if precision not in WARP_PRECISIONS:
+        raise ValueError(f"precision must be one of {WARP_PRECISIONS}, got {precision!r}")
     B, _, S, _ = sample.images.shape
     if B % 4:
         raise ValueError(f"batch {B} is not divisible by 4")
@@ -456,12 +468,18 @@ def mosaic_affine_batch(
     if precision == "fast":
         out_imgs = warp_quadrants(imgs.contiguous(), *taps, out_dtype=out_dtype)
     else:
-        _require_f32_matmul(imgs)
         jx0, wx0, wx1, jy0, wy0, wy1 = taps
         Ax = _dense_taps(jx0, wx0, wx1, S)  # (G, 4, out, S)
         Ay = _dense_taps(jy0, wy0, wy1, S)
-        t = torch.einsum("gqchw,gqxw->gqchx", imgs.float() - FILL, Ax)
-        out = torch.einsum("gqyh,gqchx->gcyx", Ay, t)
+        img = imgs.float() - FILL
+        if precision == "fast_dense":
+            bf16 = torch.bfloat16
+            t = torch.einsum("gqchw,gqxw->gqchx", img.to(bf16), Ax.to(bf16))
+            out = torch.einsum("gqyh,gqchx->gcyx", Ay.to(bf16).float(), t.float())
+        else:
+            _require_f32_matmul(imgs)
+            t = torch.einsum("gqchw,gqxw->gqchx", img, Ax)
+            out = torch.einsum("gqyh,gqchx->gcyx", Ay, t)
         out_imgs = torch.round(out + FILL).to(out_dtype).contiguous()
     proc, new_mask = _affine_boxes(mb, mm, values, M, target_size)
     out_sizes = torch.full((G, 2), target_size, dtype=torch.int32, device=dev)

@@ -297,6 +297,18 @@ def allgather_bytes(data: bytes, mesh: Optional[DataMesh] = None) -> List[bytes]
     return [bytes(b[:k].cpu().numpy().tobytes()) for b, k in zip(bufs, lens)]
 
 
+def host_group(mesh: DataMesh):
+    """A gloo group of the ranks on this rank's host. ``dist.new_group`` is
+    collective: every rank of the mesh calls this, and each makes every
+    host's group in host order, keeping its own."""
+    mine = None
+    for h in range(mesh.hosts):
+        group = dist.new_group(list(range(h * mesh.local_size, (h + 1) * mesh.local_size)), backend="gloo")
+        if h == mesh.host:
+            mine = group
+    return mine
+
+
 def barrier(mesh: Optional[DataMesh]) -> None:
     """Wait for every rank of the mesh's group (no-op without one)."""
     if mesh is not None and mesh.group is not None:

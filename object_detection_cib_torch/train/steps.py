@@ -13,8 +13,21 @@ kod/lightning/experiments/yv5_baseline/exp.py):
     (conf 0.001 / iou 0.6, exp.py:45-46).
 The JAX steps take ``(params, batch_stats, ...)``; here the network module
 holds its weights, so the train step takes a batch and the eval step the
-images. Not carried: ``remat_policy`` (XLA rematerialisation) and
-``head_sharding`` (GSPMD), which have no counterpart in an eager step.
+images. Not carried: ``head_sharding`` (GSPMD), which has no counterpart
+in an eager step.
+
+``remat_policy`` (the JAX ``jax.checkpoint`` policies over the forward):
+each conv + BatchNorm + SiLU layer of the training forward runs as a
+``torch.utils.checkpoint`` region (``models/layers.py:Remat``) with a
+selective policy that saves what the JAX policy names and recomputes the
+rest when the backward reaches the layer: ``conv_out`` the conv outputs
+(``aten.convolution``), ``conv_out_bn_stats`` those and the BatchNorm
+batch statistics (``aten.var_mean``; under a process group the global
+statistics, kept by each ``BatchNorm``, so their all-reduces are not
+issued again), ``nothing`` nothing. The recompute moves no running
+statistic. Each policy computes the same function as no remat: the
+recompute repeats the forward's operators on the same inputs, so the
+gradients are those of the step without it.
 
 Data parallelism (``mesh``, a ``parallel.mesh.DataMesh`` with a process
 group; JAX ``jit_train_step`` over a ``data`` mesh): each rank steps on its
@@ -29,14 +42,15 @@ graph. The step's metrics are this rank's share (their sum over the ranks
 is the global step's; the trainer sums them once an epoch); ``lr`` is every
 rank's.
 
-The compaction cap is ``assign_compact_slots * B_local`` on each rank's own
-table, where the JAX package compacts the global table at
-``assign_compact_slots * B_global``. Where no level overflows (the default
-128 slots an image holds every valid slot of a real batch) both keep every
-valid slot and compute the same loss. Under overflow they keep different
-slots: the JAX package drops the global table's last valid slots, a rank
-here its own, so the loss differs by the slots each drops, and
-``assign_drop`` (counted on each rank and summed) counts the port's drops.
+The compaction keeps the JAX package's slots: the first ``cap =
+assign_compact_slots * B_global`` valid slots of each level of the global
+table, which is image-major with the ranks' rows in rank order. One
+all-reduce of a (ranks, 3) matrix holding each rank's valid counts in its
+row (an all-gather) gives every rank the exclusive prefix ``p_r`` of the
+counts before it, so rank r keeps its first ``clamp(cap - p_r, 0, n_r)``
+valid slots in a table of ``min(cap, K_local)`` slots (one rank may hold
+every kept slot) and marks the rest invalid. ``assign_drop``, each rank's
+``n_r - keep_r``, sums over the ranks to the JAX package's global drop.
 """
 
 from __future__ import annotations
@@ -54,7 +68,7 @@ from object_detection_cib_torch.core.assigner import (
 from object_detection_cib_torch.core.nms import NMSResult, non_max_suppression
 from object_detection_cib_torch.core.types import FeatureShape, LevelAnchors
 from object_detection_cib_torch.eval.decode import decode_predictions
-from object_detection_cib_torch.models.layers import sync_batchnorm
+from object_detection_cib_torch.models.layers import Remat, set_remat, sync_batchnorm
 from object_detection_cib_torch.parallel.distributed import all_reduce_sum_
 from object_detection_cib_torch.train.loss import LossParams, yolov5_loss
 from object_detection_cib_torch.train.optim import SmartSGD
@@ -97,12 +111,15 @@ def make_train_step(
     assign_offset_capacity: int = 3,
     assign_compact_slots: Optional[int] = 128,
     mesh=None,
+    remat_policy: Optional[str] = None,
 ):
     """Build ``train_step(batch, hp=None) -> StepMetrics``, which updates
     ``net`` in place with the hyperparameter row ``hp`` (``SmartSGD.step``).
     With a ``mesh`` that has a process group, ``batch`` is this rank's rows
     of the global batch and the step is the global one (module docstring);
-    the net's BatchNorms are set to the group here.
+    the net's BatchNorms are set to the group here. ``remat_policy``: None
+    (save everything), ``"conv_out"``, ``"conv_out_bn_stats"`` or
+    ``"nothing"`` (module docstring); the net's BatchNorms are set to it.
 
     The assigner knobs and their defaults are the JAX ``make_train_step``'s
     (``model.assign_compact_slots`` and ``configs/assigners/yv5.yaml``).
@@ -111,12 +128,15 @@ def make_train_step(
     device, and the anchors are copied to the device once. So it can be
     captured in a CUDA graph (the fused epoch).
     """
+    if remat_policy is not None and remat_policy not in REMAT_SAVES:
+        raise ValueError(f"unknown remat_policy {remat_policy!r}: expected one of {sorted(REMAT_SAVES)} or None")
     dev = next(net.parameters()).device
     anchor_tensors = [torch.as_tensor(info.as_array()).to(dev) for info in anchors.levels()]
     group = None if mesh is None else mesh.group
     ranks = 1 if group is None else mesh.size
     if group is not None:
         sync_batchnorm(net, group)
+    set_remat(net, None if remat_policy is None else Remat(REMAT_SAVES[remat_policy]))
     params = list(net.parameters())
 
     def train_step(batch: Batch, hp: Optional[torch.Tensor] = None) -> StepMetrics:
@@ -126,11 +146,14 @@ def make_train_step(
                                     anchors, anchor_tensors, assign_threshold, assign_offset_capacity)
         assign_drop = torch.zeros((), dtype=torch.int64, device=batch.boxes.device)
         if assign_compact_slots:
-            cap = assign_compact_slots * batch.images.shape[0]
-            for lv in assignment.levels():
-                n_valid = lv.valid.sum()
-                assign_drop = assign_drop + (n_valid - min(cap, int(lv.valid.shape[0]))).clamp(min=0)
-            assignment = Assignment(*(compact_level_assignment(lv, cap) for lv in assignment.levels()))
+            cap = assign_compact_slots * batch.images.shape[0] * ranks  # the global batch's
+            if group is None:
+                for lv in assignment.levels():
+                    n_valid = lv.valid.sum()
+                    assign_drop = assign_drop + (n_valid - min(cap, int(lv.valid.shape[0]))).clamp(min=0)
+                assignment = Assignment(*(compact_level_assignment(lv, cap) for lv in assignment.levels()))
+            else:
+                assignment, assign_drop = _compact_over_ranks(assignment, cap, mesh)
         lres = yolov5_loss(out, assignment, image_shape, loss_params, class_weights, group)
         total = batch.images.shape[0] * ranks * lres.total  # ref exp.py:126-130, the global batch
         optimizer.zero_grad()
@@ -148,6 +171,29 @@ def make_train_step(
         )
 
     return train_step
+
+
+REMAT_SAVES = {  # the operators whose outputs each policy saves (JAX steps.py:116-125)
+    "conv_out": (torch.ops.aten.convolution.default,),
+    "conv_out_bn_stats": (torch.ops.aten.convolution.default, torch.ops.aten.var_mean.correction),
+    "nothing": (),
+}
+
+
+def _compact_over_ranks(assignment: Assignment, cap: int, mesh):
+    """Each level compacted to this rank's share of the global table's first
+    ``cap`` valid slots (module docstring): ``(assignment, assign_drop)``."""
+    levels = assignment.levels()
+    n = torch.stack([lv.valid.sum() for lv in levels])  # (3,) int64
+    counts = torch.zeros((mesh.size, len(levels)), dtype=n.dtype, device=n.device)
+    counts[mesh.rank] = n
+    all_reduce_sum_(counts, mesh.group)
+    keep = torch.minimum((cap - counts[:mesh.rank].sum(0)).clamp(min=0), n)
+    out = []
+    for lv, k in zip(levels, keep):
+        c = compact_level_assignment(lv, min(cap, int(lv.valid.shape[0])))
+        out.append(c._replace(valid=c.valid & (torch.arange(c.valid.shape[0], device=k.device) < k)))
+    return Assignment(*out), (n - keep).sum()
 
 
 def _all_reduce_gradients(params, group) -> None:

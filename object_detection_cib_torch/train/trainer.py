@@ -40,11 +40,11 @@ silently (``_KEYS_READ_NOT_ACTED_ON``): ``model.net.stem_space_to_depth``
 (the same function as the plain 6x6/2 stem), ``trainer.compile_cache``
 (XLA's), ``trainer.deterministic`` (the JAX trainer ignores it too).
 Keys it refuses raise, naming the key
-(``_refuse_unported``): ``model.remat_policy`` other than null,
-``data.warp_pallas=False`` (it pins the JAX package's dense
-bf16 einsum warp, which the port does not have; ``data.warp_precision=
-exact`` is the port's kernel-free warp), ``data.corpus_layout=flat`` (a TPU
-workaround). ``trainer.platform`` null means
+(``_refuse_unported``): ``data.corpus_layout=flat`` (a TPU workaround),
+and an unknown ``model.remat_policy``. ``model.remat_policy`` (the train
+step's rematerialisation, ``train/steps.py``) and ``data.warp_pallas``
+(False pins the dense bf16 warp in place of K5, ``ops/augment.py``) act
+on both loops. ``trainer.platform`` null means
 the card: there is no fallback to the CPU, which ``trainer=cpu`` selects.
 
 Data parallelism (``mesh``, a ``parallel.mesh.DataMesh`` with a process
@@ -59,7 +59,8 @@ host ``batch_size`` is the global batch, as on one card. Each rank makes
 its rows (``data/device_pipeline.py``: the step loop from its host's plan,
 the fused epoch from one global plan; the host pipeline's batch of its
 host, seeded ``seed + host * 1000003`` and fed from its host's shard of the
-stream, cut to its rows), the step is the global one (``train/steps.py``).
+stream, made once by the host's local rank 0 and dealt over its ranks by
+rows, ``data/pipeline.py``), the step is the global one (``train/steps.py``).
 The per-epoch metric matrix is summed over the ranks (``lr`` excepted)
 before its one copy to the host, so the losses, ``assign_drop`` and
 ``targets_dropped`` count every rank. The images an epoch records follow
@@ -130,12 +131,13 @@ from object_detection_cib_torch.parallel.distributed import (
     allgather_bytes,
     barrier,
     broadcast_module_,
+    host_group,
 )
 from object_detection_cib_torch.parallel.mesh import DataMesh, host_batch_sharding
 from object_detection_cib_torch.train.checkpoint import CheckpointManager, Snapshot, restore_checkpoint
 from object_detection_cib_torch.train.loss import LossParams
 from object_detection_cib_torch.train.optim import OptimizerConfig, SmartSGD, WarmupParams
-from object_detection_cib_torch.train.steps import Batch, StepMetrics, make_eval_step, make_train_step
+from object_detection_cib_torch.train.steps import REMAT_SAVES, Batch, StepMetrics, make_eval_step, make_train_step
 from object_detection_cib_torch.utils.device import resolve_device, to_unit
 from object_detection_cib_torch.utils.fs import get_default_dataset_cache_dir, get_default_datasets_dir
 from object_detection_cib_torch.utils.loggers import ProgressTable, build_loggers
@@ -368,7 +370,9 @@ class Trainer:
     otherwise. ``train_info=None`` builds no training feed (evaluation from
     a checkpoint). ``sampler`` is any object with ``epoch_indices()``
     (``data/samplers.py``); ``corpus`` shares one ``DeviceCorpus`` between
-    trainers over the same dataset.
+    trainers over the same dataset. ``remat_policy`` is the train step's
+    (``train/steps.py``) and ``warp_pallas`` the device pipeline's (False:
+    the dense bf16 warp in place of K5), both the config's keys.
 
     The runtime's knobs, with a plain run's defaults, are attributes:
     ``loop`` (a ``FitConfig``), ``early_stopping``, ``ckpt`` (a
@@ -432,6 +436,8 @@ class Trainer:
         fused_dispatch_ahead: bool = True,
         mesh: Optional[DataMesh] = None,
         corpus_sharding: str = "replicated",
+        remat_policy: Optional[str] = None,
+        warp_pallas: Union[bool, str] = "auto",
     ):
         if pipeline not in ("device", "host"):
             raise ValueError(f"pipeline must be 'device' or 'host', got {pipeline!r}")
@@ -482,10 +488,11 @@ class Trainer:
                 sampler=sampler, seed=seed, fake_mode=self.fake_mode, device_cache=device_cache,
                 feed_dtype=feed_dtype, device=self.device, corpus=corpus, root_dir=root_dir,
                 enable_ram_cache=enable_ram_cache, mesh=self.mesh, corpus_sharding=corpus_sharding,
+                warp_pallas=warp_pallas,
             )
         elif train_info is not None:
             # cv2 and Pillow are needed only here: the host pipeline is imported when asked for
-            from object_detection_cib_torch.data.pipeline import DetectionDataset, Prefetcher
+            from object_detection_cib_torch.data.pipeline import DetectionDataset, Prefetcher, RowShare
             from object_detection_cib_torch.data.samplers import ShuffleSampler
 
             # per-host augment streams (JAX :262-268); the sampler's stream
@@ -495,11 +502,16 @@ class Trainer:
                 train_augmentor or TrainSampleAugmentor(aug_params), enable_ram_cache=enable_ram_cache,
                 use_mosaic=use_mosaic, mosaic_target_size=image_size, mixup_prob=mixup_prob,
                 sampler=sampler, seed=seed + self.host * 1000003)
+            # a host's ranks share one maker of its batches (its local rank 0)
+            share = None
+            if self.mesh is not None and self.mesh.local_size > 1:
+                share = RowShare(host_group(self.mesh), self.host * self.mesh.local_size, self.mesh.local_size,
+                                 self.mesh.local_rank, (image_size, image_size))
             self.prefetcher = Prefetcher(
                 train_ds, batch_size, max_targets, sampler=sampler or ShuffleSampler(train_info, seed=seed),
                 num_threads=self.num_workers, device=self.device, feed_dtype=feed_dtype,
                 rows=host_batch_sharding(self.mesh, batch_size) if self.mesh is not None else None,
-                host=self.host, hosts=self.hosts)
+                host=self.host, hosts=self.hosts, share=share)
         if corpus_sharding != "replicated" and self.pipeline is None:
             raise ValueError("corpus_sharding='sharded' is the device pipeline's corpus on the card")
         # each of the hosts feeds its batch of a global one a step (JAX :339-350)
@@ -517,7 +529,7 @@ class Trainer:
         self.train_step = make_train_step(
             self.net, self.anchors, self.image_shape, self.optimizer, loss_params, class_weights,
             assign_threshold=assign_threshold, assign_offset_capacity=assign_offset_capacity,
-            assign_compact_slots=assign_compact_slots, mesh=self.mesh)
+            assign_compact_slots=assign_compact_slots, mesh=self.mesh, remat_policy=remat_policy)
         # validation feed (JAX :781-786): the val set on the card beside the
         # corpus on the card, else the host feed, built at its first use;
         # under a mesh this rank's shard of it (JAX :705-720, :846-870)
@@ -657,6 +669,8 @@ class Trainer:
             fused_dispatch_ahead=bool(dcfg.get("fused_dispatch_ahead", True)),
             mesh=mesh,
             corpus_sharding=dcfg.get("corpus_sharding") or "replicated",
+            remat_policy=mcfg.get("remat_policy") or None,
+            warp_pallas=dcfg.get("warp_pallas", "auto"),
         )
         t.loop = FitConfig(
             check_val_every_n_epoch=int(tcfg.get("check_val_every_n_epoch") or 1),
@@ -1223,9 +1237,8 @@ def device_from_cfg(tcfg: dict) -> torch.device:
 def _refuse_unported(cfg: dict) -> None:
     """Raise, naming the key, for what the port does not run."""
     tcfg, dcfg, mcfg = cfg["trainer"], cfg["data"], cfg["model"]
-    if mcfg.get("remat_policy"):
-        raise NotImplementedError(f"model.remat_policy={mcfg['remat_policy']!r}: XLA rematerialisation "
-                                  "is not ported (null is the only value)")
+    if mcfg.get("remat_policy") and mcfg["remat_policy"] not in REMAT_SAVES:
+        raise ValueError(f"model.remat_policy={mcfg['remat_policy']!r}: one of {sorted(REMAT_SAVES)} or null")
     sharding = dcfg.get("corpus_sharding") or "replicated"
     if sharding not in ("replicated", "sharded"):
         raise ValueError(f"data.corpus_sharding={sharding!r}: 'replicated' or 'sharded'")
@@ -1235,11 +1248,6 @@ def _refuse_unported(cfg: dict) -> None:
     if dcfg.get("pipeline") == "device" and dcfg.get("corpus_layout", "planar") != "planar":
         raise NotImplementedError(f"data.corpus_layout={dcfg['corpus_layout']!r}: the flat layout is a TPU "
                                   "tiling workaround and is not ported")
-    if str(dcfg.get("warp_pallas", "auto")).lower() == "false":
-        raise NotImplementedError(
-            "data.warp_pallas=False pins the JAX package's dense bf16 einsum warp, which the port does "
-            "not have: its fast warp is the K5 kernel (auto/True); data.warp_precision=exact is the "
-            "kernel-free warp")
 
 
 def num_devices_from_cfg(tcfg: dict) -> int:

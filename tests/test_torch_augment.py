@@ -12,7 +12,10 @@ Tolerances:
     dense ``Ax`` built from the same taps.
   * ``mosaic_affine_batch``: pixels <= 2 units and > 85% equal (the class
     of tests/test_pallas_warp.py:92-93: M is inverted by two libraries and
-    a tap can move by an ulp), boxes 1e-4, masks and labels exact.
+    a tap can move by an ulp), boxes 1e-4, masks and labels exact; its
+    dense bf16 branch (``precision="fast_dense"``) against the JAX
+    ``warp_pallas=False`` einsums in the same pixel class, boxes, masks and
+    labels exact.
   * the composed path (the JAX functions are NHWC, the port's planar; the
     tests transpose): ``mosaic4_batch``, ``flip_batch`` and ``_tap_matrix``
     exact; ``_bilinear_sample``, ``_axis_aligned_warp``, ``affine_batch``
@@ -322,6 +325,37 @@ def test_mosaic_affine_matches_jax_pallas_path(seed, flip):
     np.testing.assert_array_equal(ts.mask.numpy(), np.asarray(js.mask))
     np.testing.assert_array_equal(ts.labels.numpy(), np.asarray(js.labels))
     np.testing.assert_array_equal(ts.sizes.numpy(), np.asarray(js.sizes))
+
+
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_dense_bf16_warp_matches_jax_einsum_path(seed, flip):
+    """``precision="fast_dense"`` against the JAX package's ``warp_pallas=False``
+    branch, the dense bf16 einsums, on the same draws."""
+    S = 64
+    arrs = _content_sample(seed=seed)
+    km, values, do, centers = _jax_draws(seed, 2, S, flip)
+    js = ja.mosaic_affine_batch(ja.DeviceSample(*map(jnp.asarray, arrs)), km, values, S,
+                                flip_do=do, precision="fast", planar=True, warp_pallas=False)
+    ts = ta.mosaic_affine_batch(ta.DeviceSample(*map(T, arrs)), T(centers).int(),
+                                ta.AffineBatchValues(*(T(v) for v in values)), S,
+                                flip_do=None if do is None else T(do), precision="fast_dense")
+    assert ts.images.is_contiguous()
+    a, b = ts.images.numpy(), np.asarray(js.images)
+    assert a.shape == b.shape == (2, 3, S, S)
+    diff = np.abs(a - b)
+    assert diff.max() <= 2.0, diff.max()
+    assert (diff == 0).mean() > 0.85, (diff == 0).mean()
+    np.testing.assert_array_equal(ts.boxes.numpy(), np.asarray(js.boxes))
+    np.testing.assert_array_equal(ts.mask.numpy(), np.asarray(js.mask))
+    np.testing.assert_array_equal(ts.labels.numpy(), np.asarray(js.labels))
+    # beside the kernel's path on the same draws: the same fast class
+    k5 = ta.mosaic_affine_batch(ta.DeviceSample(*map(T, arrs)), T(centers).int(),
+                                ta.AffineBatchValues(*(T(v) for v in values)), S,
+                                flip_do=None if do is None else T(do))
+    d = (k5.images - ts.images).abs()
+    assert float(d.max()) <= 2.0 and float((d == 0).float().mean()) > 0.85
+    assert torch.equal(k5.boxes, ts.boxes) and torch.equal(k5.mask, ts.mask)
 
 
 def test_flip_boxes_matches_jax():

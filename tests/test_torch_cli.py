@@ -118,6 +118,16 @@ def test_failures_write_error_log_and_tags_are_enforced(tmp_path):
         cli.main(SMALL + ["experiment=nope"])
 
 
+def test_remat_and_dense_warp_train_through_the_cli(tmp_path):
+    """``model.remat_policy`` and ``data.warp_pallas=False`` on the device
+    pipeline's fused epoch, through ``cli.train.main``."""
+    metrics = cli.main(SMALL + ["data.pipeline=device", "data.device_cache=True", "trainer.max_epochs=1",
+                                "model.remat_policy=conv_out_bn_stats", "data.warp_pallas=False", "logger=csv",
+                                "print_config=False", f"paths.output_dir={tmp_path}"])
+    assert 0.0 <= metrics["map"] <= 1.0
+    assert json.loads((tmp_path / "hparams.json").read_text())["steps_per_epoch"] == 2
+
+
 def test_predict_writes_predictions(tmp_path):
     cli.main(SMALL + ["debug=fdr", "logger=csv", "train=False", "+predict=True", f"paths.output_dir={tmp_path}"])
     preds = json.loads((tmp_path / "predictions.json").read_text())

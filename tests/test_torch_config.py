@@ -149,13 +149,16 @@ def test_every_config_target_is_covered():
 
 
 def test_target_without_a_counterpart_raises_and_others_import_as_written():
-    missing = t_engine.REFERENCE_PACKAGE + ".test_utils.anchor_boxes.voc_anchors"
-    with pytest.raises(ImportError, match="object_detection_cib_torch.test_utils.anchor_boxes.voc_anchors"):
+    missing = t_engine.REFERENCE_PACKAGE + ".ops.pallas_nms.pallas_greedy_nms_mask"
+    with pytest.raises(ImportError, match="object_detection_cib_torch.ops.pallas_nms.pallas_greedy_nms_mask"):
         t_engine.instantiate({"_target_": missing})
     from object_detection_cib_torch.parallel.mesh import make_mesh
+    from object_detection_cib_torch.test_utils.anchor_boxes import voc_anchors
 
     assert t_engine.instantiate({"_target_": t_engine.REFERENCE_PACKAGE + ".parallel.mesh.make_mesh",
                                  "_partial_": True}).func is make_mesh
+    assert t_engine.instantiate({"_target_": t_engine.REFERENCE_PACKAGE + ".test_utils.anchor_boxes.voc_anchors",
+                                 "_partial_": True}).func is voc_anchors
     with pytest.raises(ImportError, match="has no counterpart"):
         t_engine.instantiate({"_target_": t_engine.REFERENCE_PACKAGE + ".data.samplers.NoSuchSampler"})
     od = t_engine.instantiate({"_target_": "collections.OrderedDict", "a": 1})

@@ -668,6 +668,10 @@ def test_dryrun_multichip_on_two_gloo_ranks():
 
     got = dryrun_multichip(2, device_type="cpu", join_timeout_s=JOIN)
     assert np.isfinite(got["loss"])
+    for part in ("fused", "sharded"):  # parts 3 and 4: a fused epoch of 8 steps at B=4, 32 images
+        assert len(got[part]["losses"]) == 8 and np.isfinite(got[part]["losses"]).all()
+    assert got["sharded"]["held_rows"] == 16 and got["fused"]["held_rows"] == 32
+    np.testing.assert_allclose(got["sharded"]["losses"], got["fused"]["losses"], rtol=1e-6)
 
 
 def test_entry_forward_matches_jax_entry_on_converted_weights():

@@ -24,7 +24,12 @@ check (``_rank_checks``); the tests read its results. Tolerances:
     (``tests/test_torch_train.py``'s);
   * one 2-rank step against JAX's step on a 2-device mesh
     (``jit_train_step(..., make_mesh(2))``) from converted weights on the
-    same batch, JAX with flax's two-pass variance: the f32 tolerances;
+    same batch, JAX with flax's two-pass variance: the f32 tolerances; so
+    too under a planted overflow (``assign_compact_slots=2``), with
+    ``assign_drop`` exact, and in f64 against one rank at 1 and 2 slots;
+  * each remat policy's 2-rank f64 step bitwise the 2-rank step without
+    remat, within the f64 tolerances of one rank, and the all-reduces it
+    issues counted;
   * the BatchNorm autograd function against autograd of the 1-rank module
     on the concatenated batch, f64: rtol 1e-10, atol 1e-12;
   * the merged 2-rank ``results_dict`` and predictions against 1 rank's:
@@ -138,19 +143,37 @@ def _fused_steps(mesh, dtype=torch.float32, seed=3, n=STEPS):
     return {k: v.detach().double().numpy().copy() for k, v in net.state_dict().items()}
 
 
-def _one_step(mesh, state, batch):
-    """One f32 step from ``state`` on this rank's rows of the global ``batch``."""
+def _one_step(mesh, state, batch, dtype=torch.float32, **step_kw):
+    """One step from ``state`` on this rank's rows of the global ``batch``
+    (``step_kw`` to ``make_train_step``): the metrics and ``assign_drop``
+    summed over the ranks, the all-reduces the step issued, the state."""
     net = build_network(NC, "n", device="cpu", seed=0)
     net.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    net = net.to(dtype)
     step = make_train_step(net, default_anchors(), FeatureShape(S, S),
-                           SmartSGD(net, OptimizerConfig(max_epochs=10), 10), mesh=mesh)
+                           SmartSGD(net, OptimizerConfig(max_epochs=10), 10), mesh=mesh, **step_kw)
     rows = tmesh.batch_sharding(mesh, batch["images"].shape[0])
-    m = step(Batch(*(torch.from_numpy(batch[k][rows]) for k in ("images", "boxes", "labels", "mask"))))
-    v = torch.stack([m.total, m.box, m.obj, m.cls]).double()
+    calls = tdist.all_reduce_sum_.calls
+    images, *targets = (torch.from_numpy(batch[k][rows]) for k in ("images", "boxes", "labels", "mask"))
+    m = step(Batch(images.to(dtype), *targets))
+    calls = tdist.all_reduce_sum_.calls - calls
+    v = torch.stack([m.total, m.box, m.obj, m.cls, m.assign_drop.to(m.total.dtype)]).double()
     if mesh is not None:
         tdist.all_reduce_sum_(v, mesh.group)
-    return dict(metrics=v.numpy(), lr=float(m.lr),
-                state={k: v.detach().numpy().copy() for k, v in net.state_dict().items()})
+    return dict(metrics=v.numpy()[:4], assign_drop=int(v[4]), lr=float(m.lr), calls=calls,
+                state={k: v.detach().double().numpy().copy() for k, v in net.state_dict().items()})
+
+
+REMAT = (None, "conv_out", "conv_out_bn_stats", "nothing")
+OVERFLOW_SLOTS = (1, 2)  # assign_compact_slots a image: every level overflows its cap
+
+
+def _overflow_steps(mesh, state, batch) -> dict:
+    """One step under a planted overflow: f32 at each cap, and f64."""
+    out = {slots: _one_step(mesh, state, batch, assign_compact_slots=slots) for slots in OVERFLOW_SLOTS}
+    out["f64"] = {slots: _one_step(mesh, state, batch, torch.float64, assign_compact_slots=slots)
+                  for slots in OVERFLOW_SLOTS}
+    return out
 
 
 def _bn(mesh, x, dy):
@@ -186,9 +209,9 @@ FEEDS = {  # name: Trainer keywords
 }
 
 
-def _trainer(mesh, n_train=N_TRAIN, batch_size=B, **kw):
+def _trainer(mesh, n_train=N_TRAIN, batch_size=B, max_targets=40, **kw):
     info, val = _infos(n_train)
-    return Trainer(info, val, size="n", image_size=S, batch_size=batch_size, max_targets=40, seed=7,
+    return Trainer(info, val, size="n", image_size=S, batch_size=batch_size, max_targets=max_targets, seed=7,
                    dtype=None, device="cpu", fake_mode=True, num_workers=1, max_epochs=4, mesh=mesh, **kw)
 
 
@@ -198,6 +221,15 @@ def _feed_batches(mesh, n=2) -> dict:
         t = _trainer(mesh, **kw)
         out[name] = [_np(b) for b, _ in t._train_batches(n)]
     return out
+
+
+def _host_batches_made(mesh) -> dict:
+    """One whole epoch of the host pipeline: the batches this process made
+    and the rows it trained on."""
+    t = _trainer(mesh, pipeline="host", use_mosaic=True, max_targets=4)  # some targets dropped
+    rows = [_np(b) for b, _ in t._train_batches(t.steps_per_epoch)]
+    return dict(made=t.prefetcher.batches_made, steps=t.steps_per_epoch, rows=rows,
+                dropped=t.prefetcher.overflow_total)
 
 
 def _sharded_batches(mesh, n_train, batch_size, n=2) -> dict:
@@ -251,10 +283,15 @@ def _rank_checks(mesh, jobs: dict) -> dict:
         out["fused_f32"] = _fused_steps(mesh)
     if "one_step" in jobs:
         out["one_step"] = _one_step(mesh, *jobs["one_step"])
+    if "overflow" in jobs:
+        out["overflow"] = _overflow_steps(mesh, *jobs["overflow"])
+    if "remat" in jobs:
+        out["remat"] = {p: _one_step(mesh, *jobs["remat"], torch.float64, remat_policy=p) for p in REMAT}
     if "bn" in jobs:
         out["bn"] = _bn(mesh, *jobs["bn"])
     if "feeds" in jobs:
         out["feeds"] = _feed_batches(mesh)
+        out["host_made"] = _host_batches_made(mesh)
     if "sharded" in jobs:
         out["sharded"] = _sharded_batches(mesh, *jobs["sharded"])
     if "validation" in jobs:
@@ -304,7 +341,7 @@ def bn_inputs():
 @pytest.fixture(scope="module")
 def two_ranks(jax_pair, bn_inputs):
     jobs = dict(helpers=True, steps=True, one_step=jax_pair, bn=bn_inputs, feeds=True,
-                sharded=(25, B), validation=True)
+                sharded=(25, B), validation=True, overflow=jax_pair, remat=jax_pair)
     return tdist.launch(_rank_checks, 2, (jobs,), device_type="cpu", timeout_s=TIMEOUT, join_timeout_s=JOIN)
 
 
@@ -385,6 +422,20 @@ def test_rank_batches_are_rows_of_one_rank_batches(two_ranks, one_rank_feeds, fe
                 np.testing.assert_array_equal(v, whole[i][k][r * 2:(r + 1) * 2], err_msg=f"{feed} {k} step {i}")
 
 
+def test_host_batches_are_made_once_a_host(two_ranks):
+    """Two ranks on one host: local rank 0 makes each batch once, rank 1
+    makes none, and the rows and the overflow count are one rank's."""
+    whole = _host_batches_made(None)
+    assert whole["made"] == whole["steps"] == N_TRAIN // B and whole["dropped"] > 0
+    for r, res in enumerate(two_ranks):
+        got = res["host_made"]
+        assert got["made"] == (whole["steps"] if r == 0 else 0)
+        assert got["dropped"] == whole["dropped"]
+        for i, b in enumerate(got["rows"]):
+            for k, v in b.items():
+                np.testing.assert_array_equal(v, whole["rows"][i][k][r * 2:(r + 1) * 2], err_msg=f"{k} step {i}")
+
+
 # ------------------------------------------- (d) two ranks against one rank
 
 @pytest.fixture(scope="module")
@@ -443,25 +494,82 @@ def test_local_reductions_would_be_caught(two_ranks, jax_pair):
 
 # ------------------------------------------------- (e) against JAX's mesh
 
-def test_two_rank_step_matches_jax_two_device_mesh(two_ranks, jax_pair):
+def _jax_step(batch, **step_kw):
+    """JAX's step on a 2-device mesh from its initial weights (flax's
+    two-pass variance): (its ``StepMetrics``, the losses as a list, the
+    state as the port's)."""
     import flax.linen.normalization as fnorm
 
-    _, batch = jax_pair
     jnet, jsgd, state = _jax_init_state()
     stats = fnorm._compute_stats
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(fnorm, "_compute_stats", lambda *a, **k: stats(*a, **{**k, "use_fast_variance": False}))
-        step = jit_train_step(j_make_step(jnet, j_anchors(), FeatureShape(S, S), jsgd), jmesh.make_mesh(2))
+        step = jit_train_step(j_make_step(jnet, j_anchors(), FeatureShape(S, S), jsgd, **step_kw),
+                              jmesh.make_mesh(2))
         state, jm = step(state, JBatch(*(jnp.asarray(batch[k]) for k in ("images", "boxes", "labels", "mask"))))
     want = flax_to_torch(jax.tree.map(np.asarray, {"params": state.params, "batch_stats": state.batch_stats}))
+    return jm, [float(jm.total), float(jm.box), float(jm.obj), float(jm.cls)], want
+
+
+def test_two_rank_step_matches_jax_two_device_mesh(two_ranks, jax_pair):
+    _, batch = jax_pair
+    jm, losses, want = _jax_step(batch)
     for res in two_ranks:
         got = res["one_step"]
-        np.testing.assert_allclose(got["metrics"], [float(jm.total), float(jm.box), float(jm.obj), float(jm.cls)],
-                                   rtol=1e-4)
+        np.testing.assert_allclose(got["metrics"], losses, rtol=1e-4)
         assert got["lr"] == pytest.approx(float(jm.lr), rel=1e-6)
         assert set(got["state"]) == set(want)
         for k, v in want.items():
             np.testing.assert_allclose(got["state"][k], v.numpy(), atol=1e-5, rtol=1e-4, err_msg=k)
+
+
+def test_overflow_compaction_matches_jax_two_device_mesh(two_ranks, jax_pair):
+    """A planted overflow (2 slots an image, every level over its cap of 8 of
+    the global batch's valid slots): the ranks keep the global table's first
+    slots, as JAX's compaction of the global table does."""
+    _, batch = jax_pair
+    jm, losses, want = _jax_step(batch, assign_compact_slots=2)
+    assert int(jm.assign_drop) > 0
+    for res in two_ranks:
+        got = res["overflow"][2]
+        assert got["assign_drop"] == int(jm.assign_drop)
+        np.testing.assert_allclose(got["metrics"], losses, rtol=1e-4)
+        for k, v in want.items():
+            np.testing.assert_allclose(got["state"][k], v.numpy(), atol=1e-5, rtol=1e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("slots", OVERFLOW_SLOTS)
+def test_overflow_two_ranks_equal_one_rank_f64(two_ranks, jax_pair, slots):
+    state, batch = jax_pair
+    want = _one_step(None, state, batch, torch.float64, assign_compact_slots=slots)
+    assert want["assign_drop"] > 0
+    for res in two_ranks:
+        got = res["overflow"]["f64"][slots]
+        assert got["assign_drop"] == want["assign_drop"]
+        assert res["overflow"][slots]["assign_drop"] == want["assign_drop"]
+        np.testing.assert_allclose(got["metrics"], want["metrics"], rtol=1e-6)
+        for k, v in want["state"].items():
+            np.testing.assert_allclose(got["state"][k], v, rtol=1e-9, atol=1e-12, err_msg=k)
+
+
+@pytest.mark.parametrize("policy", REMAT[1:])
+def test_remat_on_two_ranks_equals_no_remat_and_one_rank(two_ranks, jax_pair, policy):
+    """Under the global BatchNorm each policy's 2-rank f64 step is bitwise
+    the 2-rank step without remat and within the f64 tolerances of one
+    rank; the recompute issues each BatchNorm's two forward all-reduces
+    again unless the policy saves the statistics."""
+    state, batch = jax_pair
+    one = _one_step(None, state, batch, torch.float64, remat_policy=policy)
+    n_bn = sum(isinstance(m, BatchNorm) for m in build_network(NC, "n", device="cpu").modules())
+    for res in two_ranks:
+        base, got = res["remat"][None], res["remat"][policy]
+        np.testing.assert_array_equal(got["metrics"], base["metrics"])
+        assert all(np.array_equal(got["state"][k], v) for k, v in base["state"].items())
+        np.testing.assert_allclose(got["metrics"], one["metrics"], rtol=1e-6)
+        for k, v in one["state"].items():
+            np.testing.assert_allclose(got["state"][k], v, rtol=1e-9, atol=1e-12, err_msg=k)
+        assert base["calls"] == 3 * n_bn + 3  # BatchNorms 2 + 1, compaction counts, loss counts, gradient
+        assert got["calls"] == base["calls"] + (0 if policy == "conv_out_bn_stats" else 2 * n_bn)
 
 
 # ------------------------------------------------------------ (f) BatchNorm

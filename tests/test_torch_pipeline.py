@@ -13,6 +13,9 @@ plain versions. Tolerances:
     and hue sector turn one unit into a few (measured: <= 5/255 on <= 0.09%
     of pixels); against the JAX package's default CPU path (einsum warp,
     y/x sums in another order, then HSV) > 85% of pixels equal;
+  * one step under ``warp_pallas=False`` (the port's dense bf16 warp)
+    against that JAX default CPU path, the same dense bf16 products: boxes,
+    labels, masks and overflow exact, pixels in the recipes' gates below;
   * the recipes (a sampler, mixup, no mosaic, a general affine, the exact
     warp): epoch plans, ``consumed_plan_log`` and ``letterbox_center``
     exact; one whole step given JAX's draws, f32 feed: boxes 1e-4, labels,
@@ -168,6 +171,33 @@ def test_gather_augment_step_matches_jax(monkeypatch, max_targets, seed):
     assert diff.max() <= 9.0 / 255, diff.max()
     assert (diff > 0).mean() < 0.002, (diff > 0).mean()
     np.testing.assert_allclose(tb.boxes.numpy(), np.asarray(kb.boxes), atol=1e-4)
+
+
+@pytest.mark.parametrize("hsv", [False, True], ids=["hsv_off", "hsv_on"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dense_warp_step_matches_jax(seed, hsv):
+    """One whole step under ``warp_pallas=False`` against the JAX
+    pipeline's, whose warp on the CPU is the same dense bf16 branch."""
+    jp = _jax_pipe(hsv=hsv, warp_pallas=False)
+    tp = _port_pipe(hsv=hsv, warp_pallas=False)
+    assert not jp.warp_pallas and tp.warp_precision == "fast_dense"
+    groups, _, keys = jp._epoch_plan()
+    idx = np.asarray(groups[seed], np.int32)
+    key = jnp.asarray(keys[seed])
+    ds = (jp._ds_images, jp._ds_sizes, jp._ds_tb, jp._ds_tl, jp._ds_tm)
+    jb, jovf = jax.jit(jp._gather_augment_raw)(*ds, jnp.asarray(idx), key)
+    tb, tovf = tp.gather_augment(torch.from_numpy(idx), _jax_draws(key, B, hsv=hsv))
+    np.testing.assert_array_equal(tb.boxes.numpy(), np.asarray(jb.boxes))
+    np.testing.assert_array_equal(tb.labels.numpy(), np.asarray(jb.labels))
+    np.testing.assert_array_equal(tb.mask.numpy(), np.asarray(jb.mask))
+    assert int(tovf) == int(jovf)
+    # the composed path's gates (module docstring): the same dense products
+    # on both sides, a rounding apart where a sum sits on a .5 boundary
+    diff = np.abs(tb.images.float().numpy() - np.asarray(jb.images, np.float32)) * 255
+    if hsv:
+        assert diff.max() <= 9.0 + 1e-3 and (diff > 1e-3).mean() < 0.01, (diff.max(), (diff > 1e-3).mean())
+    else:
+        assert diff.max() <= 1.0 + 1e-3 and (diff <= 1e-3).mean() >= 0.99, (diff.max(), (diff <= 1e-3).mean())
 
 
 def test_epoch_iterator_runs_every_step():

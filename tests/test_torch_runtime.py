@@ -396,11 +396,11 @@ def test_predict_over_the_host_feed(tmp_path):
         t.fit()
 
 
-REFUSED = {
-    "model.remat_policy=conv_out": "model.remat_policy",
+REFUSED = {  # overrides (space-separated): the key the error names
+    "model.remat_policy=bogus": "model.remat_policy",
     "trainer.num_devices=2": "trainer.num_devices",  # two ranks: cli.train launches them
     "data.corpus_sharding=sharded": "data.corpus_sharding",  # the host pipeline has no corpus to shard
-    "data.warp_pallas=False": "data.warp_pallas",
+    "data.pipeline=device data.device_cache=True data.corpus_layout=flat": "data.corpus_layout",
     "trainer.platform=mps": "trainer.platform",
 }
 
@@ -408,7 +408,35 @@ REFUSED = {
 @pytest.mark.parametrize("override", list(REFUSED))
 def test_unported_keys_raise_naming_the_key(tmp_path, override):
     with pytest.raises((NotImplementedError, ValueError), match=REFUSED[override].replace(".", r"\.")):
-        _port(tmp_path, override)
+        _port(tmp_path, *override.split())
+
+
+def _two_steps(tmp_path, *extra):
+    """A tiny trainer from the config after two steps of one epoch, and its state."""
+    t = _port(tmp_path, *DEVICE, "data.fake_num_images=16", "trainer.max_epochs=1", *extra)
+    t.fit(epoch_steps=2)
+    return t, {k: v.clone() for k, v in t.net.state_dict().items()}
+
+
+@pytest.mark.parametrize("policy", ["conv_out", "conv_out_bn_stats", "nothing"])
+def test_remat_policy_trains_through_from_config(tmp_path, policy):
+    """Both loops under the policy, bitwise the step loop without remat."""
+    _, want = _two_steps(tmp_path / "none", "data.fused_epoch=False")
+    for loop in ("fused", "step"):
+        extra = ("data.fused_epoch=False",) if loop == "step" else ()
+        t, got = _two_steps(tmp_path / loop, f"model.remat_policy={policy}", *extra)
+        assert (t._fused_fn is not None) == (loop == "fused")
+        assert all(torch.equal(got[k], v) for k, v in want.items()), loop
+
+
+def test_warp_pallas_false_trains_through_from_config(tmp_path):
+    """Both loops on the dense bf16 warp: the fused epoch trains as the step loop."""
+    fused, a = _two_steps(tmp_path / "fused", "data.warp_pallas=False")
+    step, b = _two_steps(tmp_path / "step", "data.warp_pallas=False", "data.fused_epoch=False")
+    assert fused.pipeline.warp_precision == step.pipeline.warp_precision == "fast_dense"
+    assert fused._fused_fn is not None and step._fused_fn is None
+    assert np.isfinite(fused.epoch_metrics[0]["total"]).all()
+    assert all(torch.equal(a[k], v) for k, v in b.items())
 
 
 def test_flat_corpus_layout_raises(tmp_path):
