@@ -7,6 +7,7 @@ Run from the root of a checkout, on a machine with one card:
     python3 chip_smoke.py --phase ddp   # phases 1, 2 and 13 alone (on 2-4 cards for 13 (c))
     python3 chip_smoke.py --phase hosts # phases 1, 2 and 14 alone (on 4 cards for 14 (b))
     python3 chip_smoke.py --phase rest  # phases 1, 2 and 15 alone (15 (e) on every card visible)
+    python3 chip_smoke.py --phase spatial  # phases 1, 2 and 16 alone ((b) on 2 cards, (c) on 4)
 
 ``--baseline DIR`` (repeatable) also builds the four kernel sources
 (``nms.cu``, ``gather.cu``, ``hsv.cu``, ``warp.cu``) of another checkout at
@@ -237,7 +238,33 @@ result line):
     ``entry.dryrun_multichip`` on every card visible: the step, the fused
     epoch and the sharded corpus's fused epoch, with rank 0's launches.
     ``--phase rest`` runs phases 1, 2 and 15 alone;
-16. the ``kernels`` JSON line (with each path's launches), the card line,
+16. spatial: DP x SP spatial sharding, yolov5s (nc=10) at 1280 px, each
+    rank a ``(data, model)`` mesh's band of half its images' rows, the row
+    halos of every conv and pool exchanged by hand, the heads gathered, the
+    BatchNorms over every rank. (a) Two gloo ranks on this card as a
+    ``(1, 2)`` mesh (the halos staged through the CPU): three steps at a
+    global B=8 against one process taking the same steps from the same
+    weights (seed 0, random boxes from seed 0). In f32 the losses within
+    rtol 1e-5 and ``assign_drop`` equal; in f64 the parameters and running
+    statistics within 1e-10; in f32 those reported against one process and
+    against the f64 step beside one process's own distance to it, not held
+    to JAX's ``test_dp_sp_matches_single_device`` bound (1e-4): a max
+    pool's argmax flips at near-ties under any other f32 rounding, and one
+    process in f32 lies ~1.2e-4 from the f64 step itself (PERF.md, section 6);
+    the guard at heights 64 and 96 raising "rows per shard" and 128 running;
+    one step under ``remat_policy="conv_out"`` against none (twice, under
+    ``cudnn.deterministic``: no larger than twice the run-to-run gap); the
+    halo bytes sent a step. (b) With two cards, NCCL ranks on cards 0-1 as
+    ``(1, 2)``: the checks of (a), then the bf16 step at a global B=16: ms a
+    step, peak memory per rank against one process at the same global
+    batch on one card, the halo bytes a step and one profiled step's NCCL
+    kernel ms by kernel (send/receive: the halos; all-gather: the heads;
+    all-reduce: BatchNorm and the gradient) and idle share. (c) With four
+    cards, ``(2, 2)`` with the checks of (b), and
+    ``entry.dryrun_multichip(4)`` (dry runs 1-4). Fewer cards print that
+    (b) or (c) is not run. K1-K5 are not on this path: their launches read
+    0 and are reported. ``--phase spatial`` runs phases 1, 2 and 16 alone;
+17. the ``kernels`` JSON line (with each path's launches), the card line,
     and the result line last.
 """
 
@@ -1385,12 +1412,31 @@ def _hosts_cfg(root: Path, out: Path, ranks_a_host: int, hosts: int, *extra):
         "print_config=False", "extras.print_config=False", f"paths.output_dir={out}", *extra])
 
 
+SWEEP_KEY, SWEEP_VALUES = "model.assign_compact_slots", ("2", "128")  # phase 14 (a): a planted overflow, none
+SWEEP_N, SWEEP_B = 256, 32  # phase 14 (a)'s sweep: fake images, the batch of one host (4 steps an epoch)
+
+
+def _sweep_argv() -> list:
+    """Phase 14 (a)'s sweep: yolov5s@416 bf16 on the step loop (gloo is not
+    captured), one epoch of 4 steps over two hosts, validated on a quarter
+    of the val set."""
+    return ["experiment=yv5s", "dataset_name=fake",
+            f"data.fake_num_images={SWEEP_N}", f"data.batch_size={SWEEP_B}", "data.pipeline=device",
+            "data.device_cache=True", "data.fused_epoch=False", "trainer.num_devices=1", "trainer.max_epochs=1",
+            "trainer.limit_val_batches=0.25", "logger=csv", "hydra=static", "extras.enforce_tags=False",
+            "print_config=False", "extras.print_config=False"]
+
+
 def hosts_child(kind: str, out: Path) -> None:
     """A host of phase 14, run in its own process tree with its
     environment: ``a``, the launcher of one gloo rank on card 0 under
-    ``KOD_*``; ``b-kod``, the launcher of two NCCL ranks under ``KOD_*``;
+    ``KOD_*``; ``a-sweep``, a two-job ``-m`` sweep of ``cli.train`` under
+    ``KOD_*``, then each job alone over the coordinators of
+    ``PHASE14_ALONE``, each host's one rank on card 0 over gloo;
+    ``b-kod``, the launcher of two NCCL ranks under ``KOD_*``;
     ``b-torchrun``, one rank under torchrun's variables. Writes its ranks'
     results to ``out`` (a pickle; torchrun: one file a rank)."""
+    import os
     import pickle
 
     from object_detection_cib_torch.parallel import distributed
@@ -1403,6 +1449,17 @@ def hosts_child(kind: str, out: Path) -> None:
         res = distributed.launch(_hosts_rank_a, 1, device_type="cuda", backend="gloo", devices=[0],
                                  hosts=layout.hosts, host=layout.host, coordinator=layout.address, timeout_s=300,
                                  join_timeout_s=900)
+    elif kind == "a-sweep":
+        from object_detection_cib_torch.cli import train as cli
+
+        # both hosts' ranks share card 0, which NCCL refuses: the CLI's launcher takes gloo
+        distributed.backend_for = lambda device_type: "gloo"
+        argv = _sweep_argv()
+        res = dict(sweep=cli.main(["-m", *argv, f"{SWEEP_KEY}={','.join(SWEEP_VALUES)}",
+                                   f"paths.output_dir={out.parent / 'sweep'}"]), alone=[])
+        for i, (v, addr) in enumerate(zip(SWEEP_VALUES, os.environ["PHASE14_ALONE"].split(","), strict=True)):
+            os.environ["KOD_COORDINATOR_ADDRESS"] = addr
+            res["alone"].append(cli.main([*argv, f"{SWEEP_KEY}={v}", f"paths.output_dir={out.parent / f'alone{i}'}"]))
     elif kind == "b-kod":
         cfg = _hosts_cfg(root, out.parent / f"kod{layout.host}", 2, layout.hosts)
         res = distributed.launch(_ddp_mesh_run, 2, (cfg, True), hosts=layout.hosts, host=layout.host,
@@ -1473,6 +1530,7 @@ def phase_hosts(card):
     from object_detection_cib_torch.data.device_pipeline import DeviceDataPipeline
     from object_detection_cib_torch.data.host_augment import AugParams
     from object_detection_cib_torch.parallel.mesh import DataMesh
+    from object_detection_cib_torch.train.checkpoint import load_state
     from object_detection_cib_torch.train.trainer import Trainer
 
     t_phase = time.perf_counter()
@@ -1487,6 +1545,33 @@ def phase_hosts(card):
                 for h in range(2)]
         wall = _run_trees("(a)", cmds, 900)
         ranks = [pickle.loads((tmp / f"a{h}.pkl").read_bytes())[0] for h in range(2)]
+        # (a) a two-job -m sweep over the same two hosts, then each job alone
+        addrs = [f"127.0.0.1:{_free_port()}" for _ in range(1 + len(SWEEP_VALUES))]
+        cmds = [([sys.executable, me, "--hosts-child", "a-sweep", str(tmp / f"s{h}.pkl")],
+                 {"KOD_COORDINATOR_ADDRESS": addrs[0], "KOD_NUM_PROCESSES": "2", "KOD_PROCESS_ID": str(h),
+                  "PHASE14_ALONE": ",".join(addrs[1:])}) for h in range(2)]
+        sweep_wall = _run_trees("(a) sweep", cmds, 900)
+        sweeps = [pickle.loads((tmp / f"s{h}.pkl").read_bytes()) for h in range(2)]
+        summary = json.loads((tmp / "sweep" / "multirun" / "summary.json").read_text())
+        gaps = [_same_state(load_state(tmp / "sweep" / "multirun" / str(i) / "checkpoints" / "last")["net"],
+                            load_state(tmp / f"alone{i}" / "checkpoints" / "last")["net"])
+                for i in range(len(SWEEP_VALUES))]
+    for h, res in enumerate(sweeps):
+        if [r["job"] for r in res["sweep"]] != list(range(len(SWEEP_VALUES))) or any("error" in r for r in res["sweep"]):
+            fail(f"[hosts] (a) sweep, host {h}: jobs {res['sweep']}")
+        for i, (r, alone) in enumerate(zip(res["sweep"], res["alone"], strict=True)):
+            got, want = ({k: v for k, v in m.items() if k != "images_per_sec"} for m in (r["metrics"], alone))
+            if not same_map(got, want):
+                fail(f"[hosts] (a) sweep, host {h}, job {i} ({r['overrides']}): metrics {got} differ from the job "
+                     f"run alone {want}")
+    if [r["overrides"] for r in summary] != [[f"{SWEEP_KEY}={v}"] for v in SWEEP_VALUES]:
+        fail(f"[hosts] (a) sweep: summary.json {summary}")
+    log(f"[hosts] (a) -m sweep of {SWEEP_KEY}={','.join(SWEEP_VALUES)} (cli.train, yolov5s@416 bf16, host batch "
+        f"{SWEEP_B}, {SWEEP_N // (2 * SWEEP_B)} steps of the step loop, validated) over the same 2 hosts x 1 gloo rank "
+        f"on cuda:0 (KOD_*, one group for the sweep): each job's metric dict equal to the job run alone over the two "
+        f"hosts (map {[r['metrics']['map'] for r in sweeps[0]['sweep']]}); weights of each swept job against the job "
+        f"alone, largest difference {gaps}; one summary.json; "
+        f"{sweep_wall:.2f} s for the sweep and both jobs alone | {card}")
     val_blocks = -(-(DDP_VAL // 2) // HOSTS_B)  # each rank validates at its share of its host's batch
     for r, res in enumerate(ranks):
         if res["layout"] != (2, r, 2, r, 0):
@@ -1636,6 +1721,13 @@ TRAINING_KERNELS = ("gather_rows_planar", "hsv_planar", "warp_quadrants")
 def _same_state(a: dict, b: dict) -> float:
     """The largest absolute difference between two tensor dicts (0 when bitwise equal)."""
     return max(float((a[k].double() - b[k].double()).abs().max()) if a[k].numel() else 0.0 for k in a)
+
+
+def _worst_key(a: dict, b: dict) -> str:
+    """Where two tensor dicts differ most: the key, the gap and the largest
+    magnitude of ``b[key]``."""
+    gap, k = max((float((a[k].double() - b[k].double()).abs().max()), k) for k in a if a[k].numel())
+    return f"{k} (gap {gap:.3e}, largest |value| {float(b[k].double().abs().max()):.4g})"
 
 
 def _rest_rank(mesh):
@@ -1973,6 +2065,255 @@ def phase_rest(card):
     return out
 
 
+# ------------------------------------------------------------ 16 spatial
+SP_S, SP_B, SP_STEPS = 1280, 8, 3  # phase 16: yolov5s@1280 f32, global B=8, 3 spatial steps
+SP_BF16_B, SP_PROF_STEPS = 16, 3  # phase 16 (b), (c): the bf16 step's global batch; steps timed
+SP_GUARD = ((64, True), (96, True), (128, False))  # (image height over two bands, the guard raises)
+SP_T = 16  # target slots an image
+
+
+def _sp_batch(B: int, S: int, seed: int, dev):
+    """A global batch of ``B`` images at ``S`` px: images drawn on the card
+    from ``seed`` (the same on every card), up to ``SP_T`` random boxes an
+    image from numpy's ``seed``."""
+    import numpy as np
+
+    from object_detection_cib_torch.train.steps import Batch
+
+    rng = np.random.default_rng(seed)
+    boxes = np.zeros((B, SP_T, 4), np.float32)
+    labels = np.zeros((B, SP_T), np.int64)
+    mask = np.zeros((B, SP_T), bool)
+    for b in range(B):
+        for t in range(rng.integers(1, SP_T)):
+            x, y = rng.uniform(0, S * 0.8, 2)
+            w, h = rng.uniform(S / 80, S / 4, 2)
+            boxes[b, t] = [x, y, min(x + w, S - 1), min(y + h, S - 1)]
+            labels[b, t] = rng.integers(0, NC)
+            mask[b, t] = True
+    images = torch.rand((B, S, S, 3), generator=torch.Generator(dev).manual_seed(seed), device=dev)
+    return Batch(images, *(torch.from_numpy(a).to(dev) for a in (boxes, labels, mask)))
+
+
+def _sp_steps(mesh, dtype, B: int, S: int, steps: int, remat_policy=None, keep_state=False):
+    """``steps`` steps of yolov5s (seed 0) at ``S`` px and a global batch of
+    ``B`` on this rank's rows and band (``mesh`` None: one process, whole
+    images): the metrics summed over the data ranks a step, the halo
+    exchanges' bytes, the state (on the CPU) where asked."""
+    import numpy as np
+
+    from object_detection_cib_torch.core.types import FeatureShape, default_anchors
+    from object_detection_cib_torch.models.yolov5 import build_network
+    from object_detection_cib_torch.parallel.distributed import all_reduce_sum_
+    from object_detection_cib_torch.parallel.mesh import shard_batch_pytree
+    from object_detection_cib_torch.parallel.spatial import HaloCounts
+    from object_detection_cib_torch.train.optim import OptimizerConfig, SmartSGD
+    from object_detection_cib_torch.train.steps import make_train_step
+
+    dev = torch.device("cuda", 0) if mesh is None else mesh.device
+    net = build_network(NC, "s", dtype=torch.bfloat16 if dtype == torch.bfloat16 else None, device=dev, seed=0)
+    net = net.to(torch.float64) if dtype == torch.float64 else net  # f64: the parameters too
+    step = make_train_step(net, default_anchors(), FeatureShape(S, S), SmartSGD(net, OptimizerConfig(), 10),
+                           mesh=mesh, remat_policy=remat_policy)
+    metrics, sent = [], HaloCounts.bytes_sent
+    for i in range(steps):
+        batch = _sp_batch(B, S, i, dev)
+        batch = batch._replace(images=batch.images.to(torch.float64)) if dtype == torch.float64 else batch
+        if mesh is not None:
+            batch = shard_batch_pytree(batch, mesh, spatial=True)
+        m = step(batch)
+        v = torch.stack([m.total, m.box, m.obj, m.cls, m.assign_drop.to(m.total.dtype)]).double()
+        if mesh is not None:
+            all_reduce_sum_(v, mesh.group)
+        metrics.append(v.cpu().numpy())
+    torch.cuda.synchronize(dev)
+    out = dict(metrics=np.array(metrics), halo_bytes=(HaloCounts.bytes_sent - sent) / steps)
+    if keep_state:
+        out["state"] = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+    return out
+
+
+def _nccl_ms(prof) -> dict:
+    """NCCL kernel ms of a profiler trace by kernel name (its arguments cut;
+    the ``nccl:*`` ranges the profiler also draws on the card's timeline are
+    not kernels)."""
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.name.startswith("nccl") and "Kernel" in e.name:
+            name = e.name.split("(")[0]
+            out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    return out
+
+
+def _sp_profiled(mesh, B: int):
+    """The bf16 step at ``SP_S`` and a global batch of ``B`` (``mesh`` None:
+    one process): after a warm-up step, ms a step over ``SP_PROF_STEPS``
+    (host clock to a synchronise), peak memory (``max_memory_allocated``),
+    the halo bytes sent a step, and one profiled step's busy time, window and
+    NCCL kernel ms by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from object_detection_cib_torch.core.types import FeatureShape, default_anchors
+    from object_detection_cib_torch.models.yolov5 import build_network
+    from object_detection_cib_torch.parallel.mesh import shard_batch_pytree
+    from object_detection_cib_torch.parallel.spatial import HaloCounts
+    from object_detection_cib_torch.train.optim import OptimizerConfig, SmartSGD
+    from object_detection_cib_torch.train.steps import make_train_step
+
+    dev = torch.device("cuda", 0) if mesh is None else mesh.device
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    net = build_network(NC, "s", dtype=torch.bfloat16, device=dev, seed=0)
+    step = make_train_step(net, default_anchors(), FeatureShape(SP_S, SP_S), SmartSGD(net, OptimizerConfig(), 10),
+                           mesh=mesh)
+    batch = _sp_batch(B, SP_S, 0, dev)
+    if mesh is not None:
+        batch = shard_batch_pytree(batch, mesh, spatial=True)
+    step(batch)
+    torch.cuda.synchronize(dev)
+    sent = HaloCounts.bytes_sent
+    t0 = time.perf_counter()
+    for _ in range(SP_PROF_STEPS):
+        step(batch)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / SP_PROF_STEPS
+    halo = (HaloCounts.bytes_sent - sent) / SP_PROF_STEPS
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(batch)
+        torch.cuda.synchronize(dev)
+    busy, window, _ = _busy_idle(prof)
+    return dict(ms=ms, peak=torch.cuda.max_memory_allocated(dev), halo_bytes=halo, busy_ms=busy, window_ms=window,
+                nccl=_nccl_ms(prof))
+
+
+def _spatial_rank(mesh, num_data: int, profiled: bool):
+    """Phase 16, one rank of a ``(num_data, 2)`` mesh over the launched
+    group: three f32 and three f64 steps at 1280 px (global B=8), the guard's three
+    heights, one step under ``conv_out`` against none (twice, for the card's
+    own run-to-run gap, under ``cudnn.deterministic``), and with
+    ``profiled`` the bf16 step at global B=16."""
+    from object_detection_cib_torch.parallel.mesh import make_mesh
+
+    _ddp_card()
+    sp = make_mesh(num_data, 2, device=mesh.device)
+    main = sp.is_main
+    _zero_kernels()
+    out = dict(layout=(sp.size, sp.rank, sp.model_size, sp.model_rank, str(sp.device)),
+               steps=_sp_steps(sp, torch.float32, SP_B, SP_S, SP_STEPS, keep_state=main),
+               f64=_sp_steps(sp, torch.float64, SP_B, SP_S, SP_STEPS, keep_state=main))
+    guard = {}
+    for h, _ in SP_GUARD:
+        try:
+            _sp_steps(sp, torch.float32, 2 * num_data, h, 1)
+            guard[h] = "ran"
+        except ValueError as e:
+            if "rows per shard" not in str(e):
+                raise
+            guard[h] = str(e)
+    out["guard"] = guard
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out["remat"] = {name: _sp_steps(sp, torch.float32, SP_B, SP_S, 1, remat_policy=policy, keep_state=True)
+                    for name, policy in (("none", None), ("none again", None), ("conv_out", "conv_out"))}
+    torch.backends.cudnn.deterministic = deterministic
+    if profiled:
+        out["bf16"] = _sp_profiled(sp, SP_BF16_B)
+    out["counts"] = _read_kernels()
+    if not main:
+        for r in out["remat"].values():
+            r.pop("state")
+    return out
+
+
+def phase_spatial(card):
+    """Phase 16: DP x SP spatial sharding (module docstring). Returns the
+    ranks' launch counts of K1-K5, which this path does not launch."""
+    import numpy as np
+
+    from object_detection_cib_torch.entry import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    runs = {"a": ("two gloo ranks on cuda:0", 2, 1, dict(backend="gloo", devices=[0, 0]), False)}
+    for part, need, nd in (("b", 2, 1), ("c", 4, 2)):
+        if count >= need:
+            runs[part] = (f"{need} NCCL ranks on cards 0-{need - 1}", need, nd, {}, True)
+        else:
+            log(f"[spatial] ({part}) needs {need} cards, this machine shows {count}: not run")
+    got = {part: launch_logged("spatial", _spatial_rank, n, (nd, prof), device_type="cuda", timeout_s=300,
+                               join_timeout_s=900, **kw)
+           for part, (_, n, nd, kw, prof) in runs.items()}
+    torch.cuda.empty_cache()
+    one = _sp_steps(None, torch.float32, SP_B, SP_S, SP_STEPS, keep_state=True)
+    one64 = _sp_steps(None, torch.float64, SP_B, SP_S, SP_STEPS, keep_state=True)
+    truth = _same_state(one["state"], one64["state"])  # the one-process f32 step's own distance to f64
+    one_bf16 = _sp_profiled(None, SP_BF16_B) if len(runs) > 1 else None
+    torch.cuda.empty_cache()
+    counts = {}
+    for part, ranks in got.items():
+        what, n, nd, _, _ = runs[part]
+        r0 = ranks[0]
+        # (a) the spatial steps against one process
+        for r, res in enumerate(ranks):
+            m, want = res["steps"]["metrics"], one["metrics"]
+            if not np.array_equal(m[:, 4], want[:, 4]):
+                fail(f"[spatial] ({part}) rank {r}: assign_drop {m[:, 4].tolist()} vs one process {want[:, 4].tolist()}")
+            if not np.allclose(m[:, :4], want[:, :4], rtol=1e-5, atol=0):
+                fail(f"[spatial] ({part}) rank {r}: losses {m[:, 0].tolist()} vs one process {want[:, 0].tolist()} "
+                     "beyond rtol 1e-5")
+            for h, raises in SP_GUARD:
+                said = res["guard"][h]
+                if (said != "ran") != raises:
+                    fail(f"[spatial] ({part}) rank {r}: the guard at H={h} over two bands: {said}")
+            if any(res["counts"].values()):
+                fail(f"[spatial] ({part}) rank {r}: the spatial path launched K1-K5 {res['counts']}")
+        gap = _same_state(r0["steps"]["state"], one["state"])
+        gap64 = _same_state(r0["f64"]["state"], one64["state"])
+        exact = _same_state(r0["steps"]["state"], one64["state"])  # the spatial f32 step against the f64 step
+        if not gap64 <= 1e-10:
+            fail(f"[spatial] ({part}) f64 parameters or running statistics {gap64:.3e} from one process (bound "
+                 f"1e-10), most at {_worst_key(r0['f64']['state'], one64['state'])}")
+        # in f32 the state is reported, not gated: a max pool's argmax flips at near-ties under any other
+        # rounding, so one process in f32 itself lies ~1e-4 from the f64 step at 1280 px (PERF.md, section 6)
+        rel = float(np.max(np.abs(r0["steps"]["metrics"][:, :4] / one["metrics"][:, :4] - 1)))
+        rm = r0["remat"]
+        floor, remat_gap = (_same_state(rm[k]["state"], rm["none"]["state"]) for k in ("none again", "conv_out"))
+        if remat_gap > 2 * floor:
+            fail(f"[spatial] ({part}) conv_out gap {remat_gap:.3e} to no remat beyond twice the run-to-run gap "
+                 f"{floor:.3e}")
+        log(f"[spatial] ({part}) {what}, mesh (data {nd}, model 2), layouts (data size, data rank, model size, model "
+            f"rank, card) {[res['layout'] for res in ranks]}: yolov5s@{SP_S} f32 global B={SP_B}, {SP_STEPS} "
+            f"spatial steps against one process: losses {r0['steps']['metrics'][:, 0].tolist()} vs "
+            f"{one['metrics'][:, 0].tolist()} (largest relative gap {rel:.3e}, gate rtol 1e-5), assign_drop "
+            f"{r0['steps']['metrics'][:, 4].tolist()} equal; parameters and running statistics {gap:.3e} from one "
+            f"process in f32 (most at {_worst_key(r0['steps']['state'], one['state'])}), {exact:.3e} from one process "
+            f"in f64, where one process in f32 lies {truth:.3e} from it (not gated: argmax flips); in f64 "
+            f"{gap64:.3e} from one process (gate 1e-10); halo bytes sent a step by rank 0 {r0['steps']['halo_bytes']:.0f}; the guard at H=64, 96 "
+            f"raised 'rows per shard', H=128 ran; conv_out against no remat (cudnn.deterministic) "
+            f"{'bitwise equal' if remat_gap == 0 else 'max gap %.3e' % remat_gap} (run-to-run gap {floor:.3e}); "
+            f"K1-K5 launched {r0['counts']} (none on this path) | {card}")
+        if part != "a":
+            b = [res["bf16"] for res in ranks]
+            idle = [round(1 - x["busy_ms"] / x["window_ms"], 4) if x["window_ms"] else None for x in b]
+            log(f"[spatial] ({part}) {what}, yolov5s@{SP_S} bf16 global B={SP_BF16_B}: {b[0]['ms']:.4f} ms a step "
+                f"(host clock, mean of {SP_PROF_STEPS}) against one card alone {one_bf16['ms']:.4f}; peak memory "
+                f"per rank {[round(x['peak'] / 2**30, 3) for x in b]} GiB against one card alone "
+                f"{one_bf16['peak'] / 2**30:.3f} GiB; halo bytes sent a step per rank "
+                f"{[int(x['halo_bytes']) for x in b]}; one profiled step: NCCL kernel ms by kernel per rank "
+                f"{[{k: round(v, 4) for k, v in x['nccl'].items()} for x in b]}, busy "
+                f"{[round(x['busy_ms'], 4) for x in b]} of window {[round(x['window_ms'], 4) for x in b]} ms, idle "
+                f"share per rank {idle} (one card alone {one_bf16['busy_ms']:.4f} of {one_bf16['window_ms']:.4f}) "
+                f"| {card}")
+        counts[part] = {k: sum(res["counts"][k] for res in ranks) for k in r0["counts"]}
+    if count >= 4:
+        t0 = time.perf_counter()
+        r0 = dryrun_multichip(4, device_type="cuda")
+        log(f"[spatial] (c) entry.dryrun_multichip(4): dry runs 1-4, DP x SP loss {r0['spatial']['loss']:.4f} over "
+            f"mesh (data 2, model 2); {time.perf_counter() - t0:.2f} s | {card}")
+    log(f"[spatial] phase 16 {time.perf_counter() - t_phase:.2f} s | {card}")
+    return counts
+
+
 def launch_logged(tag: str, *args, **kw):
     """``parallel.distributed.launch``, its warnings (a rank terminated
     after handing back its result) printed under ``[tag]``."""
@@ -1992,10 +2333,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path, action="append", default=[],
                     help="root of another checkout whose four kernel sources are timed beside")
-    ap.add_argument("--phase", choices=["all", "ddp", "hosts", "rest"], default="all",
+    ap.add_argument("--phase", choices=["all", "ddp", "hosts", "rest", "spatial"], default="all",
                     help="ddp: phases 1, 2 and 13 alone (data parallelism; (c) needs two or more cards); "
                          "hosts: phases 1, 2 and 14 alone (several hosts; (b) needs four cards); "
-                         "rest: phases 1, 2 and 15 alone")
+                         "rest: phases 1, 2 and 15 alone; spatial: phases 1, 2 and 16 alone (DP x SP; (b) needs "
+                         "two cards, (c) four)")
     ap.add_argument("--hosts-child", nargs=2, metavar=("KIND", "OUT"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     # ---------------------------------------------------------------- 1 device
@@ -2056,6 +2398,13 @@ def main() -> None:
                           csrc=b / "object_detection_cib_torch" / "ops" / "csrc")
         baselines[b] = {n: ctypes.CDLL(str(p)) for n, p in built.items()}
         log(f"[build] baseline {b}: {', '.join(built)} in {time.perf_counter() - t0:.2f} s")
+    if args.phase == "spatial":
+        spatial = phase_spatial(card)
+        print(json.dumps({"spatial_launches": spatial}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
     if args.phase == "rest":
         rest = phase_rest(card)
         print(json.dumps({"rest_launches": rest}), flush=True)
@@ -2859,8 +3208,12 @@ def main() -> None:
 
     # ---------------------------------------------------------------- 15 rest
     rest = phase_rest(card)
+    torch.cuda.empty_cache()
 
-    # -------------------------------------------------------------- 16 report
+    # ------------------------------------------------------------- 16 spatial
+    spatial = phase_spatial(card)
+
+    # -------------------------------------------------------------- 17 report
     src = "object_detection_cib_torch/ops/csrc/"
     rows = [
         ("greedy_nms_mask", "nms.cu", "object_detection_cib_tpu/ops/pallas_nms.py:131", serve_launches),
@@ -2889,7 +3242,8 @@ def main() -> None:
                                  "fused": fused[name],
                                  "ddp": {part: n[name] for part, n in ddp.items()},
                                  "hosts": {part: n[name] for part, n in hosts.items()},
-                                 "rest": {part: n[name] for part, n in rest.items()}},
+                                 "rest": {part: n[name] for part, n in rest.items()},
+                                 "spatial": {part: n[name] for part, n in spatial.items()}},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

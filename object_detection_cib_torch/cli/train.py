@@ -36,7 +36,9 @@ ranks, one per card, with a global batch of hosts x ``data.batch_size``:
     which join one group over the store that host 0 serves at the
     coordinator's address; the command itself is not a rank.
 
-Every host runs the same overrides. ``-m`` sweeps run on one host only.
+Every host runs the same overrides. A ``-m`` sweep under either joins one
+group for the whole sweep and runs its jobs in order on every rank
+(``multirun``), as the JAX CLI joins its pod once.
 Run as a program, the CLI binds tensorboard to its no-TensorFlow stub
 before anything imports it (``utils/loggers.py:
 tensorboard_without_tensorflow``), so the default ``logger=many_loggers``
@@ -57,6 +59,7 @@ from typing import Optional
 from object_detection_cib_torch.config import compose
 from object_detection_cib_torch.parallel.distributed import (
     HostLayout,
+    barrier,
     env_layout,
     join_torchrun,
     launch,
@@ -83,38 +86,73 @@ def _sweep_dims(argv):
     return fixed, dims
 
 
-def multirun(config_dir, fixed, dims):
-    """Sequential sweep (parity: hydra's basic launcher under ``-m``): job i
-    of the cartesian product runs with output_dir ``<base>/multirun/<i>``; a
-    failing job is recorded and the sweep goes on; the summary is printed
-    and written to ``<base>/multirun/summary.json``."""
+def multirun(config_dir, fixed, dims, layout: Optional[HostLayout] = None):
+    """Sequential sweep (parity: hydra's basic launcher under ``-m``, the JAX
+    ``multirun``): job i of the cartesian product runs with output_dir
+    ``<base>/multirun/<i>``; a failing job is recorded and the sweep goes on;
+    the summary is printed and written to ``<base>/multirun/summary.json``.
+
+    Under the hosts of ``layout`` the sweep joins one group for all its
+    jobs, as the JAX CLI joins its pod once: torchrun's variables make this
+    process one rank of it for the whole sweep; under ``KOD_*`` this host's
+    launcher spawns its ranks once, each running every job. Every rank runs
+    the jobs in order with a barrier after each; a job that raises on every
+    rank (a config error) is recorded as failed, and a rank that dies stops
+    the sweep (``launch``'s ``RuntimeError``). Host 0's local rank 0 (under
+    ``KOD_*`` host 0's launcher) prints and writes the summary."""
     base_cfg = compose(config_dir, "train", fixed + [f"{k}={vs[0]}" for k, vs in dims])
     base_out = base_cfg.get("paths", {}).get("output_dir", "runs/train")
-    jobs = list(itertools.product(*[[(k, v) for v in vs] for k, vs in dims]))
+    jobs = [[f"{k}={v}" for k, v in combo] for combo in itertools.product(*[[(k, v) for v in vs] for k, vs in dims])]
+    args = (config_dir, fixed, jobs, base_out)
+    if layout is None:
+        results = _sweep(None, *args)
+    else:
+        tcfg = base_cfg.get("trainer") or {}
+        device_type = device_from_cfg(tcfg).type  # no card under platform null raises here
+        if layout.route == "torchrun":
+            mesh = join_torchrun(layout, device_type)
+            try:
+                results = _sweep(mesh, *args)
+            finally:
+                leave_group(mesh.device)
+        else:
+            results = launch(_sweep, num_devices_from_cfg(tcfg), args, device_type=device_type, hosts=layout.hosts,
+                             host=layout.host, coordinator=layout.address)[0]
+    if layout is None or (layout.host == 0 and not layout.local_rank):
+        out = Path(base_out) / "multirun"
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "summary.json").write_text(json.dumps(results, indent=2))
+        print("── multirun summary")
+        for r in results:
+            tail = (f"metric={r['metric']}" if r.get("metric") is not None
+                    else (f"ERROR {r['error']}" if "error" in r else "done"))
+            print(f"  job {r['job']}: {','.join(r['overrides'])}  {tail}")
+        scored = [r for r in results if r.get("metric") is not None]
+        if scored:
+            top = max(scored, key=lambda r: r["metric"])
+            print(f"  max: job {top['job']} ({','.join(top['overrides'])}) = {top['metric']}", flush=True)
+    return results
+
+
+def _sweep(mesh, config_dir, fixed, jobs, base_out) -> list:
+    """Every job of a sweep in order: in this process (``mesh`` None; each
+    job launches its own ranks where ``trainer.num_devices`` asks), or as one
+    rank of the sweep's group, waiting for every rank after each job."""
+    say = mesh is None or mesh.is_main
     results = []
-    for i, combo in enumerate(jobs):
-        ov = [f"{k}={v}" for k, v in combo]
-        print(f"── multirun job {i}/{len(jobs) - 1}: {','.join(ov)}", flush=True)
+    for i, ov in enumerate(jobs):
+        if say:
+            print(f"── multirun job {i}/{len(jobs) - 1}: {','.join(ov)}", flush=True)
         cfg = compose(config_dir, "train", fixed + ov + [f"paths.output_dir={base_out}/multirun/{i}"])
         try:
-            r = run_job(cfg)
+            r = run_job(cfg) if mesh is None else _run(cfg, say, lambda: _rank_job(mesh, cfg), error_log=say)
             results.append({"job": i, "overrides": ov, "metric": None if isinstance(r, dict) else r,
                             "metrics": r if isinstance(r, dict) else None})
         except Exception as e:  # one failing point must not kill the sweep
-            print(f"multirun job {i} FAILED: {e!r}", flush=True)
+            if say:
+                print(f"multirun job {i} FAILED: {e!r}", flush=True)
             results.append({"job": i, "overrides": ov, "error": repr(e)[:300]})
-    out = Path(base_out) / "multirun"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "summary.json").write_text(json.dumps(results, indent=2))
-    print("── multirun summary")
-    for r in results:
-        tail = (f"metric={r['metric']}" if r.get("metric") is not None
-                else (f"ERROR {r['error']}" if "error" in r else "done"))
-        print(f"  job {r['job']}: {','.join(r['overrides'])}  {tail}")
-    scored = [r for r in results if r.get("metric") is not None]
-    if scored:
-        top = max(scored, key=lambda r: r["metric"])
-        print(f"  max: job {top['job']} ({','.join(top['overrides'])}) = {top['metric']}")
+        barrier(mesh)
     return results
 
 
@@ -128,10 +166,7 @@ def main(argv=None):
         argv = [a for a in argv if a not in ("-m", "--multirun")]
         fixed, dims = _sweep_dims(argv)
         if dims:
-            if layout is not None:
-                raise NotImplementedError("-m/--multirun sweeps run on one host: this environment names "
-                                          f"{layout.hosts} hosts ({layout.route})")
-            return multirun(config_dir, fixed, dims)
+            return multirun(config_dir, fixed, dims, layout)
     return run_job(compose(config_dir, "train", argv), layout)
 
 
@@ -143,7 +178,31 @@ def run_job(cfg, layout: Optional[HostLayout] = None):
     host's launcher (``KOD_*``). Returns the ``optimized_metric`` when one
     is named, else the metric dict. A failure writes ``error.log`` to the
     output directory and is raised again."""
-    main_process = layout is None or (layout.host == 0 and not layout.local_rank)
+    return _run(cfg, layout is None or (layout.host == 0 and not layout.local_rank), lambda: _train(cfg, layout))
+
+
+def _train(cfg, layout: Optional[HostLayout]):
+    """``train(cfg)`` where ``run_job`` puts it: rank 0's metrics."""
+    tcfg = cfg.get("trainer") or {}
+    device_type = device_from_cfg(tcfg).type  # no card under platform null raises here
+    if layout is not None and layout.route == "torchrun":
+        mesh = join_torchrun(layout, device_type)
+        try:
+            return _rank_job(mesh, cfg)
+        finally:
+            leave_group(mesh.device)
+    if layout is not None:
+        return launch(_rank_job, num_devices_from_cfg(tcfg), (cfg,), device_type=device_type, hosts=layout.hosts,
+                      host=layout.host, coordinator=layout.address)[0]
+    if num_devices_from_cfg(tcfg) > 1:
+        return launch(_rank_job, num_devices_from_cfg(tcfg), (cfg,), device_type=device_type)[0]
+    return train(cfg)
+
+
+def _run(cfg, main_process: bool, fit, error_log: bool = True):
+    """``fit()`` under the ``extras``, the config tree printed by the main
+    process; the ``optimized_metric`` or the metric dict; ``error.log``
+    written on a failure where ``error_log``."""
     extras = cfg.get("extras") or {}
     if extras.get("ignore_warnings"):
         warnings.filterwarnings("ignore")
@@ -157,21 +216,7 @@ def run_job(cfg, layout: Optional[HostLayout] = None):
         print(yaml.safe_dump(cfg, default_flow_style=False, sort_keys=False))
         print("─" * 60, flush=True)
     try:
-        tcfg = cfg.get("trainer") or {}
-        device_type = device_from_cfg(tcfg).type  # no card under platform null raises here
-        if layout is not None and layout.route == "torchrun":
-            mesh = join_torchrun(layout, device_type)
-            try:
-                metrics = _rank_job(mesh, cfg)
-            finally:
-                leave_group(mesh.device)
-        elif layout is not None:
-            metrics = launch(_rank_job, num_devices_from_cfg(tcfg), (cfg,), device_type=device_type,
-                             hosts=layout.hosts, host=layout.host, coordinator=layout.address)[0]
-        elif num_devices_from_cfg(tcfg) > 1:
-            metrics = launch(_rank_job, num_devices_from_cfg(tcfg), (cfg,), device_type=device_type)[0]
-        else:
-            metrics = train(cfg)
+        metrics = fit()
         opt_name = cfg.get("optimized_metric")
         if opt_name:
             value = get_metric_value(metrics, opt_name)
@@ -180,9 +225,10 @@ def run_job(cfg, layout: Optional[HostLayout] = None):
             return value
         return metrics
     except Exception:
-        out_dir = Path(cfg.get("paths", {}).get("output_dir", "."))
-        out_dir.mkdir(parents=True, exist_ok=True)
-        (out_dir / "error.log").write_text(traceback.format_exc())
+        if error_log:
+            out_dir = Path(cfg.get("paths", {}).get("output_dir", "."))
+            out_dir.mkdir(parents=True, exist_ok=True)
+            (out_dir / "error.log").write_text(traceback.format_exc())
         raise
 
 

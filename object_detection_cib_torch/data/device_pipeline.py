@@ -138,7 +138,7 @@ from object_detection_cib_torch.ops.graph import CapturedGraph
 from object_detection_cib_torch.ops.hsv import hsv_planar
 from object_detection_cib_torch.ops.warp import FILL
 from object_detection_cib_torch.parallel.distributed import reduce_scatter_sum
-from object_detection_cib_torch.parallel.mesh import DataMesh, batch_sharding, host_batch_sharding
+from object_detection_cib_torch.parallel.mesh import DataMesh, batch_sharding, host_batch_sharding, refuse_model_axis
 from object_detection_cib_torch.train.steps import Batch
 from object_detection_cib_torch.utils.device import resolve_device, to_unit
 from object_detection_cib_torch.utils.fs import get_root_dir
@@ -552,6 +552,7 @@ class DeviceDataPipeline:
             raise NotImplementedError(
                 f"corpus_layout={corpus_layout!r}: the flat layout is a TPU tiling "
                 "workaround and is not ported")
+        refuse_model_axis(mesh)
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None and mesh.group is not None else None
         self.sharded = corpus_sharding == "sharded"

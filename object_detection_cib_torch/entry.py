@@ -4,18 +4,22 @@ the card, and dry runs of training over several ranks.
 The port's counterpart of the repo's ``__graft_entry__.py`` (the JAX
 package's): ``entry()`` gives ``(fn, example_args)``, the yolov5s forward at
 640 px in bf16 with example inputs on the card, and ``dryrun_multichip(n)``
-runs, over ``n`` ranks spawned by ``parallel.distributed.launch``, one card
-each, the JAX entry's dry runs 1, 3 and 4: (1) one full train step
-(forward, assignment, loss, backward, SmartSGD, with the global BatchNorm
-statistics and the gradient all-reduce); (3) one fused epoch of the
-production loop (gather, augment and train step a step, pipelined; a CUDA
-graph a step on the card) over the corpus on the card; (4) the same over a
-corpus sharded over the ranks, each rank holding ``8B / n`` of its rows.
-Each checks finite losses and equal weights on every rank, and on the card
-that each fused epoch launched K2, K4 and K5 once a step. Both entry
-points run on the card unless the caller asks for the CPU
-(``device="cpu"``, ``device_type="cpu"``: gloo ranks). The JAX entry's DP x
-SP dry run (2) is not here: the port has no spatial sharding (ROADMAP A.3).
+runs, over ranks spawned by ``parallel.distributed.launch``, one card
+each, the JAX entry's four dry runs: (1) one full train step over ``n``
+ranks (forward, assignment, loss, backward, SmartSGD, with the global
+BatchNorm statistics and the gradient all-reduce); (2) where ``n >= 2``,
+DP x SP: one step over a ``(data n // 2, model 2)`` mesh of ``2 (n // 2)``
+ranks (JAX's ``devices[:n]`` grid), each rank holding a band of half the
+rows of its data rows' images at 256 px, the halos exchanged by hand
+(``parallel/spatial.py``), at a global batch of ``max(n // 2 * 2, 2)``;
+(3) one fused epoch of the production loop over ``n`` ranks (gather,
+augment and train step a step, pipelined; a CUDA graph a step on the card)
+over the corpus on the card; (4) the same over a corpus sharded over the
+ranks, each rank holding ``8B / n`` of its rows. Each checks finite losses
+and equal weights on every rank, and on the card that each fused epoch
+launched K2, K4 and K5 once a step. Both entry points run on the card
+unless the caller asks for the CPU (``device="cpu"``, ``device_type="cpu"``:
+gloo ranks).
 
   python -m object_detection_cib_torch.entry [n]   # the forward, then n ranks
 """
@@ -39,7 +43,7 @@ from object_detection_cib_torch.ops.gather import gather_rows_planar
 from object_detection_cib_torch.ops.hsv import hsv_planar
 from object_detection_cib_torch.ops.warp import warp_quadrants
 from object_detection_cib_torch.parallel.distributed import all_reduce_sum_, launch
-from object_detection_cib_torch.parallel.mesh import shard_batch_pytree
+from object_detection_cib_torch.parallel.mesh import make_mesh, shard_batch_pytree
 from object_detection_cib_torch.train.optim import OptimizerConfig, SmartSGD
 from object_detection_cib_torch.train.steps import Batch, make_train_step
 
@@ -115,14 +119,39 @@ def _dryrun_rank(mesh, img: int) -> dict:
                 sharded=_fused_run(mesh, img, "sharded"))
 
 
+SPATIAL_IMAGE = 256  # dry run 2's resolution (JAX's): every level keeps >= 2 rows a band
+
+
+def _dryrun_spatial_rank(mesh, num_data: int) -> dict:
+    """Dry run 2 on one rank: its data rows and band of a global batch of
+    ``max(num_data * 2, 2)`` images at 256 px over a ``(num_data, 2)`` mesh,
+    one step: the loss summed over the data ranks and a digest of the
+    weights."""
+    if mesh.device.type == "cpu":
+        torch.set_num_threads(max(min(torch.get_num_threads(), (os.cpu_count() or 1) // mesh.local_size), 1))
+    sp = make_mesh(num_data, 2, device=mesh.device)
+    img = SPATIAL_IMAGE
+    net = build_network(NUM_CLASSES, "s", device=mesh.device, seed=0)
+    opt = SmartSGD(net, OptimizerConfig(max_epochs=300), steps_per_epoch=10)
+    step = make_train_step(net, default_anchors(), FeatureShape(img, img), opt, mesh=sp)
+    batch = shard_batch_pytree(_dryrun_batch(max(num_data * 2, 2), img), sp, spatial=True)
+    m = step(Batch(*(t.to(mesh.device) for t in batch)))
+    loss = m.total.detach().double().reshape(1)
+    all_reduce_sum_(loss, sp.group)
+    return dict(loss=float(loss), digest=_digest(net))
+
+
 def dryrun_multichip(n_devices: int, device_type: str = "cuda", image_size: int = 64,
                      join_timeout_s: float = 600.0) -> dict:
     """The dry runs of yolov5s at ``image_size`` over ``n_devices`` ranks
-    (NCCL on cards 0..n-1, or gloo on the CPU): one train step, a fused
-    epoch, a fused epoch over a sharded corpus (module docstring). Raises
-    unless every loss is finite, every rank holds the same weights after
-    each, and each rank holds ``8B / n`` rows of the sharded corpus.
-    Returns rank 0's ``{"loss", "digest", "fused", "sharded"}``."""
+    (NCCL on cards 0..n-1, or gloo on the CPU): one train step, where
+    ``n_devices >= 2`` a DP x SP step at 256 px over ``2 (n // 2)`` ranks, a
+    fused epoch, a fused epoch over a sharded corpus (module docstring).
+    Raises unless every loss is finite, every rank holds the same weights
+    after each, and each rank holds ``8B / n`` rows of the sharded corpus.
+    Returns rank 0's ``{"loss", "digest", "fused", "sharded"}``, with
+    ``"spatial"``: rank 0's ``{"loss", "digest"}`` of dry run 2 where it
+    ran."""
     ranks = launch(_dryrun_rank, n_devices, (image_size,), device_type=device_type, join_timeout_s=join_timeout_s)
     r0 = ranks[0]
     if not np.isfinite(r0["loss"]):
@@ -130,6 +159,16 @@ def dryrun_multichip(n_devices: int, device_type: str = "cuda", image_size: int 
     if len({r["digest"] for r in ranks}) != 1:
         raise RuntimeError("dry run: the ranks' weights differ after the step")
     print(f"dryrun DP OK: {n_devices} ranks ({device_type}) loss={r0['loss']:.4f}", flush=True)
+    if n_devices >= 2:
+        d = n_devices // 2
+        sp = launch(_dryrun_spatial_rank, 2 * d, (d,), device_type=device_type, join_timeout_s=join_timeout_s)
+        if not np.isfinite(sp[0]["loss"]):
+            raise RuntimeError(f"dry run DP x SP: loss {sp[0]['loss']} is not finite")
+        if len({r["digest"] for r in sp}) != 1:
+            raise RuntimeError("dry run DP x SP: the ranks' weights differ after the step")
+        r0 = dict(r0, spatial=sp[0])
+        print(f"dryrun DPxSP OK: mesh(data={d}, model=2) {2 * d} ranks ({device_type}) "
+              f"loss={sp[0]['loss']:.4f}", flush=True)
     images = 8 * 2 * n_devices  # 8B
     for part in ("fused", "sharded"):
         if not np.isfinite(r0[part]["losses"]).all():

@@ -18,6 +18,20 @@ the activation dtype. Under a process group (``sync_batchnorm``) the
 training statistics are those of the global batch, as the JAX package's
 BatchNorm computes them over a batch sharded on its mesh.
 
+DP x SP spatial sharding (``set_spatial``; JAX ``jit_train_step(spatial=
+True)``, where GSPMD inserts the halo exchanges): each rank holds a band of
+every image's rows. Every conv wider than 1x1 and each of SPPF's pools first
+exchanges the rows it reads beyond the band with the model neighbours
+(``parallel/spatial.py``: zeros at the image's top and bottom edges for a
+conv, the dtype's lowest value for a pool), then runs with no H padding and
+its own W padding; the halo'd tensor is ``channels_last``. 1x1 convs, the
+upsample and the concats stay local. The BatchNorms then take their
+statistics over every rank of the mesh, data and model axes alike
+(``sync_batchnorm(net, mesh.world)``): every band has the same size, so the
+count is a band's times the ranks, as for the data axis alone. Under a
+remat policy a layer exchanges its halo before its checkpoint region, so
+the recompute reads the saved halo'd input and sends nothing.
+
 Not ported: ``SpaceToDepthStem``. It computes the same function as the 6x6/2
 pad-2 stem conv from the same (6, 6, 3, C) parameter; it existed only to map
 a 3-channel conv onto the TPU's 128-lane matrix unit. The port runs the stem
@@ -52,6 +66,7 @@ from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from object_detection_cib_torch.parallel.distributed import all_reduce_sum_
+from object_detection_cib_torch.parallel.spatial import Spatial, conv_reach
 
 
 class _GlobalBatchNorm(torch.autograd.Function):
@@ -216,11 +231,23 @@ def set_remat(net: nn.Module, remat: Optional[Remat]) -> None:
             m.remat = remat
 
 
-def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """``conv`` applied in the activation's dtype (weights cast to it)."""
+def set_spatial(net: nn.Module, spatial: Optional[Spatial]) -> None:
+    """Make every conv wider than 1x1 and every SPPF pool of ``net`` run on
+    a band of image rows with its halo from ``spatial``'s model neighbours,
+    and the network gather its heads over them (None: whole images)."""
+    for m in net.modules():
+        if isinstance(m, ConvBnAct):
+            m.spatial = spatial if m.conv.kernel_size[0] > 1 else None
+        elif hasattr(m, "spatial"):
+            m.spatial = spatial
+
+
+def conv2d(x: torch.Tensor, conv: nn.Conv2d, pad_rows: bool = True) -> torch.Tensor:
+    """``conv`` applied in the activation's dtype (weights cast to it);
+    ``pad_rows`` False: no H padding (``x`` carries its halo rows)."""
     w = conv.weight.to(x.dtype)
     b = None if conv.bias is None else conv.bias.to(x.dtype)
-    return F.conv2d(x, w, b, conv.stride, conv.padding)
+    return F.conv2d(x, w, b, conv.stride, conv.padding if pad_rows else (0, conv.padding[1]))
 
 
 class ConvBnAct(nn.Module):
@@ -243,14 +270,18 @@ class ConvBnAct(nn.Module):
         self.conv = nn.Conv2d(in_channels, features, k, stride, pad, bias=False)
         self.bn = BatchNorm(features)
         self.remat: Optional[Remat] = None  # set by the train step's rematerialisation
+        self.spatial: Optional[Spatial] = None  # set by set_spatial: x is a band of image rows
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.spatial is not None:  # before any remat region: its recompute sends nothing
+            x = self.spatial.exchange(x, *conv_reach(self.conv.kernel_size[0], self.conv.stride[0],
+                                                     self.conv.padding[0]))
         if self.remat is not None and self.training and torch.is_grad_enabled():
             return self.remat.run(self._forward, x)
         return self._forward(x)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.silu(self.bn(conv2d(x, self.conv)))
+        return F.silu(self.bn(conv2d(x, self.conv, pad_rows=self.spatial is None)))
 
 
 class CSPBlock(nn.Module):
@@ -297,15 +328,20 @@ class CSPLayer(nn.Module):
         return self.last_conv(torch.cat([x_main, x_short], dim=1))
 
 
-def _maxpool_same(x: torch.Tensor, k: int) -> torch.Tensor:
+def _maxpool_same(x: torch.Tensor, k: int, spatial: Optional[Spatial] = None) -> torch.Tensor:
     """Stride-1 max pool with 'same' padding k//2 (torch MaxPool2d parity), NCHW.
 
     The JAX package pads with ``finfo(dtype).min`` and takes the max over the
     k*k shifted views (models/layers.py:309-335); ``F.max_pool2d`` pads with
     -inf. Every window holds at least one real element (its centre), so the
-    padding never wins the max and both give the same result.
+    padding never wins the max and both give the same result. With
+    ``spatial``, ``x`` is a band: its halo rows come from the neighbours,
+    ``finfo(dtype).min`` at the image's edges, and only W is padded.
     """
-    return F.max_pool2d(x, k, stride=1, padding=k // 2)
+    if spatial is None:
+        return F.max_pool2d(x, k, stride=1, padding=k // 2)
+    x = spatial.exchange(x, *conv_reach(k, 1, k // 2), fill=torch.finfo(x.dtype).min)
+    return F.max_pool2d(x, k, stride=1, padding=(0, k // 2))
 
 
 class SPPFBottleneck(nn.Module):
@@ -322,13 +358,14 @@ class SPPFBottleneck(nn.Module):
         mid = int(in_channels * 0.5)
         self.conv1 = ConvBnAct(in_channels, mid, 1)
         self.conv2 = ConvBnAct(4 * mid, features, 1)
+        self.spatial: Optional[Spatial] = None  # set by set_spatial: the pools run on a band
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv1(x)
-        k = self.kernel_size
-        y1 = _maxpool_same(x, k)
-        y2 = _maxpool_same(y1, k)
-        y3 = _maxpool_same(y2, k)
+        k, sp = self.kernel_size, self.spatial
+        y1 = _maxpool_same(x, k, sp)
+        y2 = _maxpool_same(y1, k, sp)
+        y3 = _maxpool_same(y2, k, sp)
         return self.conv2(torch.cat([x, y1, y2, y3], dim=1))
 
 

@@ -18,6 +18,12 @@ input's dtype.
 
 Each head's three logical 1x1 convs (box, obj, cls; separate flax params) are
 one ``nn.Conv2d`` here whose weight is their concatenation in that order.
+
+Under DP x SP spatial sharding (``models/layers.py:set_spatial``) the
+network takes a band of each image's rows and returns each head's map
+gathered over the model axis along H, whole (JAX's ``head_sharding``
+constraint, ``train/steps.py:148-155``); the gather's backward hands this
+rank its own slice of the gradient (``parallel/spatial.py``).
 """
 
 from __future__ import annotations
@@ -265,6 +271,7 @@ class Yolov5Network(nn.Module):
         super().__init__()
         self.num_classes = num_classes
         self.dtype = dtype
+        self.spatial = None  # set by set_spatial: images are bands of rows, heads gathered whole
         md = partial(make_divisible, widen_factor=widen_factor)
         self.backbone = Yolov5Backbone(deepen_factor=deepen_factor, widen_factor=widen_factor)
         in_chs = tuple(s.out_channels for s in P5_STAGES[1:])
@@ -275,13 +282,17 @@ class Yolov5Network(nn.Module):
             self.add_module(name, Yolov5Head(md(ch), num_anchors_per_cell, num_classes, stride))
 
     def forward(self, images: torch.Tensor) -> Yolov5NetworkResult:
-        """(B, H, W, 3) images -> three heads' (B, H/s, W/s, A*(5+nc)) raw maps."""
+        """(B, H, W, 3) images -> three heads' (B, H/s, W/s, A*(5+nc)) raw maps;
+        spatially sharded, (B, H/M, W, 3) bands -> the whole maps."""
         x = images.permute(0, 3, 1, 2)  # NCHW view, channels_last strides
         if self.dtype is not None:
             x = x.to(self.dtype)
         _, c3, c4, c5 = self.backbone(x)  # stage1 output discarded
         p3, p4, p5 = self.neck([c3, c4, c5])
-        return Yolov5NetworkResult(ll=self.ll_head(p3), ml=self.ml_head(p4), hl=self.hl_head(p5))
+        heads = (self.ll_head(p3), self.ml_head(p4), self.hl_head(p5))
+        if self.spatial is not None:
+            heads = (h._replace(raw=self.spatial.gather_rows(h.raw, 1)) for h in heads)
+        return Yolov5NetworkResult(*heads)
 
 
 SIZE_VARIANTS = {

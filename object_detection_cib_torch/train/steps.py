@@ -13,8 +13,7 @@ kod/lightning/experiments/yv5_baseline/exp.py):
     (conf 0.001 / iou 0.6, exp.py:45-46).
 The JAX steps take ``(params, batch_stats, ...)``; here the network module
 holds its weights, so the train step takes a batch and the eval step the
-images. Not carried: ``head_sharding`` (GSPMD), which has no counterpart
-in an eager step.
+images.
 
 ``remat_policy`` (the JAX ``jax.checkpoint`` policies over the forward):
 each conv + BatchNorm + SiLU layer of the training forward runs as a
@@ -51,6 +50,26 @@ counts before it, so rank r keeps its first ``clamp(cap - p_r, 0, n_r)``
 valid slots in a table of ``min(cap, K_local)`` slots (one rank may hold
 every kept slot) and marks the rest invalid. ``assign_drop``, each rank's
 ``n_r - keep_r``, sums over the ranks to the JAX package's global drop.
+
+DP x SP spatial sharding (a mesh with ``model_size`` M > 1, from
+``make_mesh(num_data, num_model)``; JAX ``make_train_step(head_sharding=)``
+under ``jit_train_step(spatial=True)``): ``batch.images`` is this rank's
+data rows cut to its band of H / M image rows, the boxes, labels and masks
+its data rows whole (``shard_batch_pytree(..., spatial=True)``). The
+network exchanges the row halos of its convs and pools with the model
+neighbours and gathers its heads' maps whole (``models/layers.py``,
+``parallel/spatial.py``), so the assignment and the loss are those of the
+data rows, the same on every model rank. The reductions: over the data
+group, the loss's valid counts and image count, the compaction's prefix
+and ``cap`` and ``total`` (``B_global`` counts data rows); over every
+rank, the BatchNorm statistics and the gradient bucket, whose sum over a
+data row's model ranks adds up each band's part of that row's gradient
+and over the data ranks each row share of the global loss, as without a
+model axis. The step raises, as JAX's ``jit_train_step`` does, unless the
+image height H (bands times the band's rows) gives the stride-32 level an
+integer of at least 2 rows a band: then every halo (at most 2 rows: the
+stem and SPPF) fits in the neighbour's band at every level. A remat policy
+combines with it (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -68,8 +87,9 @@ from object_detection_cib_torch.core.assigner import (
 from object_detection_cib_torch.core.nms import NMSResult, non_max_suppression
 from object_detection_cib_torch.core.types import FeatureShape, LevelAnchors
 from object_detection_cib_torch.eval.decode import decode_predictions
-from object_detection_cib_torch.models.layers import Remat, set_remat, sync_batchnorm
+from object_detection_cib_torch.models.layers import Remat, set_remat, set_spatial, sync_batchnorm
 from object_detection_cib_torch.parallel.distributed import all_reduce_sum_
+from object_detection_cib_torch.parallel.spatial import spatial_of
 from object_detection_cib_torch.train.loss import LossParams, yolov5_loss
 from object_detection_cib_torch.train.optim import SmartSGD
 
@@ -117,7 +137,9 @@ def make_train_step(
     ``net`` in place with the hyperparameter row ``hp`` (``SmartSGD.step``).
     With a ``mesh`` that has a process group, ``batch`` is this rank's rows
     of the global batch and the step is the global one (module docstring);
-    the net's BatchNorms are set to the group here. ``remat_policy``: None
+    the net's BatchNorms are set to the mesh's ranks here. A mesh with a
+    model axis makes it the spatial step: ``batch.images`` is this rank's
+    band of rows, and the net is set to exchange its halos. ``remat_policy``: None
     (save everything), ``"conv_out"``, ``"conv_out_bn_stats"`` or
     ``"nothing"`` (module docstring); the net's BatchNorms are set to it.
 
@@ -132,14 +154,19 @@ def make_train_step(
         raise ValueError(f"unknown remat_policy {remat_policy!r}: expected one of {sorted(REMAT_SAVES)} or None")
     dev = next(net.parameters()).device
     anchor_tensors = [torch.as_tensor(info.as_array()).to(dev) for info in anchors.levels()]
-    group = None if mesh is None else mesh.group
+    group = None if mesh is None else mesh.group  # the data axis: the loss, the compaction, the batch
+    world = None if group is None else mesh.world  # every rank: BatchNorm and the gradient
     ranks = 1 if group is None else mesh.size
+    bands = 1 if mesh is None else mesh.model_size
     if group is not None:
-        sync_batchnorm(net, group)
+        sync_batchnorm(net, world)
     set_remat(net, None if remat_policy is None else Remat(REMAT_SAVES[remat_policy]))
+    set_spatial(net, spatial_of(mesh))
     params = list(net.parameters())
 
     def train_step(batch: Batch, hp: Optional[torch.Tensor] = None) -> StepMetrics:
+        if bands > 1:
+            _check_bands(batch.images.shape[1] * bands, bands)
         net.train()
         out = net(batch.images)
         assignment = assign_targets(batch.boxes, batch.labels, batch.mask, image_shape,
@@ -159,7 +186,7 @@ def make_train_step(
         optimizer.zero_grad()
         total.backward()
         if group is not None:
-            _all_reduce_gradients(params, group)
+            _all_reduce_gradients(params, world)
         lr_other = optimizer.step(hp)
         return StepMetrics(
             total=total.detach(),
@@ -171,6 +198,18 @@ def make_train_step(
         )
 
     return train_step
+
+
+def _check_bands(h: int, m: int) -> None:
+    """JAX ``jit_train_step(spatial=True)``'s guard (``train/steps.py:262-281``):
+    image height ``h`` over ``m`` bands must leave the stride-32 level an
+    integer of at least 2 rows a band."""
+    rows32 = h // 32
+    if h % (32 * m) != 0 or rows32 // m < 2:
+        raise ValueError(
+            f"spatial sharding: image height {h} over model axis of size {m} leaves the stride-32 pyramid level "
+            f"with {rows32 / m:.2f} rows per shard; need an integer >= 2 (H % (32*model) == 0 and H >= {64 * m}). "
+            "Use a smaller model axis or a larger resolution.")
 
 
 REMAT_SAVES = {  # the operators whose outputs each policy saves (JAX steps.py:116-125)

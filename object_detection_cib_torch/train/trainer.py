@@ -133,7 +133,7 @@ from object_detection_cib_torch.parallel.distributed import (
     broadcast_module_,
     host_group,
 )
-from object_detection_cib_torch.parallel.mesh import DataMesh, host_batch_sharding
+from object_detection_cib_torch.parallel.mesh import DataMesh, host_batch_sharding, refuse_model_axis
 from object_detection_cib_torch.train.checkpoint import CheckpointManager, Snapshot, restore_checkpoint
 from object_detection_cib_torch.train.loss import LossParams
 from object_detection_cib_torch.train.optim import OptimizerConfig, SmartSGD, WarmupParams
@@ -449,6 +449,7 @@ class Trainer:
                              "host pipeline's")
         if corpus is not None and not (pipeline == "device" and device_cache):
             raise ValueError("corpus is the card-resident corpus of pipeline='device', device_cache=True")
+        refuse_model_axis(mesh)
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None and mesh.group is not None else None
         if self.mesh is not None:

@@ -43,8 +43,14 @@ subprocess with a timeout. Tolerances:
   * the host feed's dataset seed and ``steps_per_epoch`` against JAX
     ``Trainer(cfg)`` under the patch; its shards cover the stream;
   * ``cli.train.main`` on 2 x 2 ranks by each route: one set of run files,
-    ``steps_per_epoch = len(train) // (batch_size * hosts)``.
-The entry points (``entry.py``): ``dryrun_multichip(2)`` on gloo, and the
+    ``steps_per_epoch = len(train) // (batch_size * hosts)``;
+  * a three-job ``-m`` sweep on 2 x 1 ranks by ``KOD_*``, one group for the
+    whole sweep: each job's metric dict equal to that job run alone over
+    the same two hosts and its checkpoint bitwise; the job that raises on
+    every rank recorded as failed, the sweep going on; the summary printed
+    and written by host 0 alone.
+The entry points (``entry.py``): ``dryrun_multichip(2)`` on gloo (dry runs
+1 to 4, dry run 2 over a ``(1, 2)`` mesh), and the
 yolov5s forward of ``entry()`` against the JAX ``entry()``'s on converted
 weights (bf16 on both sides, 2 images at 128 px: every head value within
 one bf16 rounding, 2**-7, of the largest head value; measured equal on
@@ -77,6 +83,7 @@ from object_detection_cib_torch.data.synthetic import build_fake_manifest
 from object_detection_cib_torch.models.yolov5 import build_network
 from object_detection_cib_torch.parallel import distributed as tdist
 from object_detection_cib_torch.parallel import mesh as tmesh
+from object_detection_cib_torch.train import checkpoint as tck
 from object_detection_cib_torch.train.optim import OptimizerConfig, SmartSGD
 from object_detection_cib_torch.train.steps import Batch, make_train_step
 from object_detection_cib_torch.train.trainer import Trainer
@@ -213,20 +220,37 @@ CLI = ["experiment=yv5n", "dataset_name=fake", "trainer=cpu", "model.net.dtype=n
        "debug=fdr", "hydra=static", "extras.enforce_tags=False"]
 
 
-def _kod_host(out_file: str, local: int, cli_argv: list) -> None:
+SWEEP = ("model.assign_compact_slots", ("1", "x", "128"))  # a planted overflow, a value that raises, none
+
+
+def _kod_host(out_file: str, local: int, cli_argv: list, sweep_argv: list = ()) -> None:
     """A host's process under ``KOD_*``: launch its ranks of the checks'
-    group, then ``cli.train.main`` over a second coordinator address (each
-    port picked by host 0 just before it binds it)."""
+    group, then ``cli.train.main`` over a second coordinator address; with
+    ``sweep_argv``, then a two-job ``-m`` sweep of ``SWEEP`` and each of its
+    jobs alone (each port picked by host 0 just before it binds it)."""
     host, ports = int(os.environ["KOD_PROCESS_ID"]), Path(out_file).parent
-    os.environ["KOD_COORDINATOR_ADDRESS"] = f"127.0.0.1:{_shared_port(ports / 'checks.port', host == 0)}"
+
+    def coordinator(name):
+        os.environ["KOD_COORDINATOR_ADDRESS"] = f"127.0.0.1:{_shared_port(ports / f'{name}.port', host == 0)}"
+
+    coordinator("checks")
     layout = tdist.env_layout()
     ranks = tdist.launch(_rank_checks, local, device_type="cpu", hosts=layout.hosts, host=layout.host,
                          coordinator=layout.address, timeout_s=TIMEOUT, join_timeout_s=JOIN)
-    cli = None
+    cli = sweep = None
     if cli_argv:
-        os.environ["KOD_COORDINATOR_ADDRESS"] = f"127.0.0.1:{_shared_port(ports / 'cli.port', host == 0)}"
+        coordinator("cli")
         cli = t_cli.main(cli_argv)
-    Path(out_file).write_bytes(pickle.dumps(dict(ranks=ranks, cli=cli)))
+    if sweep_argv:
+        key, values = SWEEP
+        coordinator("sweep")
+        sweep = dict(results=t_cli.main(["-m", *sweep_argv, f"{key}={','.join(values)}",
+                                         f"paths.output_dir={ports / 'sweep'}"]), alone={})
+        for i, v in enumerate(values):
+            if v.isdigit():
+                coordinator(f"alone{i}")
+                sweep["alone"][i] = t_cli.main([*sweep_argv, f"{key}={v}", f"paths.output_dir={ports / f'alone{i}'}"])
+    Path(out_file).write_bytes(pickle.dumps(dict(ranks=ranks, cli=cli, sweep=sweep)))
 
 
 def _torchrun_rank(out_file: str, cli_argv: list) -> None:
@@ -284,12 +308,14 @@ def _start(name: str, tmp: Path) -> list:
     cfg_dir = tmp / name.replace(" ", "_")
     cfg_dir.mkdir()
     cli_argv = CLI + [f"paths.output_dir={cfg_dir / 'cli'}", f"trainer.num_devices={local}"] if local > 1 else []
+    sweep_argv = CLI + ["trainer.num_devices=1"] if local == 1 else []
     procs = []
     if route == "kod":
         for h in range(hosts):
             env = {"KOD_NUM_PROCESSES": str(hosts), "KOD_PROCESS_ID": str(h)}  # the address: host 0's port
             out, log = cfg_dir / f"host{h}.pkl", cfg_dir / f"host{h}.log"
-            procs.append((_python(f"_kod_host({str(out)!r}, {local}, {cli_argv!r})", env, log), out, log))
+            procs.append((_python(f"_kod_host({str(out)!r}, {local}, {cli_argv!r}, {sweep_argv!r})", env, log),
+                          out, log))
     else:
         for r in range(hosts * local):
             env = {"RANK": str(r), "WORLD_SIZE": str(hosts * local), "LOCAL_RANK": str(r % local),
@@ -323,7 +349,7 @@ def groups(tmp_path_factory):
     out = {}
     try:
         for name, procs in started.items():
-            ranks, cli = [], []
+            ranks, cli, sweeps = [], [], []
             for proc, res, log in procs:
                 try:
                     code = proc.wait(timeout=SUBPROCESS)
@@ -334,7 +360,9 @@ def groups(tmp_path_factory):
                 got = pickle.loads(res.read_bytes())
                 ranks += got["ranks"]
                 cli.append(got["cli"])
-            out[name] = dict(ranks=ranks, cli=cli, dir=res.parent)
+                sweeps.append(got.get("sweep"))
+            out[name] = dict(ranks=ranks, cli=cli, sweeps=sweeps, dir=res.parent,
+                             logs=[log.read_text() for _, _, log in procs])
     finally:
         for procs in started.values():
             for proc, _, _ in procs:
@@ -661,13 +689,40 @@ def test_cli_trains_two_hosts_of_two_ranks(groups, name):
         np.testing.assert_equal(m, maps[0])
 
 
+def test_sweep_over_two_hosts_runs_each_job_as_it_runs_alone(groups):
+    """``-m`` under two ``KOD_*`` hosts joins one group for the sweep: each
+    job's metric dict equals that job run alone over the same two hosts, its
+    checkpoint bitwise, and the two jobs differ; a job that raises on every
+    rank is recorded and the sweep goes on; host 0 alone writes the
+    summary."""
+    res = groups["2x1 kod"]
+    key, values = SWEEP
+    for sweep in res["sweeps"]:  # what each host's command returned
+        assert [r["job"] for r in sweep["results"]] == [0, 1, 2]
+        assert [r["overrides"] for r in sweep["results"]] == [[f"{key}={v}"] for v in values]
+        assert ["error" in r for r in sweep["results"]] == [False, True, False]
+        for i, alone in sweep["alone"].items():
+            np.testing.assert_equal({k: v for k, v in sweep["results"][i]["metrics"].items() if k != "images_per_sec"},
+                                    {k: v for k, v in alone.items() if k != "images_per_sec"})
+    nets = []
+    for i in (0, 2):
+        swept = tck.load_state(res["dir"] / "sweep" / "multirun" / str(i) / "checkpoints" / "last")["net"]
+        alone = tck.load_state(res["dir"] / f"alone{i}" / "checkpoints" / "last")["net"]
+        assert all(torch.equal(v, alone[k]) for k, v in swept.items()), i
+        nets.append(swept)
+    assert not all(torch.equal(v, nets[1][k]) for k, v in nets[0].items())
+    summary = json.loads((res["dir"] / "sweep" / "multirun" / "summary.json").read_text())
+    np.testing.assert_equal(summary, res["sweeps"][0]["results"])
+    assert ["── multirun summary" in log for log in res["logs"]] == [True, False]
+
+
 # ---------------------------------------------------------------- entry.py
 
 def test_dryrun_multichip_on_two_gloo_ranks():
     from object_detection_cib_torch.entry import dryrun_multichip
 
     got = dryrun_multichip(2, device_type="cpu", join_timeout_s=JOIN)
-    assert np.isfinite(got["loss"])
+    assert np.isfinite(got["loss"]) and np.isfinite(got["spatial"]["loss"])  # dry runs 1 and 2
     for part in ("fused", "sharded"):  # parts 3 and 4: a fused epoch of 8 steps at B=4, 32 images
         assert len(got[part]["losses"]) == 8 and np.isfinite(got[part]["losses"]).all()
     assert got["sharded"]["held_rows"] == 16 and got["fused"]["held_rows"] == 32

@@ -664,8 +664,6 @@ def test_refusals():
         _trainer(tmesh.DataMesh(3, 0, torch.device("cpu"), group=object(), backend="gloo"))
     with pytest.raises(ValueError, match="cards are visible"):
         num_devices_from_cfg({"platform": None, "num_devices": torch.cuda.device_count() + 1})
-    with pytest.raises(NotImplementedError, match="DP x SP"):
-        tmesh.make_mesh(2, num_model=2)
     with pytest.raises(ValueError, match="needs 2 ranks"):
         tmesh.make_mesh(2)
     gloo_card = SimpleNamespace(corpus=torch.zeros(1), device=torch.device("cuda"),
