@@ -8,6 +8,7 @@ Run from the root of a checkout, on a machine with one card:
     python3 chip_smoke.py --phase hosts # phases 1, 2 and 14 alone (on 4 cards for 14 (b))
     python3 chip_smoke.py --phase rest  # phases 1, 2 and 15 alone (15 (e) on every card visible)
     python3 chip_smoke.py --phase spatial  # phases 1, 2 and 16 alone ((b) on 2 cards, (c) on 4)
+    python3 chip_smoke.py --phase jpeg  # phases 1, 2, 7's letterbox, 10 and 17 alone (the JPEG feeds)
 
 ``--baseline DIR`` (repeatable) also builds the four kernel sources
 (``nms.cu``, ``gather.cu``, ``hsv.cu``, ``warp.cu``) of another checkout at
@@ -73,7 +74,13 @@ result line):
    640, a quadrant wholly outside its window) held BITWISE against their
    plain versions on the card, then timed in turns against them (and the
    gather against ``torch.index_select``), with bounds from this run's
-   inputs;
+   inputs. Then the letterbox (``csrc/letterbox.cu``, the port's own kernel:
+   it ports ``native/loader.cpp:75-118``, the JAX package's host resize and
+   pack) held BITWISE against its plain version on batches of 256 seeded
+   raw images (COCO-like and extreme sizes with a failed file, and the main
+   path's 640 x 640), at S = 416 and 640, top-left and centred, planar and
+   NHWC; each batch at 416 timed in turns with its plain version, beside
+   ``F.interpolate`` + pad and the bytes bound;
 8. training: the step loop (``Trainer(fused_epoch=False)``),
    ``Trainer.fit(max_epochs=1, epoch_steps=40)`` with the
    launch counts zeroed just before and read just after (K2, K4, K5 once
@@ -102,26 +109,28 @@ result line):
    enqueue one step and its launches: observations, not claims;
 10. jpeg: training and validation from JPEG files at the width of phase 8
     (yolov5s, nc=10, 416x416, batch 64, bf16, ``aug_params.yaml``). First a
-    probe of the host libraries: cv2 and Pillow (the host pipeline) and
-    libjpeg (the native loader, built in a temporary directory). Where
-    Pillow is there, ``build_synthetic_dataset`` writes ``synthetic-hard-
+    probe of the host libraries: cv2 and Pillow (the host pipeline; Pillow
+    decodes every feed's files), which the phase fails without, and, as
+    information, libjpeg (the JAX package's native loader, which the port
+    does not use). ``build_synthetic_dataset`` writes ``synthetic-hard-
     zipf``, 640 train and 128 val JPEG files, into a temporary directory.
-    (a) ``Trainer(pipeline="device", device_cache=True)``: the corpus on
-    the card, decoded from the files (held byte for byte against the CPU's
-    ``pack_batch``, transposed) or, without libjpeg, built by
-    ``DeviceCorpus.from_canvases`` from canvases drawn from a seed;
-    ``fit`` over one epoch with its validation (K2, K4, K5 10 times each,
-    K1 twice). (b) ``device_cache=False``: 5 steps with the groups loaded
-    by a host thread (K2 never, K4 and K5 5 times), bitwise equal to the
-    device-cache pipeline's batches of the same seed, or, from fake groups
-    without libjpeg, step 1 against the same pipeline on the CPU; with the
-    RAM cache a second epoch decodes only images not seen before. (c)
+    (a) ``Trainer(pipeline="device", device_cache=True)``: the corpus and
+    the validation cache decoded from the files on the host and letterboxed
+    on the card (the letterbox 3 + 1 times), the first 128 corpus rows and
+    the whole cache held byte for byte against the CPU path (Pillow and the
+    plain letterbox, which takes ~0.07 s an image there); ``fit`` over one
+    epoch with its validation (K2, K4, K5 10 times each, K1 twice). (b)
+    ``device_cache=False``: 5 steps with the groups decoded by a host
+    thread and letterboxed on the card (K2 never; K4, K5 and the letterbox
+    5 times), bitwise equal to the device-cache pipeline's batches of the
+    same seed; with the RAM cache a second epoch decodes only images not
+    seen before, and what the cache holds is printed. (c)
     ``pipeline="host"``, 8 worker threads, 5 steps and the host-fed
     validation (no training kernel; K1 once per val batch). Last the two
     validation feeds on the same canvases give the same mAP dict. Each part
     prints img/s and the host's enqueue time, (c) the time the consumer
     waited on its queue: observations, not claims. A part that needs a
-    library the machine lacks prints which, and does not run;
+    library the machine lacks fails the phase;
 11. cli: the normal entry point, ``object_detection_cib_torch.cli.train.
     main([...])`` on the card (``trainer.platform`` null), in a temporary
     output directory with ``hydra=static``, ``extras.enforce_tags=False``,
@@ -264,7 +273,19 @@ result line):
     ``entry.dryrun_multichip(4)`` (dry runs 1-4). Fewer cards print that
     (b) or (c) is not run. K1-K5 are not on this path: their launches read
     0 and are reported. ``--phase spatial`` runs phases 1, 2 and 16 alone;
-17. the ``kernels`` JSON line (with each path's launches), the card line,
+17. corpus: the main path from a JPEG corpus at full width:
+    ``cli.train.main`` with ``experiment=yv5s`` (yolov5s, nc=10, 416, B=64,
+    bf16), ``data.pipeline=device data.device_cache=True`` and the fused
+    epoch, over 4,992 train (``bench.py:237``'s count) and 320 val JPEG
+    files at 640 x 640 written from seeds by ``build_synthetic_dataset`` in
+    8 processes, two epochs, validated once: the letterbox once a chunk of
+    256 files at decode (20 + 2), K2/K4/K5 156 each by replay, K1 5; finite
+    losses and mAP; the first 64 corpus rows against the CPU path. Printed:
+    the corpus's decode img/s and seconds, the decode threads, the bytes
+    copied up, img/s over both epochs' windows, the val cache's decode
+    time, the mAP dict; then the same command over the fake corpus of the
+    same size (no validation) beside it, an observation, not a claim;
+18. the ``kernels`` JSON line (with each path's launches), the card line,
     and the result line last.
 """
 
@@ -275,6 +296,7 @@ import ctypes
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -399,14 +421,119 @@ def nms_pairs_needed(keep, live) -> int:
     return int(pairs)
 
 
+LB_N = 256  # images a letterbox batch: DECODE_ROWS, a chunk of the corpus decode
+LB_SIZES = [(480, 640), (640, 480), (427, 640), (375, 500), (1, 517), (517, 1), (1203, 97)]  # (h, w)
+LETTERBOX_OPS_PER_PIXEL = 48  # per content pixel, 3 channels: csrc/letterbox.cu counted op by op (an FMA 2)
+CORPUS_N, CORPUS_VAL, CORPUS_PX = 4992, 320, 640  # phase 17: bench.py:237's count of JPEG files at 640 px
+CORPUS_NAME, CORPUS_EPOCHS, CORPUS_SHARDS = "synthetic-hard-zipf-640", 2, 8
+
+
+def _raw_batch(sizes, seed: int):
+    """Seeded (h, w, 3) uint8 images (None: a failed file) as ``RawImages``."""
+    import numpy as np
+
+    from object_detection_cib_torch.data.native_loader import RawImages
+
+    rng = np.random.default_rng(seed)
+    return RawImages.from_arrays([None if hw is None else rng.integers(0, 256, hw + (3,), dtype=np.uint8)
+                                  for hw in sizes])
+
+
+def phase_letterbox(card, dev, resources):
+    """The letterbox kernel (``csrc/letterbox.cu``, the port's own: it ports
+    ``native/loader.cpp:75-118``) against its plain version, bitwise, on
+    batches of 256 seeded raw images: COCO-like and extreme sizes with a
+    failed file, and the main path's 640 x 640, each at S = 416 and 640, top
+    left and centred, planar and (the validation cache's) NHWC. Then each
+    batch at 416 timed in turns with its plain version, beside
+    ``F.interpolate`` + pad (bilinear, align_corners=False; it does not round
+    as loader.cpp does, so its bytes are only compared) and the bytes bound.
+    Returns (max abs err, (ms, plain ms, library ms, bound ms, bound by) and
+    (call ms, library call ms) of the main path's batch)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from object_detection_cib_torch.ops import letterbox as lb
+
+    mixed = [None if i == 5 else LB_SIZES[i % len(LB_SIZES)] for i in range(LB_N)]
+    batches = {"COCO-like and extreme sizes, a failed file": (mixed, 1),
+               f"the main path's {CORPUS_PX}x{CORPUS_PX}": ([(CORPUS_PX, CORPUS_PX)] * LB_N, 2)}
+    err, out = 0.0, None
+    for name, (sizes, seed) in batches.items():
+        raw = [t.to(dev) for t in _raw_batch(sizes, seed)[:3]]
+        hw = raw[2].cpu().tolist()
+        for S in (416, 640):
+            for center, nhwc in ((False, False), (True, False), (True, True)):
+                shape = (LB_N, S, S, 3) if nhwc else (LB_N, 3, S, S)
+                got, want = (torch.zeros(shape, dtype=torch.uint8, device=dev) for _ in range(2))
+                view = (lambda t: t.permute(0, 3, 1, 2)) if nhwc else (lambda t: t)
+                got_sizes = lb.letterbox(*raw, view(got), center)
+                torch.cuda.synchronize()
+                want_sizes = lb.letterbox_plain(*raw, view(want), center)
+                tag = f"letterbox {name} S={S} {'centred' if center else 'top-left'}{' NHWC' if nhwc else ''}"
+                err = max(err, check_equal(tag, got, want), check_equal(tag + " sizes", got_sizes, want_sizes))
+        # timed at the training size, 416, top-left into planar rows
+        S = 416
+        rows = torch.empty((LB_N, 3, S, S), dtype=torch.uint8, device=dev)
+        spare = torch.empty_like(rows)
+        kernel = lambda: lb.letterbox(*raw, rows)  # noqa: E731
+        plain = lambda: lb.letterbox_plain(*raw, spare)  # noqa: E731
+        sizes_out = kernel().cpu().tolist()
+        if sizes_out[0] == [0, 0]:
+            fail("letterbox: the first image has no content")
+        if hw.count([0, 0]) != sum(s is None for s in sizes):
+            fail("letterbox: the failed file's size is not (0, 0)")
+        if len({tuple(h) for h in hw}) == 1:  # one size: one library call for the batch
+            h0, w0 = hw[0]
+            src = raw[0].view(LB_N, h0, w0, 3).permute(0, 3, 1, 2)
+            nh, nw = sizes_out[0]
+
+            def library():
+                y = F.interpolate(src.float(), size=(nh, nw), mode="bilinear", align_corners=False)
+                return F.pad(y.round_().clamp_(0, 255).to(torch.uint8), (0, S - nw, 0, S - nh), value=lb.FILL)
+        else:  # a call per image
+            imgs = [(raw[0][off:off + h * w * 3].view(1, h, w, 3).permute(0, 3, 1, 2), sz)
+                    for (h, w), off, sz in zip(hw, raw[1].cpu().tolist(), sizes_out) if h]
+
+            def library():
+                return [F.pad(F.interpolate(x.float(), size=tuple(sz), mode="bilinear", align_corners=False)
+                              .round_().clamp_(0, 255).to(torch.uint8), (0, S - sz[1], 0, S - sz[0]), value=lb.FILL)
+                        for x, sz in imgs]
+
+        k_ms, p_ms, turns = in_turns(kernel, plain, 30, 2)
+        lib_ms = statistics.median([run_ms(library, 10) for _ in range(2)])
+        lib_out = library()
+        lib_out = lib_out if torch.is_tensor(lib_out) else None
+        n_bytes = (raw[0].numel() + 8 * raw[1].numel() + 4 * raw[2].numel() + rows.numel()
+                   + 4 * 2 * LB_N)
+        n_ops = float(sum(nh * nw for nh, nw in sizes_out)) * LETTERBOX_OPS_PER_PIXEL
+        b_ms, b_by = bound(n_bytes, n_ops)
+        call = cuda_ms(kernel, 30), cuda_ms(library, 30)
+        log(f"[kernels] letterbox {name} ({LB_N} images, {raw[0].numel()} B decoded) -> {LB_N}x3x{S}x{S}: "
+            f"kernel {k_ms:.4f} ms (30 in a row), plain {p_ms:.4f} ms (turns {turns}), F.interpolate + pad "
+            f"{lib_ms:.4f} ms ({'one call' if lib_out is not None else 'a call per image'}); bound "
+            f"{b_ms:.6f} ms ({b_by}: {n_bytes} B, {n_ops:.0f} ops), {b_ms / k_ms:.4f} of the bound, "
+            f"{n_bytes / k_ms / 1e6:.1f} GB/s | {card}")
+        log(f"[kernels] letterbox one call from an idle stream, host launch path included (median of 30): "
+            f"kernel {call[0]:.4f} ms, F.interpolate + pad {call[1]:.4f} ms | {card}")
+        if lib_out is not None:
+            same = float((lib_out == rows).float().mean())
+            log(f"[kernels] letterbox: F.interpolate + pad equals the kernel on {same:.6f} of the bytes "
+                f"(another rounding: not a substitute)")
+            out = (err, (k_ms, p_ms, lib_ms, b_ms, b_by), call)
+    log(f"[kernels] letterbox.cu: {resources('letterbox_kernel', 0)}")
+    return out
+
+
 JPEG_TRAIN_N, JPEG_VAL_N, JPEG_STEPS = 640, 128, 5
 CLI_N = 640  # data.fake_num_images: the train and the val set of phase 11
 
 
 def host_libraries(native_loader):
-    """({library: version}, {library: why it is missing}) for phase 10: cv2 and
-    Pillow for the host pipeline, libjpeg for the native loader (its build
-    in a temporary directory is the probe)."""
+    """({library: version}, {library: why it is missing}) for phase 10: cv2
+    and Pillow (the host pipeline; Pillow also decodes the device feeds'
+    JPEG files), and, as information only, libjpeg (the JAX package's
+    native loader, built in place: the port does not use it)."""
     import importlib
 
     have, missing = {}, {}
@@ -420,7 +547,8 @@ def host_libraries(native_loader):
     except (OSError, RuntimeError, subprocess.SubprocessError) as e:
         why = ("jpeglib.h, libjpeg's header, is not installed on this machine" if "jpeglib.h" in str(e)
                else f"the build failed: {str(e).strip().splitlines()[-1]}")
-        missing["libjpeg"] = f"the native JPEG loader (native/loader.cpp, -ljpeg) does not build: {why}"
+        missing["libjpeg"] = (f"the JAX package's native loader (native/loader.cpp, -ljpeg) does not build: "
+                              f"{why} (information only: the port decodes with Pillow)")
     return have, missing
 
 
@@ -436,7 +564,7 @@ class CanvasReader:
 
         j = self.index[sample.id]
         m = self.cache.gt_mask[j]
-        return AugmentedSample(self.cache.canvases[j], self.cache.gt_boxes[j][m],
+        return AugmentedSample(self.cache.canvases[j].cpu().numpy(), self.cache.gt_boxes[j][m],
                                self.cache.gt_labels[j][m].astype("int64"))
 
 
@@ -476,25 +604,24 @@ def whole_steps_enqueue(step, reps: int = 5):
 def phase_jpeg(card, dev, aug, counted, zero_counts, read_counts):
     """Phase 10: train and validate from JPEG files at the training width
     (yolov5s, nc=10, 416, batch 64, bf16) through the three feeds. Returns
-    each part's launch counts. A part that needs a host library the machine
-    lacks says so and does not run; everything else raises on failure."""
+    each part's launch counts. Without Pillow or cv2 it fails; everything
+    else raises on failure too."""
     import numpy as np
 
+    from object_detection_cib_torch.data import device_pipeline as dp
     from object_detection_cib_torch.data import native_loader
-    from object_detection_cib_torch.data.device_pipeline import (
-        DeviceCorpus,
-        DeviceDataPipeline,
-        fake_canvases,
-    )
+    from object_detection_cib_torch.data.device_pipeline import DeviceCorpus, DeviceDataPipeline
     from object_detection_cib_torch.data.host_augment import ValidationSampleAugmentor
     from object_detection_cib_torch.data.pipeline import DetectionDataset, Prefetcher
-    from object_detection_cib_torch.data.synthetic import build_fake_manifest, build_synthetic_dataset
+    from object_detection_cib_torch.data.synthetic import build_synthetic_dataset
+    from object_detection_cib_torch.data.val_cache import ValDeviceCache
     from object_detection_cib_torch.train.trainer import Trainer
 
     have, missing = host_libraries(native_loader)
     log("[jpeg] probe: " + "; ".join([f"{k} {v}" for k, v in have.items()] + list(missing.values())))
-    host_ok = not ({"cv2", "Pillow"} & set(missing))
-    jpeg_ok = host_ok and "libjpeg" not in missing
+    for lib in ("Pillow", "cv2"):
+        if lib in missing:
+            fail(f"[jpeg] {missing[lib]}: phase 10 needs it")
     kw = dict(size="s", image_size=TRAIN_S, batch_size=TRAIN_B, aug_params=aug, max_targets=MAX_TARGETS,
               seed=0, dtype=torch.bfloat16, device=dev, max_epochs=1)
     steps = JPEG_TRAIN_N // TRAIN_B
@@ -508,45 +635,41 @@ def phase_jpeg(card, dev, aug, counted, zero_counts, read_counts):
     with tempfile.TemporaryDirectory(prefix="jpeg-corpus-") as tmp:
         root = Path(tmp)
         t0 = time.perf_counter()
-        if "Pillow" in missing:
-            log(f"[jpeg] no JPEG corpus written: {missing['Pillow']}; (a) and (b) run on a fake manifest")
-            train_info = build_fake_manifest(num_classes=NC, num_images=JPEG_TRAIN_N, image_size=TRAIN_S,
-                                             seed=0, zipf_a=1.01)
-            val_info = build_fake_manifest(num_classes=NC, num_images=JPEG_VAL_N, image_size=TRAIN_S, seed=1)
-        else:
-            train_info = build_synthetic_dataset(root, "synthetic-hard-zipf", num_images=JPEG_TRAIN_N,
-                                                 image_size=TRAIN_S, seed=0)
-            val_info = build_synthetic_dataset(root, "synthetic-hard-zipf-val", num_images=JPEG_VAL_N,
-                                               image_size=TRAIN_S, seed=1)
-            n_bytes = sum((root / s.image_path).stat().st_size for s in train_info.samples + val_info.samples)
-            log(f"[jpeg] setup: synthetic-hard-zipf {JPEG_TRAIN_N} train + {JPEG_VAL_N} val JPEG files at "
-                f"{TRAIN_S} px ({n_bytes} B) written by build_synthetic_dataset in "
-                f"{time.perf_counter() - t0:.2f} s")
+        train_info = build_synthetic_dataset(root, "synthetic-hard-zipf", num_images=JPEG_TRAIN_N,
+                                             image_size=TRAIN_S, seed=0)
+        val_info = build_synthetic_dataset(root, "synthetic-hard-zipf-val", num_images=JPEG_VAL_N,
+                                           image_size=TRAIN_S, seed=1)
+        n_bytes = sum((root / s.image_path).stat().st_size for s in train_info.samples + val_info.samples)
+        log(f"[jpeg] setup: synthetic-hard-zipf {JPEG_TRAIN_N} train + {JPEG_VAL_N} val JPEG files at "
+            f"{TRAIN_S} px ({n_bytes} B) written by build_synthetic_dataset in "
+            f"{time.perf_counter() - t0:.2f} s")
 
-        # (a) the corpus on the card, fit over one epoch
+        # (a) the corpus on the card, decoded from the files, fit over one epoch
         t0 = time.perf_counter()
-        if jpeg_ok:
-            tr_a = Trainer(train_info, val_info, fake_mode=False, root_dir=root, **kw)
-            corpus = tr_a.pipeline.device_corpus
-            canv, sizes, fails = native_loader.pack_batch(
-                [(root / s.image_path).read_bytes() for s in train_info.samples], TRAIN_S)
-            if fails:
-                fail(f"[jpeg] the CPU's pack_batch failed on {fails} files")
-            source = "the CPU's pack_batch of the JPEG files"
-        else:
-            log(f"[jpeg] (a) JPEG decode into the corpus on the card not run: {missing.get('libjpeg')}; "
-                f"the corpus is built from seeded canvases instead")
-            canv, sizes = fake_canvases(train_info, TRAIN_S, seed=5)
-            corpus = DeviceCorpus.from_canvases(train_info, canv, sizes, dev)
-            tr_a = Trainer(train_info, val_info, fake_mode=True, corpus=corpus, root_dir=root, **kw)
-            source = "top-left packed canvases drawn from seed 5"
+        zero_counts()
+        tr_a = Trainer(train_info, val_info, fake_mode=False, root_dir=root, **kw)
+        torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
-        if not (torch.equal(corpus.images, torch.from_numpy(canv).to(dev).permute(0, 3, 1, 2))
-                and torch.equal(corpus.sizes.cpu(), torch.from_numpy(sizes))):
-            fail(f"[jpeg] (a) the corpus on the card differs from {source}")
-        log(f"[jpeg] (a) corpus {tuple(corpus.images.shape)} uint8 = {corpus.images.numel()} B on the card "
-            f"equals {source}, transposed, byte for byte; trainer set-up {setup_s:.2f} s")
-        del canv
+        counts["a_decode"] = read_counts()
+        chunks = -(-JPEG_TRAIN_N // dp.DECODE_ROWS) + -(-JPEG_VAL_N // dp.DECODE_ROWS)
+        expect("a_decode", counts["a_decode"], {"letterbox": chunks, "gather_rows_planar": 0})
+        corpus = tr_a.pipeline.device_corpus
+        t0 = time.perf_counter()
+        head = train_info._replace(samples=train_info.samples[:JPEG_VAL_N])  # the plain letterbox is slow
+        cpu = DeviceCorpus.decode(head, TRAIN_S, "cpu", root)
+        if not (torch.equal(corpus.images[:JPEG_VAL_N].cpu(), cpu.images)
+                and torch.equal(corpus.sizes[:JPEG_VAL_N].cpu(), cpu.sizes)):
+            fail("[jpeg] (a) the corpus decoded on the card differs from the CPU path's")
+        cpu_val = ValDeviceCache(val_info, tr_a.val_indices, TRAIN_S, MAX_TARGETS, root_dir=root)
+        if not torch.equal(tr_a.val_cache.canvases.cpu(), cpu_val.canvases):
+            fail("[jpeg] (a) the validation cache decoded on the card differs from the CPU path's")
+        cpu_s = time.perf_counter() - t0
+        log(f"[jpeg] (a) corpus {tuple(corpus.images.shape)} uint8 = {corpus.images.numel()} B and the "
+            f"{JPEG_VAL_N}-image validation cache decoded from the JPEG files on the card (letterbox "
+            f"launches {counts['a_decode']['letterbox']}); the first {JPEG_VAL_N} corpus rows and the whole "
+            f"validation cache equal the CPU path's (Pillow + the plain letterbox, {cpu_s:.2f} s there) byte "
+            f"for byte; trainer set-up {setup_s:.2f} s")
+        del cpu, cpu_val
         before = [p.detach().clone() for p in tr_a.net.parameters()]
         marks = {}
 
@@ -560,7 +683,7 @@ def phase_jpeg(card, dev, aug, counted, zero_counts, read_counts):
         counts["a"] = read_counts()
         n_val = math.ceil(JPEG_VAL_N / TRAIN_B)
         expect("a", counts["a"], {"gather_rows_planar": steps, "hsv_planar": steps, "warp_quadrants": steps,
-                                  "greedy_nms_mask": n_val})
+                                  "greedy_nms_mask": n_val, "letterbox": 0})
         em = tr_a.epoch_metrics[-1]
         if not np.isfinite(em["total"]).all() or not finite_map(m_a):
             fail(f"[jpeg] (a) losses or mAP not finite: {em['total']}, {m_a}")
@@ -579,18 +702,19 @@ def phase_jpeg(card, dev, aug, counted, zero_counts, read_counts):
             f"2-{steps}; host enqueue of one whole step (median of 5) {enq:.4f} ms (runs {runs}) | {card}")
         log("[jpeg] (a) validation " + json.dumps(m_a))
 
-        # (b) host-fed: the same augment on the card, the groups loaded by a host thread
-        tr_b = Trainer(train_info, val_info, device_cache=False, fake_mode=not jpeg_ok, root_dir=root,
+        # (b) host-fed: the same augment on the card, the groups decoded by a
+        # host thread and letterboxed on the card
+        tr_b = Trainer(train_info, val_info, device_cache=False, fake_mode=False, root_dir=root,
                        enable_ram_cache=True, **kw)
         pb = tr_b.pipeline
         decoded = []
-        real_pack = native_loader.pack_batch
+        real_decode = native_loader.decode_images
 
-        def counting_pack(bufs, *a, **k):
+        def counting_decode(bufs, *a, **k):
             decoded.append(len(bufs))
-            return real_pack(bufs, *a, **k)
+            return real_decode(bufs, *a, **k)
 
-        native_loader.pack_batch = counting_pack
+        native_loader.decode_images = counting_decode
         try:
             kept, totals = [], []
             zero_counts()
@@ -604,51 +728,31 @@ def phase_jpeg(card, dev, aug, counted, zero_counts, read_counts):
             t_last = time.perf_counter()
             counts["b"] = read_counts()
             first_decoded = sum(decoded)
-            if jpeg_ok:  # a second epoch decodes only the images the first did not
-                seen = set(pb.consumed_plan_log[-1][:JPEG_STEPS].ravel().tolist())
-                decoded.clear()
-                for _ in pb.epoch(JPEG_STEPS):
-                    pass
-                new = set(pb.consumed_plan_log[-1][:JPEG_STEPS].ravel().tolist()) - seen
-                if sum(decoded) != len(new):
-                    fail(f"[jpeg] (b) the second epoch decoded {sum(decoded)} images, want the {len(new)} "
-                         f"its first {JPEG_STEPS} steps had not seen")
-                cache_note = (f"RAM cache: epoch 1 decoded {first_decoded} images in {JPEG_STEPS} steps, "
-                              f"epoch 2 decoded {sum(decoded)}, exactly the {len(new)} not seen before")
-            else:
-                cache_note = f"fake groups: {first_decoded} images decoded"
+            seen = set(pb.consumed_plan_log[-1][:JPEG_STEPS].ravel().tolist())
+            decoded.clear()
+            for _ in pb.epoch(JPEG_STEPS):  # a second epoch decodes only the images the first did not
+                pass
+            new = set(pb.consumed_plan_log[-1][:JPEG_STEPS].ravel().tolist()) - seen
+            if sum(decoded) != len(new):
+                fail(f"[jpeg] (b) the second epoch decoded {sum(decoded)} images, want the {len(new)} "
+                     f"its first {JPEG_STEPS} steps had not seen")
+            held, held_bytes = pb.ram_cache_held()
+            cache_note = (f"RAM cache: epoch 1 decoded {first_decoded} images in {JPEG_STEPS} steps, "
+                          f"epoch 2 decoded {sum(decoded)}, exactly the {len(new)} not seen before; the cache "
+                          f"holds {held} decoded images, {held_bytes} B")
         finally:
-            native_loader.pack_batch = real_pack
+            native_loader.decode_images = real_decode
         expect("b", counts["b"], {"gather_rows_planar": 0, "hsv_planar": JPEG_STEPS,
-                                  "warp_quadrants": JPEG_STEPS})
+                                  "warp_quadrants": JPEG_STEPS, "letterbox": JPEG_STEPS})
         losses = torch.stack(totals).tolist()
         if not all(math.isfinite(v) for v in losses):
             fail(f"[jpeg] (b) losses not finite: {losses}")
-        if jpeg_ok:
-            ref = DeviceDataPipeline(train_info, TRAIN_S, TRAIN_B, aug, max_targets=MAX_TARGETS, seed=0,
-                                     device=dev, corpus=corpus)
-            for i, (want, _) in enumerate(ref.epoch(JPEG_STEPS)):
-                if not all(torch.equal(x, y) for x, y in zip(kept[i], want)):
-                    fail(f"[jpeg] (b) step {i}: the host-fed batch differs from the device-cache one")
-            equal_note = f"all {JPEG_STEPS} batches bitwise equal to the device-cache pipeline's (same seed)"
-        else:
-            cpu = DeviceDataPipeline(train_info, TRAIN_S, TRAIN_B, aug, max_targets=MAX_TARGETS, seed=0,
-                                     device="cpu", device_cache=False)
-            first_draws = DeviceDataPipeline(train_info, TRAIN_S, TRAIN_B, aug, seed=0, device=dev,
-                                             device_cache=False).draw()
-            t0 = time.perf_counter()
-            want, _ = cpu.load_augment(cpu._epoch_plan()[0][0], first_draws.to("cpu"))
-            diff = (kept[0].images.float().cpu() - want.images.float()).abs() * 255.0
-            worst, share = float(diff.max()), float((diff > 1e-3).float().mean())
-            box_err = float((kept[0].boxes.cpu() - want.boxes).abs().max())
-            if (worst > 9.0 + 1e-3 or share >= 0.001 or box_err > 1e-4
-                    or not torch.equal(kept[0].mask.cpu(), want.mask)
-                    or not torch.equal(kept[0].labels.cpu(), want.labels)):
-                fail(f"[jpeg] (b) step 1 on the card against the CPU: pixels {worst}/255 on {share}, "
-                     f"boxes {box_err}, or labels/mask differ")
-            equal_note = (f"step 1 against the same pipeline on the CPU ({time.perf_counter() - t0:.2f} s "
-                          f"there): max pixel difference {worst:.4f}/255 on {share:.6f} of pixels, boxes "
-                          f"{box_err:.2e}, labels and masks equal")
+        ref = DeviceDataPipeline(train_info, TRAIN_S, TRAIN_B, aug, max_targets=MAX_TARGETS, seed=0,
+                                 device=dev, corpus=corpus)
+        for i, (want, _) in enumerate(ref.epoch(JPEG_STEPS)):
+            if not all(torch.equal(x, y) for x, y in zip(kept[i], want)):
+                fail(f"[jpeg] (b) step {i}: the host-fed batch differs from the device-cache one")
+        equal_note = f"all {JPEG_STEPS} batches bitwise equal to the device-cache pipeline's (same seed)"
         g0 = pb._epoch_plan()[0][0]
         pb.consumed_plan_log.pop()  # drawn for timing only
         enq, runs = whole_steps_enqueue(lambda: tr_b.train_step(pb.load_augment(g0, pb.draw())[0]))
@@ -659,42 +763,39 @@ def phase_jpeg(card, dev, aug, counted, zero_counts, read_counts):
         del kept, tr_b, pb
 
         # (c) the host pipeline (the repo's default config), and its validation feed
-        if not host_ok:
-            log(f"[jpeg] (c) host pipeline not run: {'; '.join(missing[k] for k in ('cv2', 'Pillow') if k in missing)}")
-        else:
-            # the host augmentor also runs aug_params.yaml's colour extras (p=0.01 each),
-            # which the device augment has not
-            tr_c = Trainer(train_info, val_info, pipeline="host", num_workers=8, fake_mode=False,
-                           root_dir=root, **{**kw, "aug_params": aug._replace(image_color_transforms=True)})
-            marks.clear()
+        # the host augmentor also runs aug_params.yaml's colour extras (p=0.01 each),
+        # which the device augment has not
+        tr_c = Trainer(train_info, val_info, pipeline="host", num_workers=8, fake_mode=False,
+                       root_dir=root, **{**kw, "aug_params": aug._replace(image_color_transforms=True)})
+        marks.clear()
 
-            def on_step_c(epoch, i, m):
-                if i in (0, JPEG_STEPS - 1):
-                    torch.cuda.synchronize()
-                    marks[i] = time.perf_counter()
+        def on_step_c(epoch, i, m):
+            if i in (0, JPEG_STEPS - 1):
+                torch.cuda.synchronize()
+                marks[i] = time.perf_counter()
 
-            zero_counts()
-            m_c = tr_c.fit(max_epochs=1, epoch_steps=JPEG_STEPS, on_step=on_step_c)
-            counts["c"] = read_counts()
-            expect("c", counts["c"], {"gather_rows_planar": 0, "hsv_planar": 0, "warp_quadrants": 0,
-                                      "greedy_nms_mask": n_val})
-            em = tr_c.epoch_metrics[-1]
-            if not np.isfinite(em["total"]).all() or not finite_map(m_c):
-                fail(f"[jpeg] (c) losses or mAP not finite: {em['total']}, {m_c}")
-            wait = tr_c.prefetcher.wait_seconds
-            feed = iter(tr_c.prefetcher)
-            batch = next(feed)
-            feed.close()
-            enq, runs = whole_steps_enqueue(lambda: tr_c.train_step(batch))
-            log(f"[jpeg] (c) pipeline='host', num_workers=8, {JPEG_STEPS} steps and validation over "
-                f"{JPEG_VAL_N} JPEG files: launches {counts['c']}; losses {em['total'][0]:.4f}->"
-                f"{em['total'][-1]:.4f}, targets dropped {int(em['targets_dropped'])}; "
-                f"{(JPEG_STEPS - 1) * TRAIN_B / (marks[JPEG_STEPS - 1] - marks[0]):.2f} img/s over steps "
-                f"2-{JPEG_STEPS}; consumer waited on the queue {wait:.4f} s in all "
-                f"({wait / JPEG_STEPS * 1e3:.4f} ms a step); host enqueue of one train step (median of 5) "
-                f"{enq:.4f} ms (runs {runs}) | {card}")
-            log("[jpeg] (c) validation " + json.dumps(m_c))
-            del tr_c, batch
+        zero_counts()
+        m_c = tr_c.fit(max_epochs=1, epoch_steps=JPEG_STEPS, on_step=on_step_c)
+        counts["c"] = read_counts()
+        expect("c", counts["c"], {"gather_rows_planar": 0, "hsv_planar": 0, "warp_quadrants": 0,
+                                  "greedy_nms_mask": n_val, "letterbox": 0})
+        em = tr_c.epoch_metrics[-1]
+        if not np.isfinite(em["total"]).all() or not finite_map(m_c):
+            fail(f"[jpeg] (c) losses or mAP not finite: {em['total']}, {m_c}")
+        wait = tr_c.prefetcher.wait_seconds
+        feed = iter(tr_c.prefetcher)
+        batch = next(feed)
+        feed.close()
+        enq, runs = whole_steps_enqueue(lambda: tr_c.train_step(batch))
+        log(f"[jpeg] (c) pipeline='host', num_workers=8, {JPEG_STEPS} steps and validation over "
+            f"{JPEG_VAL_N} JPEG files: launches {counts['c']}; losses {em['total'][0]:.4f}->"
+            f"{em['total'][-1]:.4f}, targets dropped {int(em['targets_dropped'])}; "
+            f"{(JPEG_STEPS - 1) * TRAIN_B / (marks[JPEG_STEPS - 1] - marks[0]):.2f} img/s over steps "
+            f"2-{JPEG_STEPS}; consumer waited on the queue {wait:.4f} s in all "
+            f"({wait / JPEG_STEPS * 1e3:.4f} ms a step); host enqueue of one train step (median of 5) "
+            f"{enq:.4f} ms (runs {runs}) | {card}")
+        log("[jpeg] (c) validation " + json.dumps(m_c))
+        del tr_c, batch
 
         # the two validation feeds on the same canvases
         vcache = tr_a.val_cache
@@ -837,6 +938,163 @@ def phase_cli(card, counted, zero_counts, read_counts):
         log(f"[cli] phase 11: four commands in {time.perf_counter() - t_phase:.2f} s")
     finally:
         trainer_mod.Trainer.from_config = classmethod(from_config)
+    return counts
+
+
+def _write_shard(job):
+    """One shard of phase 17's corpus, in a process of its own."""
+    from object_detection_cib_torch.data.synthetic import build_synthetic_dataset
+
+    root, name, n, seed = job
+    return build_synthetic_dataset(Path(root), name, num_images=n, image_size=CORPUS_PX, seed=seed)
+
+
+def write_corpus(root: Path, split: str, n: int, seed0: int):
+    """``n`` synthetic-hard-zipf JPEG files at ``CORPUS_PX`` under ``root``,
+    written by ``CORPUS_SHARDS`` processes (shard k from seed ``seed0 + k``),
+    as one manifest named ``CORPUS_NAME`` cached for ``split`` where the
+    data root ``root`` finds it; the manifest."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from object_detection_cib_torch.data.cache import DatasetInfo, serialize_cached_dataset
+
+    tag = "val" if split == "validation" else "train"  # "val" in a name draws the val scale range
+    per = -(-n // CORPUS_SHARDS)
+    jobs = [(str(root), f"{CORPUS_NAME}/{tag}-{k}", min(per, n - k * per), seed0 + k)
+            for k in range(CORPUS_SHARDS) if k * per < n]
+    with ProcessPoolExecutor(len(jobs), mp_context=multiprocessing.get_context("spawn")) as pool:
+        parts = list(pool.map(_write_shard, jobs))
+    samples = [smp._replace(id=f"syn-{tag}-{k}-{smp.id}") for k, part in enumerate(parts) for smp in part.samples]
+    info = DatasetInfo(name=CORPUS_NAME, date=parts[0].date, classes=parts[0].classes, samples=samples)
+    serialize_cached_dataset(info, split)
+    return info
+
+
+def phase_corpus(card, zero_counts, read_counts):
+    """Phase 17: the slice's path at full width from a JPEG corpus:
+    ``cli.train.main`` with ``experiment=yv5s`` (yolov5s, nc=10, 416, B=64,
+    bf16), ``data.pipeline=device data.device_cache=True`` and the fused
+    epoch, over 4,992 train and 320 val JPEG files at 640 px written from
+    seeds (``build_synthetic_dataset``, 8 processes), two epochs, validated
+    once. Then the same command over the fake corpus of the same size.
+    Returns the launch counts of both runs."""
+    import numpy as np
+
+    from object_detection_cib_torch.cli.train import main as cli_main
+    from object_detection_cib_torch.data import device_pipeline as dp
+    from object_detection_cib_torch.data import native_loader
+    from object_detection_cib_torch.data import val_cache as vc
+    from object_detection_cib_torch.data.device_pipeline import DeviceCorpus
+    from object_detection_cib_torch.train import trainer as trainer_mod
+
+    t_phase = time.perf_counter()
+    made, decodes, uploads = [], [], []
+    from_config = trainer_mod.Trainer.from_config.__func__
+    real_decode, real_raw = dp.decode_canvases, native_loader.decode_raw
+
+    def recording(cls, cfg, mesh=None):
+        made.append(from_config(cls, cfg, mesh))
+        return made[-1]
+
+    def timed_decode(info, indices, *a, **k):  # the corpus's and the val cache's decode
+        t0 = time.perf_counter()
+        out = real_decode(info, indices, *a, **k)
+        torch.cuda.synchronize()
+        decodes.append((len(indices), time.perf_counter() - t0))
+        return out
+
+    def counted_raw(*a, **k):  # each chunk's host decode: seconds, and the bytes it copies up
+        t0 = time.perf_counter()
+        raw = real_raw(*a, **k)
+        uploads.append((time.perf_counter() - t0, sum(t.numel() * t.element_size() for t in raw[:3])))
+        return raw
+
+    common = ["hydra=static", "extras.enforce_tags=False", "print_config=False", "extras.print_config=False",
+              "logger=csv", "experiment=yv5s", "data.pipeline=device", "data.device_cache=True",
+              f"trainer.max_epochs={CORPUS_EPOCHS}", f"trainer.check_val_every_n_epoch={CORPUS_EPOCHS}"]
+    counts, old_root = {}, os.environ.get("KOD_DATA_ROOT_DIR")
+    trainer_mod.Trainer.from_config = classmethod(recording)
+    dp.decode_canvases = vc.decode_canvases = timed_decode
+    native_loader.decode_raw = counted_raw
+    try:
+        with tempfile.TemporaryDirectory(prefix="jpeg-640-") as tmp:
+            root = Path(tmp)
+            os.environ["KOD_DATA_ROOT_DIR"] = tmp  # the data root: the manifests and their files
+            t0 = time.perf_counter()
+            train_info = write_corpus(root, "train", CORPUS_N, 0)
+            val_info = write_corpus(root, "validation", CORPUS_VAL, 100)
+            n_bytes = sum((root / s.image_path).stat().st_size for s in train_info.samples + val_info.samples)
+            log(f"[corpus] setup: {CORPUS_NAME}, {CORPUS_N} train + {CORPUS_VAL} val JPEG files at "
+                f"{CORPUS_PX}x{CORPUS_PX} ({n_bytes} B) written by build_synthetic_dataset in "
+                f"{CORPUS_SHARDS} processes in {time.perf_counter() - t0:.2f} s")
+            zero_counts()
+            t0 = time.perf_counter()
+            m_j = cli_main([*common, f"paths.output_dir={root / 'run'}", f"dataset_name={CORPUS_NAME}"])
+            wall = time.perf_counter() - t0
+            counts["jpeg"] = read_counts()
+            t = made[-1]
+            steps = CORPUS_N // t.batch_size
+            chunks = -(-CORPUS_N // dp.DECODE_ROWS) + -(-CORPUS_VAL // dp.DECODE_ROWS)
+            want = {"letterbox": chunks, "gather_rows_planar": CORPUS_EPOCHS * steps,
+                    "hsv_planar": CORPUS_EPOCHS * steps, "warp_quadrants": CORPUS_EPOCHS * steps,
+                    "greedy_nms_mask": -(-CORPUS_VAL // t.evaluator.batch_size)}
+            for k, n in want.items():
+                if counts["jpeg"][k] != n:
+                    fail(f"[corpus] launched {k} {counts['jpeg'][k]} times, want {n}")
+            losses = np.concatenate([em["total"] for em in t.epoch_metrics])
+            if len(losses) != CORPUS_EPOCHS * steps or not np.isfinite(losses).all() or not finite_map(m_j):
+                fail(f"[corpus] losses or mAP not finite: {losses}, {m_j}")
+            corpus = t.pipeline.device_corpus
+            if corpus.images.shape != (CORPUS_N, 3, t.image_shape.height, t.image_shape.width):
+                fail(f"[corpus] the corpus on the card is {tuple(corpus.images.shape)}")
+            head = DeviceCorpus.decode(train_info._replace(samples=train_info.samples[:LB_N // 4]),
+                                       t.image_shape.height, "cpu", root)
+            if not torch.equal(corpus.images[:LB_N // 4].cpu(), head.images):
+                fail(f"[corpus] the first {LB_N // 4} corpus rows differ from the CPU path's")
+            (n_tr, s_tr), (n_va, s_va) = decodes[:2]
+            host_s, h2d = (sum(u[i] for u in uploads[:chunks]) for i in (0, 1))
+            ips = sum(t.epoch_imgs) / sum(t.epoch_walls)
+            log(f"[corpus] cli.train experiment=yv5s dataset_name={CORPUS_NAME} data.pipeline=device "
+                f"data.device_cache=True, fused epoch, {CORPUS_EPOCHS} epochs of {steps} steps, one validation: "
+                f"launches {counts['jpeg']}; losses {losses[0]:.4f}->{losses[-1]:.4f}; whole command "
+                f"{wall:.2f} s | {card}")
+            log(f"[corpus] decode: {n_tr} train files into the corpus on the card in {s_tr:.3f} s "
+                f"({n_tr / s_tr:.2f} img/s), {n_va} val files into the validation cache in {s_va:.3f} s; "
+                f"{native_loader.pool_threads()} decode threads, {host_s:.3f} s of it decoding on the host "
+                f"(Pillow, then the pinned blob), {h2d} B of decoded images copied up in {chunks} chunks of "
+                f"{dp.DECODE_ROWS}; the first {LB_N // 4} rows equal the CPU path's | {card}")
+            log(f"[corpus] fused epochs over the JPEG corpus: {ips:.2f} img/s over the {CORPUS_EPOCHS} epochs' "
+                f"summed windows ({sum(t.epoch_imgs)} images in {[round(w, 4) for w in t.epoch_walls]} s, host "
+                f"clock) | {card}")
+            log("[corpus] validation " + json.dumps(m_j))
+            del t, corpus, head
+            made.clear()
+            torch.cuda.empty_cache()
+
+            # the same command over the fake corpus of the same size (an observation)
+            zero_counts()
+            cli_main([*common, f"paths.output_dir={root / 'fake'}", "dataset_name=fake",
+                      f"data.fake_num_images={CORPUS_N}", "data.val_device_cache=False",
+                      f"trainer.check_val_every_n_epoch={CORPUS_EPOCHS + 1}"])
+            counts["fake"] = read_counts()
+            f = made[-1]
+            if counts["fake"]["letterbox"] or counts["fake"]["gather_rows_planar"] != CORPUS_EPOCHS * steps:
+                fail(f"[corpus] the fake run launched {counts['fake']}")
+            log(f"[corpus] the same epochs over the fake corpus of {CORPUS_N} images (no validation): "
+                f"{sum(f.epoch_imgs) / sum(f.epoch_walls):.2f} img/s ({[round(w, 4) for w in f.epoch_walls]} s); "
+                f"launches {counts['fake']}: an observation, not a claim | {card}")
+            del f
+            made.clear()
+    finally:
+        trainer_mod.Trainer.from_config = classmethod(from_config)
+        dp.decode_canvases = vc.decode_canvases = real_decode
+        native_loader.decode_raw = real_raw
+        if old_root is None:
+            os.environ.pop("KOD_DATA_ROOT_DIR", None)
+        else:
+            os.environ["KOD_DATA_ROOT_DIR"] = old_root
+    log(f"[corpus] phase 17 {time.perf_counter() - t_phase:.2f} s | {card}")
     return counts
 
 
@@ -1046,11 +1304,12 @@ MESH_PER_CARD = 1280  # phase 13 (c): fake images a card (20 steps an epoch at 6
 def _kernel_entries():
     from object_detection_cib_torch.ops import gather as gather_ops
     from object_detection_cib_torch.ops import hsv as hsv_ops
+    from object_detection_cib_torch.ops import letterbox as lb_ops
     from object_detection_cib_torch.ops import nms as nms_ops
     from object_detection_cib_torch.ops import warp as warp_ops
 
     return (gather_ops.gather_rows_planar, gather_ops.gather_rows_flat, hsv_ops.hsv_planar,
-            warp_ops.warp_quadrants, nms_ops.greedy_nms_mask)
+            warp_ops.warp_quadrants, nms_ops.greedy_nms_mask, lb_ops.letterbox)
 
 
 def _zero_kernels():
@@ -2333,8 +2592,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path, action="append", default=[],
                     help="root of another checkout whose four kernel sources are timed beside")
-    ap.add_argument("--phase", choices=["all", "ddp", "hosts", "rest", "spatial"], default="all",
-                    help="ddp: phases 1, 2 and 13 alone (data parallelism; (c) needs two or more cards); "
+    ap.add_argument("--phase", choices=["all", "ddp", "hosts", "rest", "spatial", "jpeg"], default="all",
+                    help="jpeg: phases 1, 2, the letterbox kernel of 7, 10 and 17 alone (the JPEG feeds); "
+                         "ddp: phases 1, 2 and 13 alone (data parallelism; (c) needs two or more cards); "
                          "hosts: phases 1, 2 and 14 alone (several hosts; (b) needs four cards); "
                          "rest: phases 1, 2 and 15 alone; spatial: phases 1, 2 and 16 alone (DP x SP; (b) needs "
                          "two cards, (c) four)")
@@ -2398,6 +2658,27 @@ def main() -> None:
                           csrc=b / "object_detection_cib_torch" / "ops" / "csrc")
         baselines[b] = {n: ctypes.CDLL(str(p)) for n, p in built.items()}
         log(f"[build] baseline {b}: {', '.join(built)} in {time.perf_counter() - t0:.2f} s")
+    usage = {}  # kernel entry -> (registers per thread, static shared bytes), from ptxas
+    for report in REPORTS.values():
+        usage.update(kernel_usage(report))
+
+    def resources(entry_part: str, dynamic: int) -> str:
+        found = [(e, u) for e, u in usage.items() if entry_part in e]
+        if not found:
+            return f"registers not reported, shared memory {dynamic} B dynamic per block"
+        return "; ".join(f"{e}: {r} registers per thread, {st + dynamic} B shared memory per block "
+                         f"({st} static + {dynamic} dynamic)" for e, (r, st) in found)
+
+    if args.phase == "jpeg":
+        lb_err, lb_timing, _ = phase_letterbox(card, dev, resources)
+        jpeg = phase_jpeg(card, dev, AugParams(), _kernel_entries(), _zero_kernels, _read_kernels)
+        corpus_counts = phase_corpus(card, _zero_kernels, _read_kernels)
+        print(json.dumps({"letterbox": {"max_abs_err": lb_err, "timing": lb_timing},
+                          "jpeg_launches": jpeg, "corpus_launches": corpus_counts}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
     if args.phase == "spatial":
         spatial = phase_spatial(card)
         print(json.dumps({"spatial_launches": spatial}), flush=True)
@@ -2426,16 +2707,6 @@ def main() -> None:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}), flush=True)
         return
-    usage = {}  # kernel entry -> (registers per thread, static shared bytes), from ptxas
-    for report in REPORTS.values():
-        usage.update(kernel_usage(report))
-
-    def resources(entry_part: str, dynamic: int) -> str:
-        found = [(e, u) for e, u in usage.items() if entry_part in e]
-        if not found:
-            return f"registers not reported, shared memory {dynamic} B dynamic per block"
-        return "; ".join(f"{e}: {r} registers per thread, {st + dynamic} B shared memory per block "
-                         f"({st} static + {dynamic} dynamic)" for e, (r, st) in found)
 
     # -------------------------------------------------- 3 kernels vs plain
     def rand_case(K, n_real, seed, span, wh):
@@ -2886,6 +3157,7 @@ def main() -> None:
             f"baseline {b} {b_ms:.4f} ms (turns {turns}) | {card}")
     timing["greedy_nms_mask"] = (nms_ms, plain_ms, None, bound_ms, bound_by)
     errs["greedy_nms_mask"] = max_err
+    errs["letterbox"], timing["letterbox"], call_ms["letterbox"] = phase_letterbox(card, dev, resources)
 
     # ------------------------------------------------------------- 8 training
     net = trainer.net
@@ -3212,8 +3484,12 @@ def main() -> None:
 
     # ------------------------------------------------------------- 16 spatial
     spatial = phase_spatial(card)
+    torch.cuda.empty_cache()
 
-    # -------------------------------------------------------------- 17 report
+    # ---------------------------------------------------------------- 17 corpus
+    corpus_counts = phase_corpus(card, zero_counts, read_counts)
+
+    # -------------------------------------------------------------- 18 report
     src = "object_detection_cib_torch/ops/csrc/"
     rows = [
         ("greedy_nms_mask", "nms.cu", "object_detection_cib_tpu/ops/pallas_nms.py:131", serve_launches),
@@ -3225,6 +3501,10 @@ def main() -> None:
          train_launches["hsv_planar"]),
         ("warp_quadrants", "warp.cu", "object_detection_cib_tpu/ops/pallas_warp.py:208",
          train_launches["warp_quadrants"]),
+        # the port's own kernel: no Pallas counterpart, it ports the JAX
+        # package's host letterbox; its main path is phase 17's decode
+        ("letterbox", "letterbox.cu", "native/loader.cpp:75-118 (the port's own kernel; no pallas_call)",
+         corpus_counts["jpeg"]["letterbox"]),
     ]
     kernels = []
     for name, file, replaces, launches in rows:
@@ -3243,7 +3523,8 @@ def main() -> None:
                                  "ddp": {part: n[name] for part, n in ddp.items()},
                                  "hosts": {part: n[name] for part, n in hosts.items()},
                                  "rest": {part: n[name] for part, n in rest.items()},
-                                 "spatial": {part: n[name] for part, n in spatial.items()}},
+                                 "spatial": {part: n[name] for part, n in spatial.items()},
+                                 "corpus": {part: n[name] for part, n in corpus_counts.items()}},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

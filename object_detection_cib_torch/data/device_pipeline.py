@@ -3,18 +3,22 @@ step, from a planar corpus held on the card or loaded per step by the host.
 
 Counterpart of ``object_detection_cib_tpu/data/device_pipeline.py``
 (``data.pipeline=device``). The images come from fake draws (``fake_mode``)
-or from JPEG files decoded by the native loader (``native_loader.
-pack_batch``; a file that fails to decode raises ``ValueError``), and reach
-the card one of two ways:
+or from JPEG files (``native_loader``: decoded on the host, letterboxed
+where the rows live by ``ops/letterbox.py``, on the card its kernel; a file
+that fails to decode raises ``ValueError``), and reach the card one of two
+ways:
 
   * ``device_cache=True``: the whole corpus is decoded once into a
-    ``DeviceCorpus`` (N, 3, S, S) uint8 on the card, and K2 gathers each
-    step's rows;
+    ``DeviceCorpus`` (N, 3, S, S) uint8 on the card, ``DECODE_ROWS`` files
+    at a time (their decoded bytes copied up from pinned memory, then
+    letterboxed into the corpus rows), and K2 gathers each step's rows;
   * ``device_cache=False`` (host-fed, the JAX package's ``_load_group`` and
-    iterator): a producer thread loads each step's groups into pinned host
-    memory, up to ``prefetch`` steps ahead (with ``enable_ram_cache`` each
-    JPEG is decoded once in all), and the consumer copies them up and
-    transposes them to planar on the card. The JAX package augments this
+    iterator): a producer thread loads each step's groups as decoded RGB
+    images (``RawImages``) in pinned host memory, up to ``prefetch`` steps
+    ahead (with ``enable_ram_cache`` each JPEG is decoded once in all), and
+    the consumer copies them up and letterboxes them into planar rows on
+    the card (fake content is drawn at its content size, which letterboxes
+    to itself). The JAX package augments this
     feed in NHWC; the port augments it planar with the same function as
     the corpus on the card (the two layouts give the same bytes,
     ``tests/test_planar_corpus.py``), so the fused path launches K5 and K4,
@@ -113,6 +117,7 @@ import numpy as np
 import torch
 
 from object_detection_cib_torch.data import native_loader
+from object_detection_cib_torch.data.native_loader import RawImages
 from object_detection_cib_torch.data.cache import DatasetInfo
 from object_detection_cib_torch.data.host_augment import AugParams
 from object_detection_cib_torch.data.samplers import shard_indices
@@ -136,6 +141,7 @@ from object_detection_cib_torch.ops.augment import (
 from object_detection_cib_torch.ops.gather import gather_rows_planar
 from object_detection_cib_torch.ops.graph import CapturedGraph
 from object_detection_cib_torch.ops.hsv import hsv_planar
+from object_detection_cib_torch.ops.letterbox import letterbox
 from object_detection_cib_torch.ops.warp import FILL
 from object_detection_cib_torch.parallel.distributed import reduce_scatter_sum
 from object_detection_cib_torch.parallel.mesh import DataMesh, batch_sharding, host_batch_sharding, refuse_model_axis
@@ -345,13 +351,6 @@ def build_device_augment_fn(
     return fn
 
 
-class HostGroup(NamedTuple):
-    """One step's group as the host-fed pipeline's producer loads it."""
-
-    images: torch.Tensor  # (n, S, S, 3) uint8 canvases, content top-left; pinned on a card machine
-    sizes: torch.Tensor  # (n, 2) int32 content (h, w)
-
-
 def content_size(meta, target_size: int) -> Tuple[int, int]:
     """(h, w) of an image resized to longest side S (the native loader's rounding)."""
     S = target_size
@@ -405,17 +404,34 @@ def fake_canvases(info: DatasetInfo, target_size: int, seed: int = 0) -> Tuple[n
     return canvases, sizes
 
 
+DECODE_ROWS = 256  # JPEG files decoded and letterboxed at a time: bounds the pinned staging
+
+
+def read_files(info: DatasetInfo, indices: Sequence[int], root_dir: Path) -> list:
+    """The bytes of the image files of samples ``indices``."""
+    return [(root_dir / info.samples[int(i)].image_path).read_bytes() for i in indices]
+
+
 def decode_canvases(info: DatasetInfo, indices: Sequence[int], target_size: int, root_dir: Path,
-                    out: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
-    """The JPEG files of samples ``indices`` decoded, resized to longest side S
-    and packed top-left on FILL by the native loader (``pack_batch``, into
-    ``out`` when given): (n, S, S, 3) uint8 canvases and (n, 2) int32 sizes.
-    Any decode failure raises ``ValueError``."""
-    bufs = [(root_dir / info.samples[int(i)].image_path).read_bytes() for i in indices]
-    canvases, sizes, fails = native_loader.pack_batch(bufs, target_size, out=out)
+                    out: torch.Tensor, center: bool = False) -> torch.Tensor:
+    """The JPEG files of samples ``indices`` decoded on the host and
+    letterboxed (resized to longest side S, packed top-left on FILL, or
+    centred with ``center``) into ``out``, an (n, 3, S, S) uint8 view of
+    rows on any device, ``DECODE_ROWS`` files at a time
+    (``native_loader.pack_rows``: on the card the letterbox kernel, the
+    next files decoded while it runs): (n, 2) int32 sizes on ``out``'s
+    device. Any decode failure raises ``ValueError``."""
+    indices = list(indices)
+    sizes = torch.empty((len(indices), 2), dtype=torch.int32, device=out.device)
+    fails = 0
+    for lo in range(0, len(indices), DECODE_ROWS):
+        rows = slice(lo, min(lo + DECODE_ROWS, len(indices)))
+        sizes[rows], failed = native_loader.pack_rows(read_files(info, indices[rows], root_dir), out[rows],
+                                                      center)
+        fails += failed
     if fails:
-        raise ValueError(f"{fails} of {len(bufs)} JPEG files failed to decode")
-    return canvases, sizes
+        raise ValueError(f"{fails} of {len(indices)} JPEG files failed to decode")
+    return sizes
 
 
 class DeviceCorpus:
@@ -453,9 +469,9 @@ class DeviceCorpus:
     @classmethod
     def from_canvases(cls, info: DatasetInfo, canvases: np.ndarray, sizes: np.ndarray,
                       device: Union[str, torch.device]) -> "DeviceCorpus":
-        """(N, S, S, 3) uint8 canvases and (N, 2) sizes, as ``pack_batch``
-        gives them, to the device; the transpose to planar runs there, a
-        chunk of rows at a time."""
+        """(N, S, S, 3) uint8 canvases and (N, 2) sizes (fake content, or
+        ``pack_batch``'s) to the device; the transpose to planar runs there,
+        a chunk of rows at a time."""
         device = torch.device(device)
         n, S = canvases.shape[:2]
         if canvases.shape != (n, S, S, 3) or canvases.dtype != np.uint8 or n != len(info.samples):
@@ -471,9 +487,11 @@ class DeviceCorpus:
     @classmethod
     def decode(cls, info: DatasetInfo, target_size: int, device, root_dir: Optional[Path] = None
                ) -> "DeviceCorpus":
+        """The JPEG files decoded into the corpus rows (``decode_canvases``)."""
         root = Path(root_dir) if root_dir else get_root_dir()
-        return cls.from_canvases(
-            info, *decode_canvases(info, range(len(info.samples)), target_size, root), device)
+        device, n = torch.device(device), len(info.samples)
+        images = torch.empty((n, 3, target_size, target_size), dtype=torch.uint8, device=device)
+        return cls(info, images, decode_canvases(info, range(n), target_size, root, images), device)
 
     @classmethod
     def sharded(cls, info: DatasetInfo, target_size: int, mesh: DataMesh, fake_mode: bool,
@@ -490,18 +508,17 @@ class DeviceCorpus:
         lo, hi = min(mesh.rank * per, n), min((mesh.rank + 1) * per, n)
         if fake_mode:
             canvases, sizes = fake_canvases(info, S)
-            canvases, sizes = canvases[lo:hi], torch.from_numpy(sizes)
+            canvases = np.concatenate([canvases[lo:hi], np.zeros((per - (hi - lo), S, S, 3), np.uint8)])
+            images, sizes = cls._planar(canvases, dev), torch.from_numpy(sizes).to(dev)
         else:
             root = Path(root_dir) if root_dir else get_root_dir()
-            canvases, mine = decode_canvases(info, range(lo, hi), S, root)
+            images = torch.zeros((per, 3, S, S), dtype=torch.uint8, device=dev)
             padded = torch.zeros((per, 2), dtype=torch.int32, device=dev)
-            padded[:hi - lo] = torch.from_numpy(np.asarray(mine, np.int32)).to(dev)
+            padded[:hi - lo] = decode_canvases(info, range(lo, hi), S, root, images[:hi - lo])
             parts = [torch.empty_like(padded) for _ in range(mesh.size)]
             dist.all_gather(parts, padded, group=mesh.group)
-            sizes = torch.cat(parts)[:n].cpu()
-        if hi - lo < per:
-            canvases = np.concatenate([canvases, np.zeros((per - (hi - lo), S, S, 3), np.uint8)])
-        return cls(info, cls._planar(canvases, dev), sizes.to(torch.int32).to(dev), dev, mesh, mesh.rank * per)
+            sizes = torch.cat(parts)[:n]
+        return cls(info, images, sizes, dev, mesh, mesh.rank * per)
 
     def exchange(self, idx: torch.Tensor) -> torch.Tensor:
         """The images of this rank's part (``batch_sharding``) of the global
@@ -598,8 +615,8 @@ class DeviceDataPipeline:
         # every epoch plan drawn, rows per step (FIFO): the trainer counts
         # the instances of the epoch it trained without drawing the sampler
         self.consumed_plan_log: deque = deque(maxlen=8)
-        # host-fed JPEG canvases decoded so far (one decode per image in all)
-        self._canvas_cache: dict = {}
+        # host-fed JPEG images decoded so far (one decode per image in all)
+        self._image_cache: dict = {}
         if not device_cache:
             if corpus is not None:
                 raise ValueError("corpus is the card-resident corpus of device_cache=True")
@@ -752,53 +769,57 @@ class DeviceDataPipeline:
             images = gather_rows_planar(self.corpus, idx)
         return DeviceSample(images, self.sizes[rows], self.t_boxes[rows], self.t_labels[rows], self.t_mask[rows])
 
-    def _load_group(self, indices, keep: slice = slice(None)) -> HostGroup:
-        """The canvases and sizes of corpus rows ``indices``, on the host (the
-        JAX package's ``_load_group``; targets stay on the device). Fake mode
-        draws each row's content from a generator seeded by
-        ``hash(tuple(indices))``, which is deterministic for integers; JPEG
-        mode decodes by ``pack_batch``, straight into pinned memory, or,
-        with ``enable_ram_cache``, decodes each image once and copies it from
-        the cache after that. Only the rows ``keep`` of the group are
-        returned and, from JPEG files, read; fake mode draws every row's
-        content in order, as the stream is the group's."""
+    def _load_group(self, indices, keep: slice = slice(None)) -> RawImages:
+        """The images of corpus rows ``indices`` on the host, decoded but not
+        yet letterboxed, in pinned memory on a card machine (the JAX
+        package's ``_load_group``, which letterboxes too; targets stay on the
+        device). Fake mode draws each row's content, at its content size,
+        from a generator seeded by ``hash(tuple(indices))``, which is
+        deterministic for integers; JPEG mode decodes the files
+        (``native_loader.decode_images``) or, with ``enable_ram_cache``,
+        decodes each image once and takes it from the cache after that. Only
+        the rows ``keep`` of the group are returned and, from JPEG files,
+        read; fake mode draws every row's content in order, as the stream is
+        the group's. A file that fails to decode raises ``ValueError``."""
         start, stop, _ = keep.indices(len(indices))
         kept = indices[keep]
-        n, S = len(kept), self.S
         pin = self.device.type == "cuda"
-        images = torch.empty((n, S, S, 3), dtype=torch.uint8, pin_memory=pin)
-        sizes = torch.empty((n, 2), dtype=torch.int32, pin_memory=pin)
-        canv, sz = images.numpy(), sizes.numpy()
         if self.fake_mode:
-            canv.fill(int(FILL))
             rng = np.random.default_rng(abs(hash(tuple(indices))) % (2**31))
+            images = []
             for i, idx in enumerate(indices):
-                h, w = content_size(self.info.samples[idx].image_metadata, S)
+                h, w = content_size(self.info.samples[idx].image_metadata, self.S)
                 content = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
                 if start <= i < stop:
-                    canv[i - start, :h, :w] = content
-                    sz[i - start] = (h, w)
-        elif self.enable_ram_cache:
-            missing = [i for i in dict.fromkeys(int(i) for i in kept) if i not in self._canvas_cache]
-            if missing:
-                cv, msz = decode_canvases(self.info, missing, S, self.root_dir)
-                for j, i in enumerate(missing):
-                    self._canvas_cache[i] = (cv[j], msz[j])
-            for j, i in enumerate(kept):
-                canv[j], sz[j] = self._canvas_cache[int(i)]
+                    images.append(content)
+            return RawImages.from_arrays(images, pin)
+        if self.enable_ram_cache:
+            missing = [i for i in dict.fromkeys(int(i) for i in kept) if i not in self._image_cache]
+            decoded = native_loader.decode_images(read_files(self.info, missing, self.root_dir))
+            self._image_cache.update(zip(missing, decoded))
+            images = [self._image_cache[int(i)] for i in kept]
         else:
-            sz[:] = decode_canvases(self.info, kept, S, self.root_dir, out=canv)[1]
-        return HostGroup(images, sizes)
+            images = native_loader.decode_images(read_files(self.info, kept, self.root_dir))
+        raw = RawImages.from_arrays(images, pin)
+        if raw.failures:
+            raise ValueError(f"{raw.failures} of {len(images)} JPEG files failed to decode")
+        return raw
 
-    def upload(self, group: HostGroup, rows: torch.Tensor) -> DeviceSample:
-        """A loaded group on the device, planar by a transpose there, with the
-        targets of corpus rows ``rows`` gathered from the arrays on the device.
-        The copy from pinned memory does not block the host; torch's pinned
-        allocator does not hand the buffer out again before the copy ends."""
-        images = group.images.to(self.device, non_blocking=True).permute(0, 3, 1, 2).contiguous()
+    def ram_cache_held(self) -> Tuple[int, int]:
+        """(images, bytes) the RAM cache holds: decoded RGB images, before the letterbox."""
+        return len(self._image_cache), sum(a.nbytes for a in self._image_cache.values() if a is not None)
+
+    def upload(self, group: RawImages, rows: torch.Tensor) -> DeviceSample:
+        """A loaded group on the device: its decoded images copied up and
+        letterboxed into planar rows there (``ops/letterbox.py``), with the
+        targets of corpus rows ``rows`` gathered from the arrays on the
+        device. The copy from pinned memory does not block the host; torch's
+        pinned allocator does not hand the buffer out again before the copy
+        ends."""
+        images = torch.empty((group.hw.shape[0], 3, self.S, self.S), dtype=torch.uint8, device=self.device)
+        sizes = letterbox(*group.to(self.device)[:3], images)
         r = rows.long()
-        return DeviceSample(images, group.sizes.to(self.device, non_blocking=True),
-                            self.t_boxes[r], self.t_labels[r], self.t_mask[r])
+        return DeviceSample(images, sizes, self.t_boxes[r], self.t_labels[r], self.t_mask[r])
 
     def draw(self) -> AugmentDraws:
         """One step's draws from the pipeline's generator: under a mesh the

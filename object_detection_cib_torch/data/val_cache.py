@@ -1,10 +1,14 @@
 """Device-resident validation corpus.
 
-A copy of ``object_detection_cib_tpu/data/val_cache.py`` (numpy only; the
-port's ``train/trainer.py:Evaluator`` puts the canvases on the card), with
-one change: fake content is drawn per image of the whole set, so that a
-rank's shard holds the bytes of the whole set's cache. The notes below are
-the JAX package's.
+A copy of ``object_detection_cib_tpu/data/val_cache.py`` with two changes.
+The canvases are a tensor on ``device`` (the JAX package's are numpy, put on
+its device by its trainer): JPEG files are decoded on the host and
+letterboxed, centred, straight into NHWC rows on that device
+(``device_pipeline.decode_canvases``, the path of the training corpus: on
+the card the letterbox kernel), fake canvases are drawn on the host and copied up.
+And fake content is drawn per image of the whole set, so that a rank's
+shard holds the bytes of the whole set's cache. The notes below are the
+JAX package's.
 
 Why: the per-batch validation path ships full normalized f32 images from
 host to device every epoch — 4 B/px over this environment's remote-device
@@ -29,20 +33,21 @@ path remains the parity fallback.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
+import torch
 
-from object_detection_cib_torch.data import native_loader
 from object_detection_cib_torch.data.cache import DatasetInfo
+from object_detection_cib_torch.data.device_pipeline import decode_canvases
 from object_detection_cib_torch.utils.fs import get_root_dir
 
 
 class ValDeviceCache:
     """Decoded, letterbox-CENTERED validation corpus + padded GT arrays.
 
-    canvases: (N, S, S, 3) uint8, content centered, fill 114
-    gt_boxes/gt_labels/gt_mask: (N, T, 4)/(N, T)/(N, T) in canvas coords
+    canvases: (N, S, S, 3) uint8 tensor on ``device``, content centered, fill 114
+    gt_boxes/gt_labels/gt_mask: (N, T, 4)/(N, T)/(N, T) numpy, in canvas coords
     """
 
     def __init__(
@@ -53,6 +58,7 @@ class ValDeviceCache:
         max_targets: int,
         fake_mode: bool = False,
         root_dir: Optional[Path] = None,
+        device: Union[str, torch.device] = "cpu",
     ):
         self.S = S = target_size
         idx = np.asarray(indices, np.int64)
@@ -61,9 +67,10 @@ class ValDeviceCache:
         root = Path(root_dir) if root_dir else get_root_dir()
         label_to_index = {c: i for i, c in enumerate(info.classes)}
 
-        canvases = np.full((n, S, S, 3), 114, np.uint8)
+        device = torch.device(device)
         sizes = np.zeros((n, 2), np.int32)
         if fake_mode:
+            canvases = np.full((n, S, S, 3), 114, np.uint8)
             # image i's content is the i-th draw of one stream over the whole
             # set, so a rank's shard of the set holds the same bytes as the
             # whole set's cache (the JAX package draws over `indices` only,
@@ -77,28 +84,23 @@ class ValDeviceCache:
                 w = min(max(int(round(meta.width * scale)), 1), S)
                 content = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
                 if i in where:
-                    canvases[where[i], :h, :w] = content
+                    top, left = (S - h) // 2, (S - w) // 2
+                    canvases[where[i], top:top + h, left:left + w] = content
                     sizes[where[i]] = (h, w)
+            centered = torch.from_numpy(canvases).to(device)
         else:
-            bufs = [
-                (root / info.samples[int(i)].image_path).read_bytes()
-                for i in idx
-            ]
-            canvases, sizes, fails = native_loader.pack_batch(bufs, S)
-            if fails:
-                raise ValueError(f"{fails} JPEG decode failures in val set")
+            # centred at once (host letterbox_pad parity)
+            centered = torch.empty((n, S, S, 3), dtype=torch.uint8, device=device)
+            sizes = decode_canvases(info, idx, S, root, centered.permute(0, 3, 1, 2), center=True).cpu().numpy()
 
-        # center the top-left-packed content (host letterbox_pad parity)
         T = max_targets
         gt_boxes = np.zeros((n, T, 4), np.float32)
         gt_labels = np.zeros((n, T), np.int32)
         gt_mask = np.zeros((n, T), bool)
-        centered = np.full_like(canvases, 114)
         for j, i in enumerate(idx):
             s = info.samples[int(i)]
             h, w = int(sizes[j, 0]), int(sizes[j, 1])
             top, left = (S - h) // 2, (S - w) // 2
-            centered[j, top : top + h, left : left + w] = canvases[j, :h, :w]
             meta = s.image_metadata
             # uniform box scale, the host reader's exact math
             # (data/reader.py longest_max_size: bboxes * scale with

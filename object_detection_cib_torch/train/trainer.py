@@ -83,8 +83,8 @@ bit.
 (:832-956) and ``Evaluator.validate_batches`` of ``Trainer.validate``'s
 host feed (:787-830); ``Evaluator.predict`` and ``predict_batches`` of
 ``Trainer.predict``'s per-image dicts (:1333-1382). The uint8 canvases of a
-``ValDeviceCache`` go to the card once, as one (nb, B, S, S, 3) tensor
-padded with zero images; each block is sliced, scaled by 1/255 and run
+``ValDeviceCache`` (built on the trainer's device) become one (nb, B, S, S,
+3) tensor there, padded with zero images; each block is sliced, scaled by 1/255 and run
 through the eval step. The host feed copies each batch up, the last one
 padded to B with zero images. Either way the host converts and scores batch
 i-1 while the card runs batch i (a one-deep pipeline: results come back by
@@ -180,13 +180,12 @@ class Evaluator:
             B = self.batch_size
             n = len(cache)
             nb = max((n + B - 1) // B, 1)
-            canv = cache.canvases
+            canv = cache.canvases.to(self.device)
             pad = nb * B - n
             if pad:
-                canv = np.concatenate([canv, np.zeros((pad,) + canv.shape[1:], canv.dtype)])
+                canv = torch.cat([canv, canv.new_zeros((pad,) + tuple(canv.shape[1:]))])
             S = cache.S
-            ds = torch.from_numpy(canv.reshape(nb, B, S, S, 3)).to(self.device)
-            self._blocks = (cache, ds)
+            self._blocks = (cache, canv.reshape(nb, B, S, S, 3))
         return self._blocks[1]
 
     def run_blocks(self, cache: ValDeviceCache,
@@ -539,8 +538,8 @@ class Trainer:
             self.val_indices = shard_indices(self.val_indices, self.mesh.rank, self.mesh.size)
         self.val_cache: Optional[ValDeviceCache] = None
         if pipeline == "device" and device_cache and val_device_cache:
-            self.val_cache = ValDeviceCache(val_info, self.val_indices, image_size,
-                                            max_targets, fake_mode=self.fake_mode, root_dir=root_dir)
+            self.val_cache = ValDeviceCache(val_info, self.val_indices, image_size, max_targets,
+                                            fake_mode=self.fake_mode, root_dir=root_dir, device=self.device)
         self._val_dataset = None
         # under a mesh each rank validates at its share of the host's batch,
         # as each local device of a JAX host does (JAX :853-859): the

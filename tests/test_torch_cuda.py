@@ -436,6 +436,66 @@ def test_exact_warp_refuses_tf32(dev):
     card.gather_augment(idx, card.draw())
 
 
+# ------------------------------------------------------------ the letterbox
+
+def _raw_images(sizes, seed):
+    """Seeded (h, w, 3) uint8 images, None for a failed file, in one blob."""
+    from object_detection_cib_torch.data.native_loader import RawImages
+
+    rng = np.random.default_rng(seed)
+    return RawImages.from_arrays([None if hw is None else rng.integers(0, 256, hw + (3,), dtype=np.uint8)
+                                  for hw in sizes])
+
+
+@pytest.mark.parametrize("S", [416, 640, 97])
+@pytest.mark.parametrize("center", [False, True])
+def test_letterbox_equals_plain_bitwise(dev, S, center):
+    """The kernel against its plain version on the card, planar rows and an
+    NHWC view: COCO-like sizes, 1 x N, N x 1, 97 x 1203, a failed file."""
+    from object_detection_cib_torch.ops import letterbox as lb
+
+    sizes = [(480, 640), (640, 480), (427, 640), (375, 500), (1, 517), (517, 1), (1203, 97), (97, 1203),
+             (1, 1), None, (S, S), (640, 640)]
+    raw = _raw_images(sizes, seed=S + center)
+    on = [t.to(dev) for t in raw[:3]]
+    for nhwc in (False, True):
+        shape = (len(sizes), S, S, 3) if nhwc else (len(sizes), 3, S, S)
+        got, want = (torch.zeros(shape, dtype=torch.uint8, device=dev) for _ in range(2))
+        view = (lambda t: t.permute(0, 3, 1, 2)) if nhwc else (lambda t: t)
+        before = lb.letterbox.launches
+        got_sizes = lb.letterbox(*on, view(got), center)
+        torch.cuda.synchronize()
+        assert lb.letterbox.launches == before + 1
+        want_sizes = lb.letterbox_plain(*on, view(want), center)
+        assert torch.equal(got_sizes, want_sizes)
+        assert torch.equal(got, want)
+    assert got_sizes[9].tolist() == [0, 0]
+
+
+def test_pack_rows_on_card_equals_cpu(dev):
+    """JPEG bytes decoded on the host and letterboxed into rows on the card:
+    the CPU's plain version's bytes and sizes, a failing file included."""
+    import io
+
+    from PIL import Image
+
+    from object_detection_cib_torch.data import native_loader
+
+    rng = np.random.default_rng(3)
+    bufs = []
+    for h, w in [(480, 640), (427, 640), (1, 300), (1203, 97)]:
+        b = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(b, format="JPEG")
+        bufs.append(b.getvalue())
+    bufs.append(b"not a jpeg")
+    cpu = torch.zeros((5, 3, 416, 416), dtype=torch.uint8)
+    card = torch.zeros((5, 3, 416, 416), dtype=torch.uint8, device=dev)
+    s_cpu, f_cpu = native_loader.pack_rows(bufs, cpu)
+    s_card, f_card = native_loader.pack_rows(bufs, card)
+    assert f_cpu == f_card == 1 and s_card.is_cuda
+    assert torch.equal(s_card.cpu(), s_cpu) and torch.equal(card.cpu(), cpu)
+
+
 # ------------------------------------------------------- the host feeds
 
 def test_corpus_from_canvases_on_card_equals_cpu(dev):

@@ -115,7 +115,7 @@ def test_load_group_matches_jax(jpegs, mode):
     tp = _port(info, root, device_cache=False, **kw)
     jp = _jax(jinfo, root, device_cache=False, **kw)
     decodes = []
-    real = t_native.pack_batch
+    real = t_native.decode_images
 
     def counting(bufs, *a, **k):
         decodes.append(len(bufs))
@@ -123,18 +123,18 @@ def test_load_group_matches_jax(jpegs, mode):
 
     groups, _, _ = jp._epoch_plan()
     for group in list(groups) * 2:  # the epoch twice: the RAM cache is warm the second time
-        orig = t_native.pack_batch
-        t_native.pack_batch = counting
+        orig = t_native.decode_images
+        t_native.decode_images = counting
         try:
             got = tp._load_group(group)
         finally:
-            t_native.pack_batch = orig
+            t_native.decode_images = orig
         want = jp._load_group(group)
-        np.testing.assert_array_equal(got.images.numpy(), np.asarray(want.images))
-        np.testing.assert_array_equal(got.sizes.numpy(), np.asarray(want.sizes))
+        assert got.failures == 0 and got.blob.numel() == int((got.hw[:, 0] * got.hw[:, 1] * 3).sum())
         rows = torch.from_numpy(np.asarray(group, np.int64))
-        up = tp.upload(got, rows)
+        up = tp.upload(got, rows)  # letterboxed into planar rows here
         np.testing.assert_array_equal(up.images.numpy(), np.asarray(want.images).transpose(0, 3, 1, 2))
+        np.testing.assert_array_equal(up.sizes.numpy(), np.asarray(want.sizes))
         np.testing.assert_array_equal(up.boxes.numpy(), np.asarray(want.boxes))
         np.testing.assert_array_equal(up.labels.numpy(), np.asarray(want.labels))
         np.testing.assert_array_equal(up.mask.numpy(), np.asarray(want.mask))
@@ -142,6 +142,8 @@ def test_load_group_matches_jax(jpegs, mode):
         assert sum(decodes) == 2 * groups.size
     elif mode == "jpeg_ram_cache":
         assert sum(decodes) == len(np.unique(groups)) <= len(info.samples)
+        held, nbytes = tp.ram_cache_held()
+        assert held == len(np.unique(groups)) and nbytes == held * 80 * 80 * 3  # decoded at 80 px
     else:
         assert not decodes
 
@@ -225,7 +227,7 @@ class _CanvasReader:
     def __call__(self, sample, letter_box=True):
         j = self.index[sample.id]
         m = self.cache.gt_mask[j]
-        return AugmentedSample(self.cache.canvases[j], self.cache.gt_boxes[j][m],
+        return AugmentedSample(self.cache.canvases[j].numpy(), self.cache.gt_boxes[j][m],
                                self.cache.gt_labels[j][m].astype(np.int64))
 
 
