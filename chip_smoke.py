@@ -9,6 +9,7 @@ Run from the root of a checkout, on a machine with one card:
     python3 chip_smoke.py --phase rest  # phases 1, 2 and 15 alone (15 (e) on every card visible)
     python3 chip_smoke.py --phase spatial  # phases 1, 2 and 16 alone ((b) on 2 cards, (c) on 4)
     python3 chip_smoke.py --phase jpeg  # phases 1, 2, 7's letterbox, 10 and 17 alone (the JPEG feeds)
+    python3 chip_smoke.py --phase flat  # phases 1, 2 and 18 alone (the flat corpus)
 
 ``--baseline DIR`` (repeatable) also builds the four kernel sources
 (``nms.cu``, ``gather.cu``, ``hsv.cu``, ``warp.cu``) of another checkout at
@@ -66,7 +67,8 @@ result line):
    flatten), held on the card as planar uint8 (2.59 GB), with the phase-5
    val set;
 7. training kernels: the corpus gather (K2 planar at a mosaic step's 256
-   rows and at a no-mosaic step's 64, K3 flat view), HSV (K4,
+   rows and at a no-mosaic step's 64, K3 on the planar corpus's bytes
+   viewed flat; phase 18 holds it on the NHWC corpus), HSV (K4,
    bf16 and f32, integral and non-integral, extreme gains, a plane that is
    not a multiple of 8, a base 2 bytes off 16-byte alignment, and pixels
    that read entries 0, 1 and 255 of both division tables) and the mosaic
@@ -192,8 +194,14 @@ result line):
     and its ratio to the one card's, launches, collectives issued, NCCL
     kernel nodes in the graph, a profiled 10-step epoch's NCCL kernel ms a
     step and each rank's idle share, peak memory per rank; with one card it
-    prints that (c) needs two. ``--phase ddp`` runs phases 1, 2 and 13 alone
-    (its last lines: the ranks' launches, the card, the result);
+    prints that (c) needs two. (d) With two or more cards, N NCCL ranks
+    over the sharded corpus of (a)'s 640 images in each layout, planar and
+    flat (NHWC rows, K3), three steps of the step loop's batches under
+    mixup 0.5 at a global B=64: every rank's batches bitwise equal, K3
+    twice a step in the flat run and K2 never, K2 twice a step in the
+    planar one; with one card it is not run. ``--phase ddp`` runs phases 1,
+    2 and 13 alone (its last lines: the ranks' launches, the card, the
+    result);
 14. hosts: several hosts joined from the environment, each host a process
     tree of its own (this script run with ``--hosts-child``, its children
     the host's ranks). (a) Two hosts under ``KOD_*``, one gloo rank each on
@@ -285,8 +293,31 @@ result line):
     copied up, img/s over both epochs' windows, the val cache's decode
     time, the mAP dict; then the same command over the fake corpus of the
     same size (no validation) beside it, an observation, not a claim;
-18. the ``kernels`` JSON line (with each path's launches), the card line,
-    and the result line last.
+18. flat: ``data.corpus_layout=flat``, the corpus held on the card as the
+    NHWC rows the host makes and gathered by K3 on their (N, 8, D/8) view,
+    at phase 8's width beside phase 6's planar corpus. Set-up: the same
+    canvases copied up in each layout, in turns (the planar one transposed
+    on the card, the NHWC one as it is), the NHWC rows equal to phase 6's
+    corpus transposed. K3 held BITWISE against its plain version on the
+    NHWC corpus's view at a mosaic step's 256 rows and a no-mosaic step's
+    64, and timed in turns against it and ``torch.index_select`` (the
+    ``kernels`` line's K3 numbers), and a step's flat gather (K3 and the
+    permute-copy to planar) beside K2. Under ``cudnn.deterministic``: (a)
+    four fused fits of 40 steps from the same weights and seed, in turns
+    over the planar, flat, flat and planar corpus (no validation): the
+    weights after every fit bitwise equal; launches zeroed just before and
+    read just after each fit, K3 40 and K2 0 over the flat corpus (K2 40
+    and K3 0 over the planar), K4 and K5 40, K1 0; each fit's img/s over
+    the epoch's window (an observation); (b) the
+    repeat-factor recipe without mosaic on the step loop, 10 steps of 64
+    rows in each layout: batches and weights bitwise equal, K3 (or K2) and
+    K4 10, K5 0. Then (c) ``cli.train experiment=yv5s data.pipeline=device
+    data.device_cache=True data.corpus_layout=flat`` over 640 fake images,
+    one fused epoch without validation: K3, K4, K5 10 each by replay, K2
+    and K1 0, finite losses. ``--phase flat`` runs phases 1, 2 and 18 alone;
+19. the ``kernels`` JSON line (with each path's launches; K3's
+    ``launches`` are phase 18 (a)'s), the card line, and the result line
+    last.
 """
 
 from __future__ import annotations
@@ -1611,6 +1642,8 @@ def phase_ddp(card):
                 f"{[round(res['peak'] / 2**30, 3) for res in rs]} GiB, corpus rows held {r0['held_rows']}; "
                 f"map {r0['map']['map']:.6g} | {card}")
         out["c"] = {k: sum(res["counts"][k] for res in runs[f"{n} cards"]) for k in runs[f"{n} cards"][0]["counts"]}
+
+        out["d"] = ddp_flat(card, n)
     log(f"[ddp] phase 13 {time.perf_counter() - t_phase:.2f} s | {card}")
     return out
 
@@ -2573,6 +2606,274 @@ def phase_spatial(card):
     return counts
 
 
+# ------------------------------------------------------------ 18 flat
+FLAT_STEPS = 40  # phase 18 (a): the fused fit of each layout
+FLAT_RECIPE_STEPS = 10  # phase 18 (b): the no-mosaic recipe's step loop
+FLAT_DDP_STEPS = 3  # phase 13 (d): steps of the sharded corpus's batches in each layout
+
+
+def phase_flat(card, dev, aug, train_info, val_info, corpus):
+    """Phase 18: the flat corpus (``data.corpus_layout=flat``: the NHWC rows
+    on the card, gathered by K3 on their (N, 8, D/8) view) at phase 8's
+    width beside phase 6's planar ``corpus``. Returns the launch counts of
+    its paths and K3's numbers on the NHWC corpus: (max abs error, timing,
+    call_ms) as phase 7 keeps them."""
+    import numpy as np
+
+    from object_detection_cib_torch.cli.train import main as cli_main
+    from object_detection_cib_torch.data.device_pipeline import DeviceCorpus, DeviceDataPipeline, fake_canvases
+    from object_detection_cib_torch.data.samplers import RepeatFactorSampler
+    from object_detection_cib_torch.ops import gather as gather_ops
+    from object_detection_cib_torch.train import trainer as trainer_mod
+    from object_detection_cib_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    out = {}
+    # set-up: the same canvases into each layout, in turns (planar, flat)
+    t0 = time.perf_counter()
+    canvases, sizes = fake_canvases(train_info, TRAIN_S)
+    draw_s = time.perf_counter() - t0
+    setup, flat = {}, None
+    for layout in ("planar", "flat"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c = DeviceCorpus.from_canvases(train_info, canvases, sizes, dev, layout)
+        torch.cuda.synchronize()
+        setup[layout] = time.perf_counter() - t0
+        if layout == "planar":
+            if not torch.equal(c.images, corpus.images):
+                fail("[flat] the planar corpus from the canvases differs from phase 6's")
+            del c
+        else:
+            flat = c
+    del canvases
+    torch.cuda.empty_cache()
+    if not torch.equal(flat.images.permute(0, 3, 1, 2), corpus.images):
+        fail("[flat] the NHWC corpus is not phase 6's planar corpus transposed")
+    log(f"[flat] set-up: {tuple(flat.images.shape)} uint8 = {flat.images.numel()} B on the card, the same canvases "
+        f"(drawn on the host in {draw_s:.2f} s) copied up as NHWC rows in {setup['flat']:.3f} s against "
+        f"{setup['planar']:.3f} s for the planar corpus (copied up, transposed on the card); the NHWC rows equal "
+        f"phase 6's planar corpus transposed | {card}")
+
+    # K3 at the main path's rows: a mosaic step's 4B and a no-mosaic step's B
+    view = gather_ops.flat_view(flat.images)
+    K = 4 * TRAIN_B
+    idx_np = np.random.default_rng(1).integers(0, TRAIN_N, K).astype(np.int32)
+    idx_np[:4] = idx_np[4]  # repeated rows, as phase 7
+    idx = torch.from_numpy(idx_np).to(dev)
+    plan = DeviceDataPipeline(train_info, TRAIN_S, TRAIN_B, aug, max_targets=MAX_TARGETS, use_mosaic=False,
+                              sampler=RepeatFactorSampler(train_info), seed=0, device=dev, corpus=flat,
+                              corpus_layout="flat")._epoch_plan()[0]
+    idx_b = torch.from_numpy(plan[0].astype(np.int32)).to(dev)
+    if idx_b.numel() != TRAIN_B:
+        fail(f"[flat] the no-mosaic plan holds {idx_b.numel()} rows a step, want {TRAIN_B}")
+    err = 0.0
+    for rows in (idx, idx_b):
+        err = max(err, check_equal(f"gather_rows_flat {tuple(view.shape)}[{rows.numel()}] (the NHWC corpus's view)",
+                                   gather_ops.gather_rows_flat(view, rows), gather_ops.gather_rows_plain(view, rows)))
+        if not torch.equal(gather_ops.gather_rows_nhwc(flat.images, rows), flat.images[rows.long()]):
+            fail("[flat] gather_rows_nhwc differs from the corpus's rows")
+    row_bytes = view[0].numel()
+    k_ms, p_ms, turns = in_turns(lambda: gather_ops.gather_rows_flat(view, idx),
+                                 lambda: gather_ops.gather_rows_plain(view, idx), 30, 10)
+    lib_ms = statistics.median([run_ms(lambda: torch.index_select(view, 0, idx.long()), 30) for _ in range(2)])
+    timing = (k_ms, p_ms, lib_ms, *bound(2 * K * row_bytes, 0))
+    calls = (cuda_ms(lambda: gather_ops.gather_rows_flat(view, idx), 30),
+             cuda_ms(lambda: torch.index_select(view, 0, idx.long()), 30))
+    log(f"[flat] gather_rows_flat K={K} rows of {row_bytes} B (the NHWC corpus's view): kernel {k_ms:.4f} ms, "
+        f"plain {p_ms:.4f} ms, torch.index_select {lib_ms:.4f} ms, bound {timing[3]:.6f} ms ({timing[4]}), "
+        f"{timing[3] / k_ms:.4f} of the byte bound (turns {turns}); one call from an idle stream: kernel "
+        f"{calls[0]:.4f} ms, torch.index_select {calls[1]:.4f} ms | {card}")
+    rows_nhwc = gather_ops.gather_rows_nhwc(flat.images, idx)
+    step_ms = cuda_ms(lambda: gather_ops.gather_rows_nhwc(flat.images, idx).permute(0, 3, 1, 2).contiguous(), 30)
+    permute_ms = cuda_ms(lambda: rows_nhwc.permute(0, 3, 1, 2).contiguous(), 30)
+    log(f"[flat] one flat gather of a step (K3 + the permute-copy to planar, K={K}) {step_ms:.4f} ms against K2 "
+        f"alone {cuda_ms(lambda: gather_ops.gather_rows_planar(corpus.images, idx), 30):.4f} ms; the permute-copy "
+        f"alone {permute_ms:.4f} ms for {2 * K * row_bytes} B moved (bytes bound {bound(2 * K * row_bytes, 0)[0]:.6f} "
+        f"ms) (CUDA events, one call each, median of 30) | {card}")
+    del rows_nhwc
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # two runs of the same steps bitwise equal
+    try:
+        kw = dict(size="s", image_size=TRAIN_S, batch_size=TRAIN_B, aug_params=aug, max_targets=MAX_TARGETS,
+                  seed=0, dtype=torch.bfloat16, device=dev)
+        # (a) fused fits of each layout from the same weights and seed, in
+        # turns (planar, flat, flat, planar): the first fit of a process
+        # pays for cuDNN's and the allocator's first calls
+        fits = {}
+        for turn, layout in enumerate(("planar", "flat", "flat", "planar")):
+            c = corpus if layout == "planar" else flat
+            t = Trainer(train_info, val_info, corpus=c, corpus_layout=layout, **kw)
+            t.loop = t.loop._replace(check_val_every_n_epoch=2)  # one epoch, no validation
+            _zero_kernels()
+            t0 = time.perf_counter()
+            t.fit(max_epochs=1, epoch_steps=FLAT_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _read_kernels()
+            want = {"gather_rows_planar": FLAT_STEPS if layout == "planar" else 0,
+                    "gather_rows_flat": FLAT_STEPS if layout == "flat" else 0,
+                    "hsv_planar": FLAT_STEPS, "warp_quadrants": FLAT_STEPS, "greedy_nms_mask": 0}
+            for k, n in want.items():
+                if got[k] != n:
+                    fail(f"[flat] (a) {layout} fused fit launched {k} {got[k]} times, want {n}")
+            losses = t.epoch_metrics[0]["total"]
+            if t._fused_fn is None or not np.isfinite(losses).all():
+                fail(f"[flat] (a) {layout}: not the fused epoch, or losses not finite {losses}")
+            fits[turn] = dict(layout=layout, state={k: v.detach().clone() for k, v in t.net.state_dict().items()},
+                              ips=sum(t.epoch_imgs) / sum(t.epoch_walls), walls=list(t.epoch_walls), counts=got,
+                              losses=losses, wall=wall)
+            out[f"a {layout}"] = got
+            del t
+            gc.collect()  # the trainer's CUDA graphs sit in reference cycles
+            torch.cuda.empty_cache()
+        for turn, f in fits.items():
+            gap = max((f["state"][k].double() - v.double()).abs().max().item() for k, v in fits[0]["state"].items())
+            if gap != 0.0:
+                fail(f"[flat] (a) turn {turn} ({f['layout']}): the weights differ from turn 0's (planar) by {gap}")
+            log(f"[flat] (a) turn {turn}, {f['layout']} corpus, fused fit of {FLAT_STEPS} steps (yolov5s@{TRAIN_S} "
+                f"B={TRAIN_B} bf16, cudnn.deterministic): {f['ips']:.2f} img/s over the epoch's window (host clock, "
+                f"fetch to fetch, {[round(w, 4) for w in f['walls']]} s); whole fit {f['wall']:.2f} s; launches "
+                f"{f['counts']}; losses {f['losses'][0]:.4f}->{f['losses'][-1]:.4f} | {card}")
+        ips = {n: [round(f["ips"], 2) for f in fits.values() if f["layout"] == n] for n in ("planar", "flat")}
+        log(f"[flat] (a) weights after every fit bitwise equal ({len(fits[0]['state'])} tensors); img/s in turns "
+            f"(planar, flat, flat, planar): planar {ips['planar']}, flat {ips['flat']} (an observation, not a "
+            f"claim) | {card}")
+        del fits
+
+        # (b) the repeat-factor recipe without mosaic on the step loop
+        runs = {}
+        for layout, c in (("planar", corpus), ("flat", flat)):
+            t = Trainer(train_info, val_info, corpus=c, corpus_layout=layout, sampler=RepeatFactorSampler(train_info),
+                        use_mosaic=False, fused_epoch=False, **kw)
+            rp = t.pipeline
+            _zero_kernels()
+            batches = []
+            for batch, _ in rp.epoch(FLAT_RECIPE_STEPS):
+                batches.append(tuple(x.clone() for x in batch))
+                t.train_step(batch)
+            torch.cuda.synchronize()
+            got = _read_kernels()
+            want = {"gather_rows_planar": FLAT_RECIPE_STEPS if layout == "planar" else 0,
+                    "gather_rows_flat": FLAT_RECIPE_STEPS if layout == "flat" else 0,
+                    "hsv_planar": FLAT_RECIPE_STEPS, "warp_quadrants": 0}
+            for k, n in want.items():
+                if got[k] != n:
+                    fail(f"[flat] (b) {layout} launched {k} {got[k]} times in {FLAT_RECIPE_STEPS} steps, want {n}")
+            width = rp.consumed_plan_log[-1].shape[1]
+            if width != TRAIN_B:
+                fail(f"[flat] (b) {layout}: {width} rows a step, want {TRAIN_B}")
+            runs[layout] = dict(batches=batches, counts=got,
+                                state={k: v.detach().clone() for k, v in t.net.state_dict().items()})
+            out[f"b {layout}"] = got
+            del t, rp
+            gc.collect()
+        for i, (a, b) in enumerate(zip(runs["flat"]["batches"], runs["planar"]["batches"], strict=True)):
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                fail(f"[flat] (b) batch {i} of the flat corpus differs from the planar corpus's")
+        if not all(torch.equal(runs["flat"]["state"][k], v) for k, v in runs["planar"]["state"].items()):
+            fail("[flat] (b) the weights after the steps differ between the layouts")
+        log(f"[flat] (b) repeat-factor sampler without mosaic, step loop, {FLAT_RECIPE_STEPS} steps of {TRAIN_B} rows: "
+            f"batches (images, boxes, labels, mask) and weights bitwise equal; launches flat {runs['flat']['counts']}, "
+            f"planar {runs['planar']['counts']} | {card}")
+        del runs
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+
+    # (c) the normal entry point with the flat layout
+    made = []
+    from_config = trainer_mod.Trainer.from_config.__func__
+
+    def recording(cls, cfg, mesh=None):
+        made.append(from_config(cls, cfg, mesh))
+        return made[-1]
+
+    trainer_mod.Trainer.from_config = classmethod(recording)
+    try:
+        with tempfile.TemporaryDirectory(prefix="flat-cli-") as tmp:
+            _zero_kernels()
+            t0 = time.perf_counter()
+            cli_main(["hydra=static", "extras.enforce_tags=False", "print_config=False", "extras.print_config=False",
+                      "logger=csv", f"paths.output_dir={tmp}", "experiment=yv5s", "data.pipeline=device",
+                      "data.device_cache=True", "data.corpus_layout=flat", "dataset_name=fake",
+                      f"data.fake_num_images={CLI_N}", "trainer.max_epochs=1", "trainer.check_val_every_n_epoch=2"])
+            wall = time.perf_counter() - t0
+            got = _read_kernels()
+    finally:
+        trainer_mod.Trainer.from_config = classmethod(from_config)
+    t = made[-1]
+    steps = CLI_N // t.batch_size
+    want = {"gather_rows_planar": 0, "gather_rows_flat": steps, "hsv_planar": steps, "warp_quadrants": steps,
+            "greedy_nms_mask": 0}
+    for k, n in want.items():
+        if got[k] != n:
+            fail(f"[flat] (c) cli.train launched {k} {got[k]} times, want {n}")
+    losses = t.epoch_metrics[0]["total"]
+    if t.pipeline.device_corpus.layout != "flat" or t._fused_fn is None or not np.isfinite(losses).all():
+        fail(f"[flat] (c) not the flat corpus on the fused epoch, or losses not finite {losses}")
+    log(f"[flat] (c) cli.train experiment=yv5s data.pipeline=device data.device_cache=True data.corpus_layout=flat "
+        f"over {CLI_N} fake images, one epoch of {steps} steps (fused, a CUDA graph a step): launches {got}; losses "
+        f"{losses[0]:.4f}->{losses[-1]:.4f}; {t.epoch_imgs[0] / t.epoch_walls[0]:.2f} img/s over its one epoch "
+        f"(the capture included); whole command {wall:.2f} s | {card}")
+    out["c"] = got
+    del t, made, flat, view
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[flat] phase 18 {time.perf_counter() - t_phase:.2f} s | {card}")
+    return out, (err, timing, calls)
+
+
+def _ddp_flat_rank(mesh):
+    """Phase 13 (d), one NCCL rank: the sharded corpus in each layout, the
+    step loop's batches for ``FLAT_DDP_STEPS`` steps under mixup 0.5 (two
+    exchanges a step) at a global B=64."""
+    from object_detection_cib_torch.data.device_pipeline import DeviceDataPipeline
+    from object_detection_cib_torch.data.host_augment import AugParams
+
+    _ddp_card()
+    train_info, _ = _ddp_infos(DDP_N, TRAIN_B)
+    res, batches = {}, {}
+    for layout in ("planar", "flat"):
+        pipe = DeviceDataPipeline(train_info, TRAIN_S, TRAIN_B, AugParams(), max_targets=MAX_TARGETS, seed=0,
+                                  mixup_prob=0.5, device=mesh.device, mesh=mesh, corpus_sharding="sharded",
+                                  corpus_layout=layout)
+        _zero_kernels()
+        batches[layout] = [tuple(x.clone() for x in b) for b, _ in pipe.epoch(FLAT_DDP_STEPS)]
+        torch.cuda.synchronize()
+        res[layout] = dict(counts=_read_kernels(), held=tuple(pipe.corpus.shape))
+        del pipe
+    res["equal"] = all(torch.equal(x, y) for a, b in zip(batches["flat"], batches["planar"], strict=True)
+                       for x, y in zip(a, b))
+    return res
+
+
+def ddp_flat(card, n: int) -> dict:
+    """Phase 13 (d): ``n`` NCCL ranks over the sharded corpus in each
+    layout (``_ddp_flat_rank``); fails unless every rank's batches are
+    bitwise equal and each gather ran twice a step in its own layout and
+    never in the other. Returns the flat runs' launches summed over the
+    ranks."""
+    flat = launch_logged("ddp", _ddp_flat_rank, n, timeout_s=300, join_timeout_s=600)
+    per = -(-DDP_N // n)
+    for r, res in enumerate(flat):
+        if not res["equal"]:
+            fail(f"[ddp] (d) rank {r}: the flat sharded corpus's batches differ from the planar one's")
+        for layout, gather in (("planar", "gather_rows_planar"), ("flat", "gather_rows_flat")):
+            other = "gather_rows_flat" if layout == "planar" else "gather_rows_planar"
+            got = res[layout]["counts"]
+            if got[gather] != 2 * FLAT_DDP_STEPS or got[other]:
+                fail(f"[ddp] (d) rank {r} {layout}: launches {got}, want {gather} {2 * FLAT_DDP_STEPS}, {other} 0")
+        if res["flat"]["held"] != (per, TRAIN_S, TRAIN_S, 3) or res["planar"]["held"] != (per, 3, TRAIN_S, TRAIN_S):
+            fail(f"[ddp] (d) rank {r} holds {res['flat']['held']} (flat), {res['planar']['held']} (planar)")
+    log(f"[ddp] (d) launch({n} ranks, NCCL) sharded corpus of {DDP_N} images at {per} rows a rank, flat "
+        f"{flat[0]['flat']['held']} against planar {flat[0]['planar']['held']}: {FLAT_DDP_STEPS} steps of the step "
+        f"loop under mixup 0.5 at a global B={TRAIN_B}, every rank's batches bitwise equal; launches rank 0 flat "
+        f"{flat[0]['flat']['counts']}, planar {flat[0]['planar']['counts']} | {card}")
+    return {k: sum(res["flat"]["counts"][k] for res in flat) for k in flat[0]["flat"]["counts"]}
+
+
 def launch_logged(tag: str, *args, **kw):
     """``parallel.distributed.launch``, its warnings (a rank terminated
     after handing back its result) printed under ``[tag]``."""
@@ -2592,8 +2893,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path, action="append", default=[],
                     help="root of another checkout whose four kernel sources are timed beside")
-    ap.add_argument("--phase", choices=["all", "ddp", "hosts", "rest", "spatial", "jpeg"], default="all",
-                    help="jpeg: phases 1, 2, the letterbox kernel of 7, 10 and 17 alone (the JPEG feeds); "
+    ap.add_argument("--phase", choices=["all", "ddp", "hosts", "rest", "spatial", "jpeg", "flat"], default="all",
+                    help="flat: phases 1, 2 and 18 alone (the flat corpus, over a planar corpus built for it); "
+                         "jpeg: phases 1, 2, the letterbox kernel of 7, 10 and 17 alone (the JPEG feeds); "
                          "ddp: phases 1, 2 and 13 alone (data parallelism; (c) needs two or more cards); "
                          "hosts: phases 1, 2 and 14 alone (several hosts; (b) needs four cards); "
                          "rest: phases 1, 2 and 15 alone; spatial: phases 1, 2 and 16 alone (DP x SP; (b) needs "
@@ -2675,6 +2977,21 @@ def main() -> None:
         corpus_counts = phase_corpus(card, _zero_kernels, _read_kernels)
         print(json.dumps({"letterbox": {"max_abs_err": lb_err, "timing": lb_timing},
                           "jpeg_launches": jpeg, "corpus_launches": corpus_counts}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
+    if args.phase == "flat":
+        from object_detection_cib_torch.data.device_pipeline import DeviceCorpus
+
+        train_info = build_fake_manifest(num_classes=NC, num_images=TRAIN_N, seed=0, zipf_a=1.01)
+        info = build_fake_manifest(num_classes=NC, num_images=VAL_N, image_size=VAL_S, zipf_a=1.01, seed=0)
+        flat, (err, k3_timing, k3_calls) = phase_flat(card, dev, AugParams(), train_info, info,
+                                                      DeviceCorpus.fake(train_info, TRAIN_S, dev))
+        print(json.dumps({"flat_launches": flat, "gather_rows_flat": {
+            "max_abs_err": err, "ms": k3_timing[0], "plain_ms": k3_timing[1], "library_ms": k3_timing[2],
+            "bound_ms": k3_timing[3], "bound_by": k3_timing[4], "call_ms": k3_calls[0],
+            "library_call_ms": k3_calls[1]}}), flush=True)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}), flush=True)
@@ -3489,14 +3806,21 @@ def main() -> None:
     # ---------------------------------------------------------------- 17 corpus
     corpus_counts = phase_corpus(card, zero_counts, read_counts)
 
-    # -------------------------------------------------------------- 18 report
+    # ------------------------------------------------------------------ 18 flat
+    # K3's row takes its numbers on the NHWC corpus's view, the flat path's own
+    flat_counts, (flat_err, timing["gather_rows_flat"], call_ms["gather_rows_flat"]) = phase_flat(
+        card, dev, aug, train_info, info, shared)
+    errs["gather_rows_flat"] = max(errs["gather_rows_flat"], flat_err)
+
+    # -------------------------------------------------------------- 19 report
     src = "object_detection_cib_torch/ops/csrc/"
     rows = [
         ("greedy_nms_mask", "nms.cu", "object_detection_cib_tpu/ops/pallas_nms.py:131", serve_launches),
         ("gather_rows_planar", "gather.cu", "object_detection_cib_tpu/ops/pallas_gather.py:98",
          train_launches["gather_rows_planar"]),
+        # the flat corpus's path: phase 18 (a)'s fused fit
         ("gather_rows_flat", "gather.cu", "object_detection_cib_tpu/ops/pallas_gather.py:62",
-         train_launches["gather_rows_flat"]),
+         flat_counts["a flat"]["gather_rows_flat"]),
         ("hsv_planar", "hsv.cu", "object_detection_cib_tpu/ops/pallas_hsv.py:132",
          train_launches["hsv_planar"]),
         ("warp_quadrants", "warp.cu", "object_detection_cib_tpu/ops/pallas_warp.py:208",
@@ -3524,7 +3848,8 @@ def main() -> None:
                                  "hosts": {part: n[name] for part, n in hosts.items()},
                                  "rest": {part: n[name] for part, n in rest.items()},
                                  "spatial": {part: n[name] for part, n in spatial.items()},
-                                 "corpus": {part: n[name] for part, n in corpus_counts.items()}},
+                                 "corpus": {part: n[name] for part, n in corpus_counts.items()},
+                                 "flat": {part: n[name] for part, n in flat_counts.items()}},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

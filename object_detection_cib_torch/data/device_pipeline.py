@@ -9,9 +9,11 @@ that fails to decode raises ``ValueError``), and reach the card one of two
 ways:
 
   * ``device_cache=True``: the whole corpus is decoded once into a
-    ``DeviceCorpus`` (N, 3, S, S) uint8 on the card, ``DECODE_ROWS`` files
-    at a time (their decoded bytes copied up from pinned memory, then
-    letterboxed into the corpus rows), and K2 gathers each step's rows;
+    ``DeviceCorpus`` on the card, ``DECODE_ROWS`` files at a time (their
+    decoded bytes copied up from pinned memory, then letterboxed into the
+    corpus rows), held in the layout ``corpus_layout`` names (below), and
+    each step's rows are gathered from it: K2 on the planar layout, K3 on
+    the flat one;
   * ``device_cache=False`` (host-fed, the JAX package's ``_load_group`` and
     iterator): a producer thread loads each step's groups as decoded RGB
     images (``RawImages``) in pinned host memory, up to ``prefetch`` steps
@@ -31,7 +33,7 @@ Per step of batch B:
      image, from the sampler's epoch stream or a permutation, and three
      co-samples, shuffled within their quad), without mosaic B; under mixup
      4B more for the secondary mosaic group;
-  2. the group's images (K2 on the card, or the host-fed upload), their
+  2. the group's images (K2 or K3 on the card, or the host-fed upload), their
      sizes, and their per-image targets gathered from arrays on the card;
   3. ``augment_group``. With mosaic and an axis-aligned affine, the fused
      mosaic + warp (``ops/augment.py``: K5 at ``warp_precision="fast"``,
@@ -83,7 +85,7 @@ The draws of each step are the global batch's from the one generator, and a
 rank keeps its rows by its global rank: one stream advanced alike on every
 host, each host's rows its own (the port cannot reproduce the JAX
 package's per-host ``fold_in`` of threefry keys, ROADMAP). Each rank then
-gathers (K2), warps (K5) and jitters (K4) its own groups; the JAX package
+gathers (K2 or K3), warps (K5) and jitters (K4) its own groups; the JAX package
 turns its Pallas gather, HSV and warp off when ``process_count() > 1`` (a
 GSPMD workaround), the port keeps its kernels on every rank. Host-fed, a
 rank loads only its own groups (JPEG files; in fake mode it draws the
@@ -94,13 +96,33 @@ the corpus images, P = ceil(N/ranks) (the last shard padded with zero
 rows, as the JAX package pads), beside the whole (small) sizes and
 targets: for a step's global group (over several hosts in the step loop,
 every host's plan side by side, each rank drawing them all) each rank
-gathers the rows it holds with K2, zeroes the rest, and one
+gathers the rows it holds with K2 (K3 on the flat layout), zeroes the rest, and one
 ``reduce_scatter`` (a sum, exact in uint8 since one rank holds each row)
 deals each rank its own rows, bitwise the replicated corpus's.
 
-Not ported: the flat (N, 8, D/8) corpus layout, a TPU tiling workaround
-(it raises ``NotImplementedError``; K3's kernel still exists, in
-``ops/gather.py``), and ``device_put_row_major`` (a TPU layout pin).
+The corpus on the card has two layouts, chosen by ``corpus_layout`` (the
+config's ``data.corpus_layout``) alone:
+
+  * ``"planar"`` (the default): (N, 3, S, S) uint8, the rows whole planes,
+    gathered by K2 straight into the form ``augment_fn`` takes;
+  * ``"flat"``: the NHWC rows (N, S, S, 3) the host makes, copied up as
+    they are (no transpose at set-up), gathered by K3 on their (N, 8, D/8)
+    view (``ops/gather.py:gather_rows_nhwc``, D = 3 S^2, S a multiple of
+    32), viewed back as (K, S, S, 3) and made planar by one permute-copy,
+    the JAX flat gather's reshape-and-relayout (``_make_row_gather``). On
+    every recipe and both loops; under mixup K3 runs twice a step; over a
+    sharded corpus K3 gathers the rows a rank holds before the exchange.
+
+The two layouts give the same batches, bit for bit. The JAX package also
+switches to its NHWC flow by itself whenever mosaic is off or the affine is
+general, because its augment consumes NHWC there; the port's augment
+consumes planar images on every recipe, so the port does not copy that
+switch: a planar corpus stays planar on those recipes (the JAX package's
+two flows give the same bytes, ``tests/test_planar_corpus.py``). With
+``device_cache=False`` the layout changes nothing, as in the JAX package.
+A pipeline handed a shared corpus of the other layout raises.
+
+Not ported: ``device_put_row_major`` (a TPU layout pin).
 """
 
 from __future__ import annotations
@@ -138,7 +160,7 @@ from object_detection_cib_torch.ops.augment import (
     mosaic_affine_batch,
     take_rows_cols,
 )
-from object_detection_cib_torch.ops.gather import gather_rows_planar
+from object_detection_cib_torch.ops.gather import check_flat_rows, gather_rows_nhwc, gather_rows_planar
 from object_detection_cib_torch.ops.graph import CapturedGraph
 from object_detection_cib_torch.ops.hsv import hsv_planar
 from object_detection_cib_torch.ops.letterbox import letterbox
@@ -434,73 +456,105 @@ def decode_canvases(info: DatasetInfo, indices: Sequence[int], target_size: int,
     return sizes
 
 
+LAYOUTS = ("planar", "flat")
+
+
+def check_layout(layout: str) -> None:
+    if layout not in LAYOUTS:
+        raise ValueError(f"corpus_layout must be one of {LAYOUTS}, got {layout!r}")
+
+
 class DeviceCorpus:
     """A corpus and its per-image targets as tensors on one device.
 
     Built once and shared by every pipeline over the same dataset, image
-    size and device (``DeviceDataPipeline(corpus=...)``): images (N, 3, S, S)
-    uint8 planar with the content in the top-left (h, w) window and FILL
-    elsewhere, sizes (N, 2) int32, and target arrays of capacity ``src_T``
-    in resized-content coordinates. ``from_canvases`` is the one
-    constructor; ``fake`` draws the canvases, ``decode`` reads the JPEG
-    files. ``sharded`` holds only a rank's rows of the images (the module
+    size, device and layout (``DeviceDataPipeline(corpus=...)``): images
+    with the content in the top-left (h, w) window and FILL elsewhere,
+    (N, 3, S, S) uint8 under ``layout="planar"`` or the NHWC rows (N, S, S,
+    3) under ``"flat"``, sizes (N, 2) int32, and target arrays of capacity
+    ``src_T`` in resized-content coordinates. ``from_canvases`` is the one
+    constructor from canvases; ``fake`` draws the canvases, ``decode``
+    reads the JPEG files. ``gather`` takes rows as planar images whatever
+    the layout: K2, or K3 on the flat view and one permute-copy.
+    ``sharded`` holds only a rank's rows of the images (the module
     docstring); ``exchange`` gathers a global group's rows from the shards.
     """
 
     UPLOAD_ROWS = 256  # canvases per host->device copy: bounds the staging
 
     def __init__(self, info: DatasetInfo, images: torch.Tensor, sizes: torch.Tensor,
-                 device: torch.device, mesh: Optional[DataMesh] = None, row0: int = 0):
-        self.info, self.S, self.device = info, images.shape[-1], device
+                 device: torch.device, mesh: Optional[DataMesh] = None, row0: int = 0,
+                 layout: str = "planar"):
+        check_layout(layout)
+        self.layout = layout
+        self.info, self.S, self.device = info, images.shape[-1 if layout == "planar" else 1], device
+        if layout == "flat":
+            check_flat_rows(self.S)
         self.images, self.sizes = images, sizes
         self.mesh, self.row0 = mesh, row0  # sharded: the mesh, and the first row held
         self.src_T, *targets = target_arrays(info, self.S)
         self.t_boxes, self.t_labels, self.t_mask = (torch.from_numpy(a).to(device) for a in targets)
 
     @staticmethod
-    def _planar(canvases: np.ndarray, device: torch.device) -> torch.Tensor:
+    def _empty(n: int, S: int, device, layout: str, zeros: bool = False) -> torch.Tensor:
+        check_layout(layout)
+        if layout == "flat":
+            check_flat_rows(S)
+        shape = (n, 3, S, S) if layout == "planar" else (n, S, S, 3)
+        return (torch.zeros if zeros else torch.empty)(shape, dtype=torch.uint8, device=device)
+
+    @staticmethod
+    def _upload(canvases: np.ndarray, device: torch.device, layout: str) -> torch.Tensor:
+        """(n, S, S, 3) canvases into rows of ``layout`` on ``device``, a
+        chunk at a time: the flat rows take the canvases' bytes as they are,
+        the planar ones transposed there."""
         n, S = canvases.shape[:2]
-        images = torch.empty((n, 3, S, S), dtype=torch.uint8, device=device)
+        images = DeviceCorpus._empty(n, S, device, layout)
+        rows = images if layout == "flat" else images.permute(0, 2, 3, 1)  # an (n, S, S, 3) view
         for i in range(0, n, DeviceCorpus.UPLOAD_ROWS):
             chunk = torch.from_numpy(np.ascontiguousarray(canvases[i:i + DeviceCorpus.UPLOAD_ROWS]))
-            images[i:i + DeviceCorpus.UPLOAD_ROWS] = chunk.to(device).permute(0, 3, 1, 2)
+            rows[i:i + DeviceCorpus.UPLOAD_ROWS].copy_(chunk.to(device) if layout == "planar" else chunk)
         return images
 
     @classmethod
     def from_canvases(cls, info: DatasetInfo, canvases: np.ndarray, sizes: np.ndarray,
-                      device: Union[str, torch.device]) -> "DeviceCorpus":
+                      device: Union[str, torch.device], layout: str = "planar") -> "DeviceCorpus":
         """(N, S, S, 3) uint8 canvases and (N, 2) sizes (fake content, or
-        ``pack_batch``'s) to the device; the transpose to planar runs there,
-        a chunk of rows at a time."""
+        ``pack_batch``'s) to the device: copied up as they are for
+        ``"flat"``, transposed to planar there for ``"planar"``."""
         device = torch.device(device)
         n, S = canvases.shape[:2]
         if canvases.shape != (n, S, S, 3) or canvases.dtype != np.uint8 or n != len(info.samples):
             raise ValueError(f"want ({len(info.samples)}, S, S, 3) uint8 canvases, got "
                              f"{canvases.shape} {canvases.dtype}")
-        return cls(info, cls._planar(canvases, device), torch.from_numpy(np.asarray(sizes, np.int32)).to(device),
-                   device)
+        return cls(info, cls._upload(canvases, device, layout),
+                   torch.from_numpy(np.asarray(sizes, np.int32)).to(device), device, layout=layout)
 
     @classmethod
-    def fake(cls, info: DatasetInfo, target_size: int, device) -> "DeviceCorpus":
-        return cls.from_canvases(info, *fake_canvases(info, target_size), device)
+    def fake(cls, info: DatasetInfo, target_size: int, device, layout: str = "planar") -> "DeviceCorpus":
+        return cls.from_canvases(info, *fake_canvases(info, target_size), device, layout)
 
     @classmethod
-    def decode(cls, info: DatasetInfo, target_size: int, device, root_dir: Optional[Path] = None
-               ) -> "DeviceCorpus":
-        """The JPEG files decoded into the corpus rows (``decode_canvases``)."""
+    def decode(cls, info: DatasetInfo, target_size: int, device, root_dir: Optional[Path] = None,
+               layout: str = "planar") -> "DeviceCorpus":
+        """The JPEG files decoded into the corpus rows (``decode_canvases``;
+        the letterbox writes the flat layout's NHWC rows through a permuted
+        view)."""
         root = Path(root_dir) if root_dir else get_root_dir()
         device, n = torch.device(device), len(info.samples)
-        images = torch.empty((n, 3, target_size, target_size), dtype=torch.uint8, device=device)
-        return cls(info, images, decode_canvases(info, range(n), target_size, root, images), device)
+        images = cls._empty(n, target_size, device, layout)
+        rows = images if layout == "planar" else images.permute(0, 3, 1, 2)
+        return cls(info, images, decode_canvases(info, range(n), target_size, root, rows), device, layout=layout)
 
     @classmethod
     def sharded(cls, info: DatasetInfo, target_size: int, mesh: DataMesh, fake_mode: bool,
-                root_dir: Optional[Path] = None) -> "DeviceCorpus":
+                root_dir: Optional[Path] = None, layout: str = "planar") -> "DeviceCorpus":
         """Rank ``mesh.rank``'s shard of the corpus images on ``mesh.device``,
-        rows ``[r P, (r+1) P)`` with P = ceil(N / ranks), zero rows past N;
-        the sizes and targets of every row. Fake canvases are drawn whole and
-        sliced (the same bytes as the replicated corpus); JPEG files are
-        decoded for the rank's rows only, and the sizes all-gathered."""
+        rows ``[r P, (r+1) P)`` with P = ceil(N / ranks), zero rows past N,
+        in ``layout``; the sizes and targets of every row. Fake canvases are
+        drawn whole and sliced (the same bytes as the replicated corpus);
+        JPEG files are decoded for the rank's rows only, and the sizes
+        all-gathered."""
         import torch.distributed as dist
 
         n, S, dev = len(info.samples), target_size, mesh.device
@@ -509,30 +563,50 @@ class DeviceCorpus:
         if fake_mode:
             canvases, sizes = fake_canvases(info, S)
             canvases = np.concatenate([canvases[lo:hi], np.zeros((per - (hi - lo), S, S, 3), np.uint8)])
-            images, sizes = cls._planar(canvases, dev), torch.from_numpy(sizes).to(dev)
+            images, sizes = cls._upload(canvases, dev, layout), torch.from_numpy(sizes).to(dev)
         else:
             root = Path(root_dir) if root_dir else get_root_dir()
-            images = torch.zeros((per, 3, S, S), dtype=torch.uint8, device=dev)
+            images = cls._empty(per, S, dev, layout, zeros=True)
+            rows = images if layout == "planar" else images.permute(0, 3, 1, 2)
             padded = torch.zeros((per, 2), dtype=torch.int32, device=dev)
-            padded[:hi - lo] = decode_canvases(info, range(lo, hi), S, root, images[:hi - lo])
+            padded[:hi - lo] = decode_canvases(info, range(lo, hi), S, root, rows[:hi - lo])
             parts = [torch.empty_like(padded) for _ in range(mesh.size)]
             dist.all_gather(parts, padded, group=mesh.group)
             sizes = torch.cat(parts)[:n]
-        return cls(info, images, sizes, dev, mesh, mesh.rank * per)
+        return cls(info, images, sizes, dev, mesh, mesh.rank * per, layout)
+
+    def _rows(self, idx: torch.Tensor) -> torch.Tensor:
+        """Held rows ``idx`` in the layout's own form: K2 on the planar
+        corpus, K3 on the flat view of the NHWC one."""
+        if self.layout == "planar":
+            return gather_rows_planar(self.images, idx)
+        return gather_rows_nhwc(self.images, idx)
+
+    def _planar(self, rows: torch.Tensor) -> torch.Tensor:
+        """Rows of ``_rows`` as the planar (K, 3, S, S) ``augment_fn`` takes:
+        on the flat layout one permute-copy, the JAX flat gather's
+        reshape-and-relayout."""
+        return rows if self.layout == "planar" else rows.permute(0, 3, 1, 2).contiguous()
+
+    def gather(self, idx: torch.Tensor) -> torch.Tensor:
+        """Corpus rows ``idx`` (int32 on the device) as planar (K, 3, S, S)
+        uint8 images: one K2 launch, or one K3 launch and a permute-copy."""
+        return self._planar(self._rows(idx))
 
     def exchange(self, idx: torch.Tensor) -> torch.Tensor:
-        """The images of this rank's part (``batch_sharding``) of the global
-        group ``idx`` (int32 corpus rows on the card), from the shards: K2
-        gathers the rows held here, the others become zeros, and one
-        ``reduce_scatter`` sums the ranks' groups and deals each its part."""
+        """The planar images of this rank's part (``batch_sharding``) of the
+        global group ``idx`` (int32 corpus rows on the card), from the
+        shards: K2 (K3 on the flat layout) gathers the rows held here, the
+        others become zeros, and one ``reduce_scatter`` sums the ranks'
+        groups and deals each its part."""
         held = self.images.shape[0]
         loc = idx - self.row0
         own = (loc >= 0) & (loc < held)
-        part = gather_rows_planar(self.images, loc.clamp(0, held - 1))
+        part = self._rows(loc.clamp(0, held - 1))
         part = torch.where(own[:, None, None, None], part, torch.zeros((), dtype=part.dtype, device=part.device))
         out = torch.empty((idx.shape[0] // self.mesh.size,) + tuple(part.shape[1:]), dtype=part.dtype,
                           device=part.device)
-        return reduce_scatter_sum(out, part, self.mesh.group)
+        return self._planar(reduce_scatter_sum(out, part, self.mesh.group))
 
 
 class DeviceDataPipeline:
@@ -565,10 +639,7 @@ class DeviceDataPipeline:
         corpus_sharding: str = "replicated",
         warp_pallas: Union[bool, str] = "auto",
     ):
-        if corpus_layout != "planar":
-            raise NotImplementedError(
-                f"corpus_layout={corpus_layout!r}: the flat layout is a TPU tiling "
-                "workaround and is not ported")
+        check_layout(corpus_layout)
         refuse_model_axis(mesh)
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None and mesh.group is not None else None
@@ -592,6 +663,7 @@ class DeviceDataPipeline:
         self.sampler = sampler
         self.fake_mode = fake_mode
         self.device_cache = device_cache
+        self.corpus_layout = corpus_layout  # the corpus on the card's; host-fed, it changes nothing
         self.root_dir = Path(root_dir) if root_dir else get_root_dir()
         self.enable_ram_cache = enable_ram_cache
         self.prefetch = prefetch
@@ -626,13 +698,18 @@ class DeviceDataPipeline:
                 torch.from_numpy(a).to(self.device) for a in targets)
             return
         if corpus is None and self.sharded:
-            corpus = DeviceCorpus.sharded(dataset_info, target_size, self.mesh, fake_mode, self.root_dir)
+            corpus = DeviceCorpus.sharded(dataset_info, target_size, self.mesh, fake_mode, self.root_dir,
+                                          corpus_layout)
         elif corpus is None:
-            corpus = (DeviceCorpus.fake(dataset_info, target_size, self.device) if fake_mode
-                      else DeviceCorpus.decode(dataset_info, target_size, self.device, self.root_dir))
+            corpus = (DeviceCorpus.fake(dataset_info, target_size, self.device, corpus_layout) if fake_mode
+                      else DeviceCorpus.decode(dataset_info, target_size, self.device, self.root_dir,
+                                               corpus_layout))
         elif (corpus.info is not dataset_info or corpus.S != target_size
               or corpus.device != self.device or (corpus.mesh is not None) != self.sharded):
             raise ValueError("corpus was built for another dataset, image size, device or sharding")
+        elif corpus.layout != corpus_layout:
+            raise ValueError(f"corpus holds the {corpus.layout!r} layout and this pipeline asks for "
+                             f"corpus_layout={corpus_layout!r}: build or share a corpus of that layout")
         self.device_corpus = corpus
         self.src_T = corpus.src_T
         self.corpus, self.sizes = corpus.images, corpus.sizes
@@ -756,9 +833,10 @@ class DeviceDataPipeline:
                 secs[:, self._columns(secs, fused)] if secs.size else secs)
 
     def gather(self, idx: torch.Tensor) -> DeviceSample:
-        """Corpus rows ``idx`` (one K2 launch) and their sizes and targets.
-        Over a sharded corpus ``idx`` is a global group and the sample is
-        this rank's part of it (``DeviceCorpus.exchange``)."""
+        """Corpus rows ``idx`` as planar images (one K2 launch; on the flat
+        layout one K3 launch and a permute-copy) and their sizes and
+        targets. Over a sharded corpus ``idx`` is a global group and the
+        sample is this rank's part of it (``DeviceCorpus.exchange``)."""
         if self.corpus is None:
             raise RuntimeError("gather reads the corpus on the card: device_cache=True")
         rows = idx.long()
@@ -766,7 +844,7 @@ class DeviceDataPipeline:
             images = self.device_corpus.exchange(idx)
             rows = rows[batch_sharding(self.mesh, idx.shape[0])]
         else:
-            images = gather_rows_planar(self.corpus, idx)
+            images = self.device_corpus.gather(idx)
         return DeviceSample(images, self.sizes[rows], self.t_boxes[rows], self.t_labels[rows], self.t_mask[rows])
 
     def _load_group(self, indices, keep: slice = slice(None)) -> RawImages:
@@ -832,7 +910,7 @@ class DeviceDataPipeline:
         """idx (4B,) or, without mosaic, (B,) int32 on the card -> (Batch, overflow).
 
         Under mixup ``idx2`` (4B,) names the secondary group's rows, gathered
-        by a second K2 launch.
+        by a second gather (K2, or K3 on the flat layout).
         """
         self._check_secondary(idx2)
         secondary = self.gather(idx2) if idx2 is not None else None
@@ -898,8 +976,8 @@ class DeviceDataPipeline:
         The whole epoch's plan goes to the card in one copy after a range
         check on the host. Each step draws its randoms on the card, in step
         order, and augments its groups (two under mixup): with the corpus on
-        the card K2 gathers each group; host-fed, a thread loads the groups
-        (``_host_fed``) and each is copied up. Then K5 (on the fused fast
+        the card K2 (K3 on the flat layout) gathers each group; host-fed, a
+        thread loads the groups (``_host_fed``) and each is copied up. Then K5 (on the fused fast
         path) and K4 once per group. Overflow counts stay on the card until
         ``overflow_total`` is read; with ``track_overflow=False`` they are
         only yielded, and the caller adds them (``add_overflow``).
@@ -995,8 +1073,8 @@ class FusedEpoch:
 
     ``epoch_fn(xs, *tables)`` takes ``xs`` from ``epoch_host_arrays`` and
     any per-step tables (a leading dimension of steps; the trainer passes
-    SmartSGD's hyperparameter table). Step i gathers plan row i (K2, twice
-    under mixup), draws from the pipeline's generator, augments (K5, K4)
+    SmartSGD's hyperparameter table). Step i gathers plan row i (K2, or K3
+    on the flat layout; twice under mixup), draws from the pipeline's generator, augments (K5, K4)
     and calls ``train_step(batch, *rows)`` with row i of each table; its
     metrics (a tensor, a float, or a tuple or dict of them) and the step's
     overflow go to column i of one ``f32[n_leaves + 1, steps]`` matrix,

@@ -15,13 +15,15 @@ rows of its data rows' images at 256 px, the halos exchanged by hand
 (3) one fused epoch of the production loop over ``n`` ranks (gather,
 augment and train step a step, pipelined; a CUDA graph a step on the card)
 over the corpus on the card; (4) the same over a corpus sharded over the
-ranks, each rank holding ``8B / n`` of its rows. Each checks finite losses
-and equal weights on every rank, and on the card that each fused epoch
-launched K2, K4 and K5 once a step. Both entry points run on the card
+ranks, each rank holding ``8B / n`` of its rows. Dry runs 3 and 4 hold the
+corpus in ``corpus_layout`` (``"planar"``, or ``"flat"``: NHWC rows
+gathered by K3 in place of K2). Each checks finite losses and equal
+weights on every rank, and on the card that each fused epoch launched its
+gather (K2 or K3), K4 and K5 once a step. Both entry points run on the card
 unless the caller asks for the CPU (``device="cpu"``, ``device_type="cpu"``:
 gloo ranks).
 
-  python -m object_detection_cib_torch.entry [n]   # the forward, then n ranks
+  python -m object_detection_cib_torch.entry [n [layout]]   # the forward, then n ranks
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from object_detection_cib_torch.data.device_pipeline import DeviceDataPipeline
 from object_detection_cib_torch.data.host_augment import AugParams
 from object_detection_cib_torch.data.synthetic import build_fake_manifest
 from object_detection_cib_torch.models.yolov5 import build_network
-from object_detection_cib_torch.ops.gather import gather_rows_planar
+from object_detection_cib_torch.ops.gather import gather_rows_flat, gather_rows_planar
 from object_detection_cib_torch.ops.hsv import hsv_planar
 from object_detection_cib_torch.ops.warp import warp_quadrants
 from object_detection_cib_torch.parallel.distributed import all_reduce_sum_, launch
@@ -48,7 +50,8 @@ from object_detection_cib_torch.train.optim import OptimizerConfig, SmartSGD
 from object_detection_cib_torch.train.steps import Batch, make_train_step
 
 NUM_CLASSES = 10
-KERNELS = (gather_rows_planar, hsv_planar, warp_quadrants)  # a fused step's: K2, K4, K5
+KERNELS = (gather_rows_planar, gather_rows_flat, hsv_planar, warp_quadrants)  # K2, K3, K4, K5
+GATHER = {"planar": gather_rows_planar, "flat": gather_rows_flat}  # a fused step's gather by layout
 
 
 def entry(device: Union[str, torch.device] = "cuda"):
@@ -80,15 +83,17 @@ def _digest(net: torch.nn.Module) -> str:
                                    for v in net.state_dict().values())).hexdigest()
 
 
-def _fused_run(mesh, img: int, sharding: str) -> dict:
+def _fused_run(mesh, img: int, sharding: str, layout: str = "planar") -> dict:
     """Dry runs 3 and 4 on one rank: one pipelined fused epoch at a global
     batch of two images a rank over ``8B`` fake images (``max_targets``
-    24), the corpus replicated or sharded: the losses summed over the
-    ranks, the weights' digest and the corpus rows this rank holds."""
+    24), the corpus replicated or sharded, in ``layout``: the losses
+    summed over the ranks, the weights' digest and the corpus rows this
+    rank holds."""
     B = 2 * mesh.size
     pipe = DeviceDataPipeline(build_fake_manifest(num_images=8 * B, num_classes=NUM_CLASSES, seed=0), img, B,
                               AugParams(), max_targets=24, seed=0, fake_mode=True, device=mesh.device,
-                              feed_dtype=torch.float32, mesh=mesh, corpus_sharding=sharding)
+                              feed_dtype=torch.float32, mesh=mesh, corpus_sharding=sharding,
+                              corpus_layout=layout)
     net = build_network(NUM_CLASSES, "s", device=mesh.device, seed=0)
     opt = SmartSGD(net, OptimizerConfig(max_epochs=300), steps_per_epoch=len(pipe))
     step = make_train_step(net, default_anchors(), FeatureShape(img, img), opt, mesh=mesh)
@@ -101,7 +106,7 @@ def _fused_run(mesh, img: int, sharding: str) -> dict:
                 launches={k.__name__: k.launches - before[k.__name__] for k in KERNELS})
 
 
-def _dryrun_rank(mesh, img: int) -> dict:
+def _dryrun_rank(mesh, img: int, layout: str = "planar") -> dict:
     """One rank of the dry runs. (1) its rows of a global batch of two images
     a rank, one step: the loss summed over the ranks and a digest of the
     weights; then (3) and (4), ``_fused_run``. On the CPU a rank takes its
@@ -115,8 +120,8 @@ def _dryrun_rank(mesh, img: int) -> dict:
     m = step(Batch(*(t.to(mesh.device) for t in batch)))
     loss = m.total.detach().double().reshape(1)
     all_reduce_sum_(loss, mesh.group)
-    return dict(loss=float(loss), digest=_digest(net), fused=_fused_run(mesh, img, "replicated"),
-                sharded=_fused_run(mesh, img, "sharded"))
+    return dict(loss=float(loss), digest=_digest(net), fused=_fused_run(mesh, img, "replicated", layout),
+                sharded=_fused_run(mesh, img, "sharded", layout))
 
 
 SPATIAL_IMAGE = 256  # dry run 2's resolution (JAX's): every level keeps >= 2 rows a band
@@ -142,17 +147,19 @@ def _dryrun_spatial_rank(mesh, num_data: int) -> dict:
 
 
 def dryrun_multichip(n_devices: int, device_type: str = "cuda", image_size: int = 64,
-                     join_timeout_s: float = 600.0) -> dict:
+                     join_timeout_s: float = 600.0, corpus_layout: str = "planar") -> dict:
     """The dry runs of yolov5s at ``image_size`` over ``n_devices`` ranks
     (NCCL on cards 0..n-1, or gloo on the CPU): one train step, where
     ``n_devices >= 2`` a DP x SP step at 256 px over ``2 (n // 2)`` ranks, a
-    fused epoch, a fused epoch over a sharded corpus (module docstring).
+    fused epoch, a fused epoch over a sharded corpus, both over a corpus
+    in ``corpus_layout`` (module docstring).
     Raises unless every loss is finite, every rank holds the same weights
     after each, and each rank holds ``8B / n`` rows of the sharded corpus.
     Returns rank 0's ``{"loss", "digest", "fused", "sharded"}``, with
     ``"spatial"``: rank 0's ``{"loss", "digest"}`` of dry run 2 where it
     ran."""
-    ranks = launch(_dryrun_rank, n_devices, (image_size,), device_type=device_type, join_timeout_s=join_timeout_s)
+    ranks = launch(_dryrun_rank, n_devices, (image_size, corpus_layout), device_type=device_type,
+                   join_timeout_s=join_timeout_s)
     r0 = ranks[0]
     if not np.isfinite(r0["loss"]):
         raise RuntimeError(f"dry run: loss {r0['loss']} is not finite")
@@ -179,11 +186,13 @@ def dryrun_multichip(n_devices: int, device_type: str = "cuda", image_size: int 
     if held != [images // n_devices] * n_devices:
         raise RuntimeError(f"dry run sharded: rows held {held}, want {images // n_devices} a rank")
     steps = len(r0["fused"]["losses"])
+    want = {k.__name__: steps if k in (GATHER[corpus_layout], hsv_planar, warp_quadrants) else 0 for k in KERNELS}
     for part in ("fused", "sharded") if device_type == "cuda" else ():  # the CPU runs the plain versions
-        if any(n != steps for r in ranks for n in r[part]["launches"].values()):
-            raise RuntimeError(f"dry run {part}: launches {[r[part]['launches'] for r in ranks]}, want {steps} "
-                               "of each kernel on each rank")
-    print(f"dryrun fused-epoch OK: {n_devices} ranks ({device_type}) {len(r0['fused']['losses'])} steps, "
+        if any(r[part]["launches"] != want for r in ranks):
+            raise RuntimeError(f"dry run {part}: launches {[r[part]['launches'] for r in ranks]}, want {want} "
+                               "on each rank")
+    print(f"dryrun fused-epoch OK: {n_devices} ranks ({device_type}) {corpus_layout} corpus, "
+          f"{len(r0['fused']['losses'])} steps, "
           f"last loss={r0['fused']['losses'][-1]:.4f}", flush=True)
     print(f"dryrun sharded-corpus fused-epoch OK: {n_devices} ranks ({device_type}) corpus {images} rows at "
           f"{images // n_devices} a rank, last loss={r0['sharded']['losses'][-1]:.4f}", flush=True)
@@ -196,4 +205,4 @@ if __name__ == "__main__":
         out = fn(*args)
     print("entry OK", [tuple(level.raw.shape) for level in out.levels()], flush=True)
     if len(sys.argv) > 1:
-        dryrun_multichip(int(sys.argv[1]))
+        dryrun_multichip(int(sys.argv[1]), corpus_layout=sys.argv[2] if len(sys.argv) > 2 else "planar")

@@ -3,13 +3,20 @@
 Counterpart of ``object_detection_cib_tpu/ops/pallas_gather.py``:
 ``gather_rows_planar`` (K2, whole planes of the planar (N, 3, S, S) uint8
 corpus, the training feed) and ``gather_rows_flat`` (K3, rows of the
-(N, 8, D/8) byte view). The flat layout existed because a TPU tiles its
-arrays in (8, 128); on the card a row of any shape is contiguous bytes, so
-both functions launch the same kernel file, ``csrc/gather.cu``, over rows
-of bytes, as a vector copy with the widest element (16 bytes for every
-planar row at 416 or 640) that the row size and base pointers allow. The JAX
-package's ``gather_rows`` (any row shape through the flat view) is
-``gather_rows_flat`` on a reshaped view here.
+(N, 8, D/8) byte view of an NHWC corpus, ``data.corpus_layout=flat``).
+The flat layout existed because a TPU tiles its arrays in (8, 128); on the
+card a row of any shape is contiguous bytes, so both functions launch the
+same kernel file, ``csrc/gather.cu``, over rows of bytes, as a vector copy
+with the widest element (16 bytes for every row at 416 or 640) that the
+row size and base pointers allow. The JAX package's ``gather_rows`` (any
+row shape through the flat view) is ``gather_rows_flat`` on a reshaped
+view here; ``gather_rows_nhwc`` is that for an (N, S, S, 3) corpus, the
+flat corpus's gather: ``flat_view`` turns the corpus into the (N, 8, D/8)
+view K3 takes and the gathered rows are viewed back as (K, S, S, 3), both
+views of the same contiguous bytes. The JAX package's rule for the flat
+form (``pallas_gather.supports``: D % 1024 == 0, each row whole (8, 128)
+tiles) is kept as ``check_flat_rows``, which raises naming S for an image
+size that is not a multiple of 32 (the network needs S % 32 == 0 anyway).
 
 CPU tensors take the plain version, ``src[idx]``, which raises on an index
 outside [0, N). CUDA tensors launch the kernel or raise; the launch is
@@ -32,6 +39,7 @@ from object_detection_cib_torch.ops import build as kbuild
 from object_detection_cib_torch.ops.graph import count_launch
 
 _lib: Optional[ctypes.CDLL] = None
+ROW_TILE = 8 * 128  # bytes of one (8, 128) uint8 tile
 
 
 def _load() -> ctypes.CDLL:
@@ -97,6 +105,29 @@ def gather_rows_flat(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"flat corpus must be (N, 8, D/8), got {tuple(flat.shape)}")
     return _gather(flat, idx, gather_rows_flat)
 
+
+def check_flat_rows(S: int) -> None:
+    """Raise, naming S, unless an (S, S, 3) uint8 row of D = 3 S^2 bytes is a
+    whole number of (8, 128) tiles (JAX ``pallas_gather.supports``)."""
+    if (3 * S * S) % ROW_TILE:
+        raise ValueError(f"the flat corpus holds each row of D = 3 x S x S bytes as (8, D/8) with D/8 a "
+                         f"multiple of 128: S={S} gives D={3 * S * S}; S must be a multiple of 32")
+
+
+def flat_view(corpus: torch.Tensor) -> torch.Tensor:
+    """An NHWC corpus (N, S, S, 3) as the (N, 8, D/8) view K3 gathers."""
+    if corpus.dim() != 4 or tuple(corpus.shape[2:]) != (corpus.shape[1], 3):
+        raise ValueError(f"an NHWC corpus is (N, S, S, 3), got {tuple(corpus.shape)}")
+    n, S = corpus.shape[:2]
+    check_flat_rows(S)
+    return corpus.view(n, 8, 3 * S * S // 8)
+
+
+def gather_rows_nhwc(corpus: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """corpus (N, S, S, 3); idx (K,) -> (K, S, S, 3) == corpus[idx]: one K3
+    launch on ``flat_view(corpus)``, its rows viewed back as images."""
+    S = corpus.shape[1]
+    return gather_rows_flat(flat_view(corpus), idx).view(idx.shape[0], S, S, 3)
 
 gather_rows_planar.launches = 0
 gather_rows_flat.launches = 0

@@ -39,12 +39,16 @@ Config keys the port does not act on are named at start-up, never dropped
 silently (``_KEYS_READ_NOT_ACTED_ON``): ``model.net.stem_space_to_depth``
 (the same function as the plain 6x6/2 stem), ``trainer.compile_cache``
 (XLA's), ``trainer.deterministic`` (the JAX trainer ignores it too).
-Keys it refuses raise, naming the key
-(``_refuse_unported``): ``data.corpus_layout=flat`` (a TPU workaround),
-and an unknown ``model.remat_policy``. ``model.remat_policy`` (the train
-step's rematerialisation, ``train/steps.py``) and ``data.warp_pallas``
-(False pins the dense bf16 warp in place of K5, ``ops/augment.py``) act
-on both loops. ``trainer.platform`` null means
+Keys with a value it does not know raise, naming the key
+(``_refuse_unported``): an unknown ``model.remat_policy``,
+``data.corpus_sharding`` or ``data.corpus_layout``. ``model.remat_policy``
+(the train step's rematerialisation, ``train/steps.py``),
+``data.warp_pallas`` (False pins the dense bf16 warp in place of K5,
+``ops/augment.py``) and ``data.corpus_layout`` (``flat`` holds the corpus
+on the card as NHWC rows gathered by K3 in place of K2,
+``data/device_pipeline.py``) act on both loops. The JAX package runs its
+Pallas gather only in one process (a GSPMD workaround); the port's K3,
+like its K2, runs on every rank. ``trainer.platform`` null means
 the card: there is no fallback to the CPU, which ``trainer=cpu`` selects.
 
 Data parallelism (``mesh``, a ``parallel.mesh.DataMesh`` with a process
@@ -114,7 +118,7 @@ from object_detection_cib_torch.core.types import (
     default_anchors,
 )
 from object_detection_cib_torch.data.cache import DatasetInfo, deserialize_cached_dataset
-from object_detection_cib_torch.data.device_pipeline import DeviceCorpus, DeviceDataPipeline, metric_column
+from object_detection_cib_torch.data.device_pipeline import LAYOUTS, DeviceCorpus, DeviceDataPipeline, metric_column
 from object_detection_cib_torch.data.host_augment import (
     AugParams,
     TrainSampleAugmentor,
@@ -370,8 +374,10 @@ class Trainer:
     a checkpoint). ``sampler`` is any object with ``epoch_indices()``
     (``data/samplers.py``); ``corpus`` shares one ``DeviceCorpus`` between
     trainers over the same dataset. ``remat_policy`` is the train step's
-    (``train/steps.py``) and ``warp_pallas`` the device pipeline's (False:
-    the dense bf16 warp in place of K5), both the config's keys.
+    (``train/steps.py``), ``warp_pallas`` (False: the dense bf16 warp in
+    place of K5) and ``corpus_layout`` (``"flat"``: the corpus on the card
+    as NHWC rows, gathered by K3) the device pipeline's, all the config's
+    keys.
 
     The runtime's knobs, with a plain run's defaults, are attributes:
     ``loop`` (a ``FitConfig``), ``early_stopping``, ``ckpt`` (a
@@ -437,6 +443,7 @@ class Trainer:
         corpus_sharding: str = "replicated",
         remat_policy: Optional[str] = None,
         warp_pallas: Union[bool, str] = "auto",
+        corpus_layout: str = "planar",
     ):
         if pipeline not in ("device", "host"):
             raise ValueError(f"pipeline must be 'device' or 'host', got {pipeline!r}")
@@ -488,7 +495,7 @@ class Trainer:
                 sampler=sampler, seed=seed, fake_mode=self.fake_mode, device_cache=device_cache,
                 feed_dtype=feed_dtype, device=self.device, corpus=corpus, root_dir=root_dir,
                 enable_ram_cache=enable_ram_cache, mesh=self.mesh, corpus_sharding=corpus_sharding,
-                warp_pallas=warp_pallas,
+                warp_pallas=warp_pallas, corpus_layout=corpus_layout,
             )
         elif train_info is not None:
             # cv2 and Pillow are needed only here: the host pipeline is imported when asked for
@@ -671,6 +678,7 @@ class Trainer:
             corpus_sharding=dcfg.get("corpus_sharding") or "replicated",
             remat_policy=mcfg.get("remat_policy") or None,
             warp_pallas=dcfg.get("warp_pallas", "auto"),
+            corpus_layout=dcfg.get("corpus_layout", "planar"),
         )
         t.loop = FitConfig(
             check_val_every_n_epoch=int(tcfg.get("check_val_every_n_epoch") or 1),
@@ -1245,9 +1253,9 @@ def _refuse_unported(cfg: dict) -> None:
     if sharding == "sharded" and not (dcfg.get("pipeline") == "device" and dcfg.get("device_cache")):
         raise ValueError("data.corpus_sharding=sharded spreads the corpus on the card over the ranks: it needs "
                          "data.pipeline=device data.device_cache=True")
-    if dcfg.get("pipeline") == "device" and dcfg.get("corpus_layout", "planar") != "planar":
-        raise NotImplementedError(f"data.corpus_layout={dcfg['corpus_layout']!r}: the flat layout is a TPU "
-                                  "tiling workaround and is not ported")
+    layout = dcfg.get("corpus_layout", "planar")
+    if layout not in LAYOUTS:
+        raise ValueError(f"data.corpus_layout={layout!r}: one of {LAYOUTS}")
 
 
 def num_devices_from_cfg(tcfg: dict) -> int:

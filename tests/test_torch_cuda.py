@@ -682,14 +682,14 @@ def deterministic():
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = was
 
 
-def _fused_pipe(dev, mode="mosaic", n=48, seed=3):
+def _fused_pipe(dev, mode="mosaic", n=48, seed=3, **extra):
     from object_detection_cib_torch.data.device_pipeline import DeviceDataPipeline
     from object_detection_cib_torch.data.host_augment import AugParams
     from object_detection_cib_torch.data.synthetic import build_fake_manifest
 
     info = build_fake_manifest(num_images=n, num_classes=3, image_size=64, seed=2)
     kw = {"mosaic": {}, "mixup": dict(mixup_prob=0.5), "no_mosaic": dict(use_mosaic=False)}[mode]
-    return DeviceDataPipeline(info, 64, 4, AugParams(), max_targets=6, seed=seed, device=dev, **kw)
+    return DeviceDataPipeline(info, 64, 4, AugParams(), max_targets=6, seed=seed, device=dev, **kw, **extra)
 
 
 def _checksum(batch, *rows):
@@ -722,6 +722,30 @@ def test_graphed_fused_epoch_equals_eager_on_card(dev, mode, pipelined):
         assert got[-1].sum() > 0  # max_targets 6: the overflow row is live
     assert set(f_graph.graphs) == ({"body", "last"} if pipelined else {"body"})
     assert torch.equal(graphed.gen.get_state(), eager.gen.get_state())
+
+
+@pytest.mark.parametrize("mode", ["mosaic", "mixup", "no_mosaic"])
+def test_flat_corpus_launches_k3_on_card(dev, mode):
+    """The corpus held as NHWC rows (``corpus_layout="flat"``): a graphed
+    fused epoch of 12 steps bitwise the planar corpus's, K3 counted once a
+    step (twice under mixup) by replay and K2 never; then three steps of
+    the step loop, bitwise too, K3 counted by launch."""
+    planar, flat = _fused_pipe(dev, mode), _fused_pipe(dev, mode, corpus_layout="flat")
+    assert tuple(flat.corpus.shape) == (48, 64, 64, 3)
+    want = planar.build_fused_epoch_fn(_checksum, stack_metrics=True)(planar.epoch_host_arrays())
+    fn = flat.build_fused_epoch_fn(_checksum, stack_metrics=True)
+    gathers = (gather_ops.gather_rows_planar, gather_ops.gather_rows_flat)
+    before = [g.launches for g in gathers]
+    got = fn(flat.epoch_host_arrays())
+    torch.cuda.synchronize()
+    per_step = 2 if mode == "mixup" else 1
+    assert fn.graph and [g.launches - b for g, b in zip(gathers, before)] == [0, 12 * per_step]
+    assert torch.equal(got, want), (got - want).abs().max()
+    before = gather_ops.gather_rows_flat.launches
+    for (a, _), (b, _) in zip(flat.epoch(max_steps=3), planar.epoch(max_steps=3), strict=True):
+        for name in ("images", "boxes", "labels", "mask"):
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert gather_ops.gather_rows_flat.launches - before == 3 * per_step
 
 
 def _tiny_trainer(dev, tmp=None, **kw):

@@ -50,7 +50,8 @@ subprocess with a timeout. Tolerances:
     every rank recorded as failed, the sweep going on; the summary printed
     and written by host 0 alone.
 The entry points (``entry.py``): ``dryrun_multichip(2)`` on gloo (dry runs
-1 to 4, dry run 2 over a ``(1, 2)`` mesh), and the
+1 to 4, dry run 2 over a ``(1, 2)`` mesh; again with the corpus in the
+flat layout, dry runs 3 and 4 bitwise the planar corpus's), and the
 yolov5s forward of ``entry()`` against the JAX ``entry()``'s on converted
 weights (bf16 on both sides, 2 images at 128 px: every head value within
 one bf16 rounding, 2**-7, of the largest head value; measured equal on
@@ -718,15 +719,32 @@ def test_sweep_over_two_hosts_runs_each_job_as_it_runs_alone(groups):
 
 # ---------------------------------------------------------------- entry.py
 
-def test_dryrun_multichip_on_two_gloo_ranks():
+@pytest.fixture(scope="module")
+def planar_dryrun():
     from object_detection_cib_torch.entry import dryrun_multichip
 
-    got = dryrun_multichip(2, device_type="cpu", join_timeout_s=JOIN)
+    return dryrun_multichip(2, device_type="cpu", join_timeout_s=JOIN)
+
+
+def test_dryrun_multichip_on_two_gloo_ranks(planar_dryrun):
+    got = planar_dryrun
     assert np.isfinite(got["loss"]) and np.isfinite(got["spatial"]["loss"])  # dry runs 1 and 2
     for part in ("fused", "sharded"):  # parts 3 and 4: a fused epoch of 8 steps at B=4, 32 images
         assert len(got[part]["losses"]) == 8 and np.isfinite(got[part]["losses"]).all()
     assert got["sharded"]["held_rows"] == 16 and got["fused"]["held_rows"] == 32
     np.testing.assert_allclose(got["sharded"]["losses"], got["fused"]["losses"], rtol=1e-6)
+
+
+def test_dryrun_multichip_flat_corpus_on_two_gloo_ranks(planar_dryrun):
+    """Dry runs 3 and 4 over the corpus held as NHWC rows (K3's gather):
+    the same losses and weights as over the planar corpus, bit for bit."""
+    from object_detection_cib_torch.entry import dryrun_multichip
+
+    got = dryrun_multichip(2, device_type="cpu", join_timeout_s=JOIN, corpus_layout="flat")
+    assert got["sharded"]["held_rows"] == 16 and got["fused"]["held_rows"] == 32
+    for part in ("fused", "sharded"):
+        assert got[part]["losses"] == planar_dryrun[part]["losses"], part
+        assert got[part]["digest"] == planar_dryrun[part]["digest"], part
 
 
 def test_entry_forward_matches_jax_entry_on_converted_weights():

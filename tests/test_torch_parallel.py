@@ -12,7 +12,8 @@ check (``_rank_checks``); the tests read its results. Tolerances:
   * each rank's batches against the rows of the 1-rank batches: bitwise,
     for the device pipeline with the corpus on the card and host-fed, and
     the host pipeline, each with mosaic, with mixup 0.5 and without mosaic;
-    the sharded corpus against the replicated one: bitwise;
+    the sharded corpus against the replicated one, in the planar and in
+    the flat layout (NHWC rows, K3's gather): bitwise;
   * three steps at 2 ranks against 1 rank at the same global batch, in
     f64: every parameter and BatchNorm statistic rtol 1e-9 (atol 1e-12 for
     values at 0). The loss is computed in f32 by design (``train/loss.py``
@@ -233,16 +234,19 @@ def _host_batches_made(mesh) -> dict:
 
 
 def _sharded_batches(mesh, n_train, batch_size, n=2) -> dict:
-    """The batches of the replicated and the sharded corpus, mixup 0.5."""
+    """The batches of the replicated and the sharded corpus, mixup 0.5; and
+    of the sharded corpus in the flat layout (NHWC rows, K3's gather)."""
     info, _ = _infos(n_train)
     out = {}
-    for sharding in ("replicated", "sharded") if mesh is not None else ("replicated",):
+    for part in ("replicated", "sharded", "sharded_flat") if mesh is not None else ("replicated",):
         pipe = tdp.DeviceDataPipeline(info, S, batch_size, AugParams(), max_targets=40, seed=4, device="cpu",
-                                      feed_dtype=torch.float32, mesh=mesh, corpus_sharding=sharding,
-                                      mixup_prob=0.5)
-        out[sharding] = [_np(b) for b, _ in pipe.epoch(n)]
-        if sharding == "sharded":
+                                      feed_dtype=torch.float32, mesh=mesh, corpus_sharding=part.split("_")[0],
+                                      mixup_prob=0.5, corpus_layout="flat" if part.endswith("flat") else "planar")
+        out[part] = [_np(b) for b, _ in pipe.epoch(n)]
+        if part == "sharded":
             out["held_rows"] = int(pipe.corpus.shape[0])
+        elif part == "sharded_flat":
+            out["held_rows_flat"] = tuple(pipe.corpus.shape)
     return out
 
 
@@ -595,6 +599,20 @@ def test_sharded_corpus_equals_replicated(two_ranks, three_ranks, ranks):
         got = res["sharded"]
         assert got["held_rows"] == per
         for a, b in zip(got["sharded"], got["replicated"], strict=True):
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("ranks", [2, 3])
+def test_sharded_flat_corpus_equals_replicated(two_ranks, three_ranks, ranks):
+    """The sharded corpus held as NHWC rows (``corpus_layout="flat"``): each
+    rank's batches bitwise the replicated planar corpus's."""
+    results = two_ranks if ranks == 2 else three_ranks
+    per = math.ceil(25 / ranks)
+    for res in results:
+        got = res["sharded"]
+        assert got["held_rows_flat"] == (per, S, S, 3)
+        for a, b in zip(got["sharded_flat"], got["replicated"], strict=True):
             for k in a:
                 np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 

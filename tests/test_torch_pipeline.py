@@ -22,7 +22,12 @@ plain versions. Tolerances:
     masks and overflow exact; with HSV off, pixels <= 1/255 apart and
     >= 99% equal per blended image (the warp's class: a sample coordinate
     on the other side of a .5 boundary); with HSV on, which turns one unit
-    into a few, <= 9/255 on < 1% of pixels per blended image.
+    into a few, <= 9/255 on < 1% of pixels per blended image;
+  * the flat corpus (``corpus_layout="flat"``: NHWC rows gathered by K3's
+    plain version) against the JAX package's flat pipeline, three steps
+    of the mosaic, mixup and no-mosaic recipes with JAX's draws fed in:
+    the corpus and each gathered group exact; the batch within the
+    recipes' gates above and exact against the port's planar pipeline.
 """
 
 import jax
@@ -224,17 +229,6 @@ def test_draws_shapes_and_ranges():
     assert float((d.hsv_r[:, 1] - 1).abs().max()) <= 0.7
     off = tdp.draw_augment(gen, 8, 64, TAug.no_aug())
     assert off.flip is None and off.hsv_r is None
-
-
-@pytest.mark.parametrize("kw,item", [
-    (dict(corpus_layout="flat"), "not ported"),
-])
-def test_unported_settings_raise(kw, item):
-    info = t_manifest(num_images=8, num_classes=3, image_size=S, seed=2)
-    args = dict(aug_params=TAug(), device="cpu")
-    args.update(kw)
-    with pytest.raises(NotImplementedError, match=item):
-        tdp.DeviceDataPipeline(info, S, B, **args)
 
 
 # ------------------------------------------------------------- the recipes
@@ -549,3 +543,94 @@ def test_trainer_runs_recipe_and_counts_sampler_stats(recipe):
         for t in info.samples[int(i)].targets:
             by_hand[t.class_name] += 1
     assert stats == by_hand
+
+
+# ---------------------------------------------------------- the flat corpus
+
+FLAT_RECIPES = {  # the JAX CPU warp is the dense bf16 one: the port's too (warp_pallas=False)
+    "mosaic": dict(warp_pallas=False),
+    "mixup": dict(mixup_prob=0.5, warp_pallas=False),
+    "no_mosaic": dict(use_mosaic=False),
+}
+
+
+@pytest.mark.parametrize("recipe", list(FLAT_RECIPES))
+def test_flat_pipeline_matches_jax_flat_pipeline(recipe):
+    """The port's flat pipeline against the JAX package's
+    ``DeviceDataPipeline(corpus_layout="flat")`` (NHWC corpus, its plain
+    row gather on the CPU), three steps with JAX's draws fed in: the corpus
+    and each gathered group bitwise (K3's rows, viewed back as images);
+    the augmented batch within the recipe tests' gates (module docstring),
+    and bitwise the port's planar pipeline given the same draws."""
+    kw = dict(FLAT_RECIPES[recipe], feed_dtype=jnp.float32, sampler="class_aware")
+    info = j_manifest(num_images=N, num_classes=3, image_size=S, seed=2)
+    jp = jdp.DeviceDataPipeline(info, target_size=S, batch_size=B, aug_params=JAug(), max_targets=MAXT, seed=3,
+                                fake_mode=True, device_cache=True, corpus_layout="flat",
+                                sampler=_sampler(jsamplers, info, "class_aware"),
+                                **{k: v for k, v in kw.items() if k != "sampler"})
+    tkw = {**kw, "feed_dtype": torch.float32}
+    tp, planar = _port_pipe(**tkw, corpus_layout="flat"), _port_pipe(**tkw)
+    assert not jp.planar and tp.device_corpus.layout == "flat"
+    np.testing.assert_array_equal(tp.corpus.numpy(), np.asarray(jp._ds_images))
+    assert tuple(tp.corpus.shape) == (N, S, S, 3)
+    groups, secs, keys = jp._epoch_plan()
+    tg, tsec = tp._epoch_plan()
+    np.testing.assert_array_equal(tg, groups)
+    np.testing.assert_array_equal(tsec, secs)
+    mixup, mosaic = kw.get("mixup_prob", 0.0), kw.get("use_mosaic", True)
+    ds = (jp._ds_images, jp._ds_sizes, jp._ds_tb, jp._ds_tl, jp._ds_tm)
+    for step in range(3):
+        key = jnp.asarray(keys[step])
+        idx = [np.asarray(groups[step], np.int32)] + ([np.asarray(secs[step], np.int32)] if mixup else [])
+        for i in idx:  # the gathered groups, bitwise
+            got, ji = tp.gather(torch.from_numpy(i)), jnp.asarray(i)
+            np.testing.assert_array_equal(got.images.permute(0, 2, 3, 1).numpy(), np.asarray(jp._gather(ds[0], ji)))
+            for g, j in zip(got[1:], ds[1:]):
+                np.testing.assert_array_equal(g.numpy(), np.asarray(j[ji]))
+        ti = [torch.from_numpy(i) for i in idx]
+        draws = (_jax_mixup_draws(key, B, mixup) if mixup else _jax_draws(key, B, use_mosaic=mosaic))
+        jb, jovf = jax.jit(jp._gather_augment_raw)(*ds, *map(jnp.asarray, idx), key)
+        tb, tovf = tp.gather_augment(ti[0], draws, *ti[1:])
+        pb, povf = planar.gather_augment(ti[0], draws, *ti[1:])
+        for name in ("images", "boxes", "labels", "mask"):
+            assert torch.equal(getattr(tb, name), getattr(pb, name)), name
+        assert int(tovf) == int(povf) == int(jovf)
+        np.testing.assert_allclose(tb.boxes.numpy(), np.asarray(jb.boxes), atol=1e-4)
+        np.testing.assert_array_equal(tb.labels.numpy(), np.asarray(jb.labels))
+        np.testing.assert_array_equal(tb.mask.numpy(), np.asarray(jb.mask))
+        diff = np.abs(tb.images.numpy() - np.asarray(jb.images))
+        assert diff.max() <= 9.0 / 255 + 1e-6, diff.max() * 255
+        assert (diff > 1e-6).mean() < 0.01 * (2 if mixup else 1), (diff > 1e-6).mean()
+
+
+def test_flat_layout_host_fed_is_accepted():
+    """With the corpus not on the card the layout changes nothing (JAX:
+    ``planar`` needs ``device_cache``): the same batches as planar."""
+    got = _port_pipe(seed=2, device_cache=False, corpus_layout="flat")
+    want = _port_pipe(seed=2, device_cache=False)
+    assert got.corpus is None and got.corpus_layout == "flat"
+    for (a, _), (b, _) in zip(got.epoch(max_steps=2), want.epoch(max_steps=2), strict=True):
+        for name in ("images", "boxes", "labels", "mask"):
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+def test_flat_corpus_refusals():
+    """A shared corpus of the other layout raises, naming both; a row that
+    is not whole (8, 128) tiles raises, naming S; an unknown layout raises."""
+    planar, flat = _port_pipe(), _port_pipe(corpus_layout="flat")
+    with pytest.raises(ValueError, match="'planar' layout .* corpus_layout='flat'"):
+        tdp.DeviceDataPipeline(planar.info, S, B, TAug(), device="cpu", corpus=planar.device_corpus,
+                               corpus_layout="flat")
+    with pytest.raises(ValueError, match="'flat' layout .* corpus_layout='planar'"):
+        tdp.DeviceDataPipeline(flat.info, S, B, TAug(), device="cpu", corpus=flat.device_corpus)
+    shared = tdp.DeviceDataPipeline(flat.info, S, B, TAug(), device="cpu", corpus=flat.device_corpus,
+                                    corpus_layout="flat")
+    assert shared.corpus is flat.corpus
+    info = t_manifest(num_images=4, num_classes=3, image_size=40, seed=2)
+    with pytest.raises(ValueError, match="S=40"):
+        tdp.DeviceDataPipeline(info, 40, 2, TAug(), device="cpu", corpus_layout="flat")
+    with pytest.raises(ValueError, match="S=48"):
+        tdp.DeviceCorpus.fake(t_manifest(num_images=4, num_classes=3, image_size=48, seed=2), 48, "cpu", "flat")
+    tdp.DeviceDataPipeline(info, 40, 2, TAug(), device="cpu")  # the planar layout takes any size
+    with pytest.raises(ValueError, match="corpus_layout"):
+        _port_pipe(corpus_layout="nhwc")

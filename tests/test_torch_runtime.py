@@ -400,7 +400,7 @@ REFUSED = {  # overrides (space-separated): the key the error names
     "model.remat_policy=bogus": "model.remat_policy",
     "trainer.num_devices=2": "trainer.num_devices",  # two ranks: cli.train launches them
     "data.corpus_sharding=sharded": "data.corpus_sharding",  # the host pipeline has no corpus to shard
-    "data.pipeline=device data.device_cache=True data.corpus_layout=flat": "data.corpus_layout",
+    "data.corpus_layout=nhwc": "data.corpus_layout",
     "trainer.platform=mps": "trainer.platform",
 }
 
@@ -439,9 +439,16 @@ def test_warp_pallas_false_trains_through_from_config(tmp_path):
     assert all(torch.equal(a[k], v) for k, v in b.items())
 
 
-def test_flat_corpus_layout_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="corpus_layout='flat'"):
-        _port(tmp_path, *DEVICE, "data.corpus_layout=flat")
+def test_flat_corpus_layout_trains_through_from_config(tmp_path):
+    """``data.corpus_layout=flat`` on both loops: the corpus held as NHWC rows
+    and gathered by K3's plain version, bitwise the planar step loop."""
+    _, want = _two_steps(tmp_path / "planar", "data.fused_epoch=False")
+    for loop in ("fused", "step"):
+        extra = ("data.fused_epoch=False",) if loop == "step" else ()
+        t, got = _two_steps(tmp_path / loop, "data.corpus_layout=flat", *extra)
+        assert t.pipeline.device_corpus.layout == "flat" and t.pipeline.corpus.shape[1:] == (64, 64, 3)
+        assert (t._fused_fn is not None) == (loop == "fused")
+        assert all(torch.equal(got[k], v) for k, v in want.items()), loop
 
 
 def test_ignored_keys_are_named(tmp_path, capsys):
