@@ -10,6 +10,7 @@ Run from the root of a checkout, on a machine with one card:
     python3 chip_smoke.py --phase spatial  # phases 1, 2 and 16 alone ((b) on 2 cards, (c) on 4)
     python3 chip_smoke.py --phase jpeg  # phases 1, 2, 7's letterbox, 10 and 17 alone (the JPEG feeds)
     python3 chip_smoke.py --phase flat  # phases 1, 2 and 18 alone (the flat corpus)
+    python3 chip_smoke.py --phase carry # phases 1, 2 and 19 alone (a run carried across the JAX layout)
 
 ``--baseline DIR`` (repeatable) also builds the four kernel sources
 (``nms.cu``, ``gather.cu``, ``hsv.cu``, ``warp.cu``) of another checkout at
@@ -315,7 +316,28 @@ result line):
     data.device_cache=True data.corpus_layout=flat`` over 640 fake images,
     one fused epoch without validation: K3, K4, K5 10 each by replay, K2
     and K1 0, finite losses. ``--phase flat`` runs phases 1, 2 and 18 alone;
-19. the ``kernels`` JSON line (with each path's launches; K3's
+19. carry: the training state carried across the JAX package's layout
+    on the main path (yolov5s, nc=10, 416, B=64, bf16, the fused epoch over
+    640 fake images on the card, 10 steps an epoch, ``cudnn.deterministic``),
+    all through ``Trainer.from_config(compose(...))``: (a) one epoch from
+    seed 0, which saves the port's own ``last``; (b) that file through
+    ``models/convert.py:torch_to_flax_state`` (nested numpy dicts in the
+    layout Orbax restores the JAX ``TrainState`` in, what
+    ``tools/orbax_to_torch.py`` hands over) and (c) back through
+    ``flax_state_to_torch`` and ``train/checkpoint.py:save_state``, bitwise
+    the port's own file; (d) a trainer resumed from the converted file with
+    ``ckpt_path=``: its parameters, BatchNorm statistics, momentum buffers
+    and step bitwise those (a)'s trainer holds at the end of its epoch, it
+    starts at epoch 1, and it fits the second epoch with validation: its
+    first step's hyperparameter row (and its ``lr``) equal to
+    ``SmartSGD.hyperparams(10)``, K2/K4/K5 10 each by replay and K1 once a
+    validation batch (launches zeroed just before and read just after the
+    fit), finite losses and mAP; each part's seconds. A resumed run draws
+    the first epoch's data plan again (the sampler and the generators are
+    not in a checkpoint, in either package), so it is not compared with
+    (a)'s trainer going on.
+    ``--phase carry`` runs phases 1, 2 and 19 alone;
+20. the ``kernels`` JSON line (with each path's launches; K3's
     ``launches`` are phase 18 (a)'s), the card line, and the result line
     last.
 """
@@ -2825,6 +2847,149 @@ def phase_flat(card, dev, aug, train_info, val_info, corpus):
     return out, (err, timing, calls)
 
 
+# ------------------------------------------------------------ 19 carry
+CARRY_N = 640  # phase 19: fake train and val images (10 steps an epoch at B=64)
+CARRY_CFG = ["experiment=yv5s", "data.pipeline=device", "data.device_cache=True", "dataset_name=fake", "seed=0",
+             f"data.fake_num_images={CARRY_N}", "trainer.max_epochs=2", "trainer.check_val_every_n_epoch=2",
+             "logger=csv", "hydra=static", "extras.enforce_tags=False", "print_config=False",
+             "extras.print_config=False", "callbacks.model_summary=null"]
+
+
+def phase_carry(card):
+    """Phase 19: a run carried across the JAX package's layout and resumed
+    on the main path (the module docstring). Returns each fit's launches."""
+    import numpy as np
+
+    from object_detection_cib_torch.config import compose
+    from object_detection_cib_torch.models.convert import flax_state_to_torch, torch_to_flax_state
+    from object_detection_cib_torch.train.checkpoint import load_state, save_state
+    from object_detection_cib_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    counts, seconds = {}, {}
+
+    def trainer(out: Path, *extra) -> Trainer:
+        return Trainer.from_config(compose(root / "configs", "train", [*CARRY_CFG, f"paths.output_dir={out}",
+                                                                         *extra]))
+
+    def same(a: dict, b: dict) -> bool:
+        return a.keys() == b.keys() and all(torch.equal(v, b[k]) for k, v in a.items())
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # two runs of the same steps bitwise equal
+    try:
+        with tempfile.TemporaryDirectory(prefix="carry-") as tmp:
+            tmp = Path(tmp)
+            # (a) one epoch from seed 0: the port's own checkpoint
+            t0 = time.perf_counter()
+            t = trainer(tmp / "a")
+            spe = t.steps_per_epoch
+            _zero_kernels()
+            t.fit(max_epochs=1)
+            torch.cuda.synchronize()
+            counts["a"] = _read_kernels()
+            seconds["a"] = time.perf_counter() - t0
+            want = {"gather_rows_planar": spe, "hsv_planar": spe, "warp_quadrants": spe, "greedy_nms_mask": 0}
+            if {k: counts["a"][k] for k in want} != want or t._fused_fn is None or t.optimizer.step_count != spe:
+                fail(f"[carry] (a) not one fused epoch of {spe} steps: launches {counts['a']}, step "
+                     f"{t.optimizer.step_count}")
+            losses_a = t.epoch_metrics[0]["total"]
+            first = t  # its live state is (d)'s reference
+            own = tmp / "a" / "checkpoints" / "last"
+
+            # (b) through the JAX layout, (c) back, written as the trainer writes
+            t0 = time.perf_counter()
+            saved = load_state(own)
+            jax_layout = torch_to_flax_state(saved)
+            leaves = [v for tree in (jax_layout["params"], jax_layout["batch_stats"],
+                                     jax_layout["opt_state"]["momentum_buf"]) for v in _leaves(tree)]
+            if not all(isinstance(v, np.ndarray) for v in leaves) or jax_layout["step"].dtype != np.int32 \
+                    or int(jax_layout["step"]) != spe:
+                fail(f"[carry] (b) the JAX layout is not numpy arrays with an int32 step {spe}")
+            back = flax_state_to_torch(jax_layout)
+            converted = tmp / "b" / "checkpoints" / "last"
+            converted.parent.mkdir(parents=True)
+            save_state(converted, back)
+            reread = load_state(converted)
+            if not (same(reread["net"], saved["net"]) and same(reread["optimizer"]["momentum"],
+                                                                  saved["optimizer"]["momentum"])
+                    and reread["optimizer"]["step_count"] == saved["optimizer"]["step_count"]):
+                fail("[carry] (c) the state back from the JAX layout differs from the port's own checkpoint")
+            seconds["bc"] = time.perf_counter() - t0
+            log(f"[carry] (a) one fused epoch of {spe} steps (yolov5s@416 B=64 bf16, {CARRY_N} fake images on the "
+                f"card, seed 0, cudnn.deterministic): launches {counts['a']}; losses {losses_a[0]:.4f}->"
+                f"{losses_a[-1]:.4f}; {seconds['a']:.2f} s with set-up | {card}")
+            log(f"[carry] (b)+(c) the port's last -> torch_to_flax_state ({len(leaves)} numpy leaves: "
+                f"{len(_leaves(jax_layout['params']))} params, {len(_leaves(jax_layout['batch_stats']))} batch stats, "
+                f"{len(_leaves(jax_layout['opt_state']['momentum_buf']))} momentum; step int32 "
+                f"{int(jax_layout['step'])}) -> flax_state_to_torch -> save_state: {len(back['net'])} tensors and "
+                f"{len(back['optimizer']['momentum'])} momentum buffers bitwise the port's own file; "
+                f"{seconds['bc']:.2f} s | {card}")
+            del saved, jax_layout, back, reread
+
+            # (d) a trainer resumed from the converted file through ckpt_path=
+            t0 = time.perf_counter()
+            t = trainer(tmp / "d", f"ckpt_path={converted}")
+            start = (t.epoch, t.optimizer.step_count)
+            if start != (1, spe):
+                fail(f"[carry] (d) resumed at (epoch, step) {start}, want (1, {spe})")
+            if not (same(t.net.state_dict(), first.net.state_dict())
+                    and same(t.optimizer.buffers, first.optimizer.buffers)):
+                fail("[carry] (d) the resumed trainer's state differs from (a)'s at the end of its epoch")
+            n_state, n_mom = len(t.net.state_dict()), len(t.optimizer.buffers)
+            del first
+            gc.collect()  # the trainer's CUDA graphs sit in reference cycles
+            torch.cuda.empty_cache()
+            rows = []
+            real = t.optimizer.hyper_table
+
+            def spy(first_step, steps, device=None):
+                table = real(first_step, steps)
+                rows.append((first_step, table[0].tolist()))
+                return table if device is None else table.to(device, non_blocking=True)
+
+            t.optimizer.hyper_table = spy
+            _zero_kernels()
+            t1 = time.perf_counter()
+            m = t.fit(max_epochs=2)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t1
+            counts["d"] = _read_kernels()
+            seconds["d"] = time.perf_counter() - t0
+            blocks = -(-len(t.val_indices) // t.batch_size)
+            want = {"gather_rows_planar": spe, "hsv_planar": spe, "warp_quadrants": spe, "greedy_nms_mask": blocks}
+            hp10 = list(t.optimizer.hyperparams(spe))
+            lr0 = float(t.epoch_metrics[0]["lr"][0])
+            losses = t.epoch_metrics[0]["total"]
+            if {k: counts["d"][k] for k in want} != want:
+                fail(f"[carry] (d) launches {counts['d']}, want {want}")
+            if not rows or rows[0] != (spe, hp10) or lr0 != hp10[1]:
+                fail(f"[carry] (d) the first resumed step's hyperparameters {rows[:1]}, lr {lr0}; "
+                     f"want step {spe} with {hp10}")
+            if t._fused_fn is None or not t._fused_fn.graph or not np.isfinite(losses).all() or not finite_map(m):
+                fail(f"[carry] (d) not the graphed fused epoch, or losses / mAP not finite: {losses}")
+            replays = {k: g.replays for k, g in t._fused_fn.graphs.items()}
+            log(f"[carry] (d) resumed from the converted checkpoint through ckpt_path=: epoch {start[0]}, step "
+                f"{start[1]}; {n_state} parameters and statistics and {n_mom} momentum buffers bitwise (a)'s "
+                f"trainer's at the end of its epoch; the first row of the epoch's hyperparameter table at step "
+                f"{rows[0][0]}: (lr_bias, lr_other, momentum) {rows[0][1]} = hyperparams({spe}) (hyperparams(0) "
+                f"would be {list(t.optimizer.hyperparams(0))}); launches {counts['d']} (graph replays {replays}); "
+                f"losses {losses[0]:.4f}->{losses[-1]:.4f}; map {m.get('map', float('nan')):.6g}; fit {fit_s:.2f} "
+                f"s, with set-up {seconds['d']:.2f} s | {card}")
+            del t, spy
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"[carry] phase 19 {time.perf_counter() - t_phase:.2f} s | {card}")
+    return counts
+
+
+def _leaves(tree: dict) -> list:
+    return [x for v in tree.values() for x in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
 def _ddp_flat_rank(mesh):
     """Phase 13 (d), one NCCL rank: the sharded corpus in each layout, the
     step loop's batches for ``FLAT_DDP_STEPS`` steps under mixup 0.5 (two
@@ -2893,8 +3058,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path, action="append", default=[],
                     help="root of another checkout whose four kernel sources are timed beside")
-    ap.add_argument("--phase", choices=["all", "ddp", "hosts", "rest", "spatial", "jpeg", "flat"], default="all",
-                    help="flat: phases 1, 2 and 18 alone (the flat corpus, over a planar corpus built for it); "
+    ap.add_argument("--phase", choices=["all", "ddp", "hosts", "rest", "spatial", "jpeg", "flat", "carry"],
+                    default="all",
+                    help="carry: phases 1, 2 and 19 alone (a run carried across the JAX layout); "
+                         "flat: phases 1, 2 and 18 alone (the flat corpus, over a planar corpus built for it); "
                          "jpeg: phases 1, 2, the letterbox kernel of 7, 10 and 17 alone (the JPEG feeds); "
                          "ddp: phases 1, 2 and 13 alone (data parallelism; (c) needs two or more cards); "
                          "hosts: phases 1, 2 and 14 alone (several hosts; (b) needs four cards); "
@@ -2977,6 +3144,12 @@ def main() -> None:
         corpus_counts = phase_corpus(card, _zero_kernels, _read_kernels)
         print(json.dumps({"letterbox": {"max_abs_err": lb_err, "timing": lb_timing},
                           "jpeg_launches": jpeg, "corpus_launches": corpus_counts}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
+    if args.phase == "carry":
+        print(json.dumps({"carry_launches": phase_carry(card)}), flush=True)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}), flush=True)
@@ -3811,8 +3984,12 @@ def main() -> None:
     flat_counts, (flat_err, timing["gather_rows_flat"], call_ms["gather_rows_flat"]) = phase_flat(
         card, dev, aug, train_info, info, shared)
     errs["gather_rows_flat"] = max(errs["gather_rows_flat"], flat_err)
+    torch.cuda.empty_cache()
 
-    # -------------------------------------------------------------- 19 report
+    # ----------------------------------------------------------------- 19 carry
+    carry = phase_carry(card)
+
+    # -------------------------------------------------------------- 20 report
     src = "object_detection_cib_torch/ops/csrc/"
     rows = [
         ("greedy_nms_mask", "nms.cu", "object_detection_cib_tpu/ops/pallas_nms.py:131", serve_launches),
@@ -3849,7 +4026,8 @@ def main() -> None:
                                  "rest": {part: n[name] for part, n in rest.items()},
                                  "spatial": {part: n[name] for part, n in spatial.items()},
                                  "corpus": {part: n[name] for part, n in corpus_counts.items()},
-                                 "flat": {part: n[name] for part, n in flat_counts.items()}},
+                                 "flat": {part: n[name] for part, n in flat_counts.items()},
+                                 "carry": {part: n[name] for part, n in carry.items()}},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -44,6 +44,8 @@ from object_detection_cib_torch.models.layers import (
 )
 from object_detection_cib_torch.utils.device import resolve_device
 
+ANCHORS_PER_CELL = 3  # anchors a grid cell, the network's default
+
 
 def make_divisible(x: float, widen_factor: float = 1.0, divisor: int = 8) -> int:
     """ceil(x*widen/divisor)*divisor (ref kod/nn/utils.py:7-13)."""
@@ -263,7 +265,7 @@ class Yolov5Network(nn.Module):
     def __init__(
         self,
         num_classes: int,
-        num_anchors_per_cell: int = 3,
+        num_anchors_per_cell: int = ANCHORS_PER_CELL,
         widen_factor: float = 1.0,
         deepen_factor: float = 1.0,
         dtype: Optional[torch.dtype] = None,
@@ -334,7 +336,7 @@ def init_weights(net: Yolov5Network, generator: torch.Generator) -> None:
 def build_network(
     num_classes: int,
     size: Union[str, Mapping[str, float]] = "s",
-    num_anchors_per_cell: int = 3,
+    num_anchors_per_cell: int = ANCHORS_PER_CELL,
     dtype: Optional[torch.dtype] = None,
     device: Union[str, torch.device] = "cuda",
     seed: int = 0,

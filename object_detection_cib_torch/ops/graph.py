@@ -13,6 +13,7 @@ wrappers' counts. So a count is the number of launches that really ran.
 
 from __future__ import annotations
 
+import gc
 import threading
 from typing import Callable, Dict, Iterable, Optional
 
@@ -39,9 +40,14 @@ class CapturedGraph:
     from each of ``generators`` (CUDA generators) advance at every replay as
     the same draws made eagerly would (``register_generator_state``). The
     capture's error mode is ``thread_local``: other threads (a checkpoint
-    writer) may go on using the card meanwhile. A capture that fails raises,
-    naming ``name``; nothing runs in its place. ``launches`` holds the
-    kernel launches the graph holds, by wrapper.
+    writer) may go on using the card meanwhile. Python's cyclic garbage
+    collector runs once before the capture and is off during it: a
+    collection inside the capture would run, in the capturing thread, the
+    CUDA calls that free what a dead trainer left in reference cycles (a
+    graph's ``reset`` is not permitted while a stream captures), and the
+    capture would fail. A capture that fails raises, naming ``name``;
+    nothing runs in its place. ``launches`` holds the kernel launches the
+    graph holds, by wrapper.
     """
 
     def __init__(self, fn: Callable[[], None], stream: torch.cuda.Stream, name: str,
@@ -51,6 +57,9 @@ class CapturedGraph:
             self.graph.register_generator_state(gen)
         tally: Dict = {}
         _capture.tally = tally
+        collecting = gc.isenabled()
+        gc.collect()
+        gc.disable()
         try:
             with torch.cuda.graph(self.graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
                 fn()
@@ -58,6 +67,8 @@ class CapturedGraph:
             raise RuntimeError(f"capturing {name} as a CUDA graph failed: {e}") from e
         finally:
             _capture.tally = None
+            if collecting:
+                gc.enable()
         self.graph.instantiate()
         self.launches = tally
         self.replays = 0

@@ -8,8 +8,10 @@ buffers by parameter name and ``step_count``. The names and layout are the
 JAX package's: ``<dirpath>/last``, ``<dirpath>/best`` and ``meta.json``
 (``best_value``, ``monitor``), so ``ckpt_path=<run>/checkpoints/last``
 names a checkpoint as the README spells it. A checkpoint of the JAX package
-(an Orbax directory) is not read here: ``torch.load`` of a directory
-raises, and this module says so.
+(an Orbax directory) is not read here: ``tools/orbax_to_torch.py`` converts
+it, where the JAX package is installed, into a file written by
+``save_state`` (and ``save_meta`` beside a converted ``best``), and
+``load_state`` of a directory raises naming that tool.
 
 Saves run on one worker thread, so they stay ordered and an error surfaces
 at the next save, wait or restore. The optimizer updates the parameters
@@ -72,12 +74,28 @@ class Snapshot:
             return _to_host(self.state)
 
 
+def save_state(path: Path, state: dict) -> None:
+    """Write a checkpoint dict as one ``torch.save`` file: under a
+    temporary name beside ``path``, then renamed onto it."""
+    path = Path(path)
+    tmp = path.with_name(f".{path.name}.tmp")
+    torch.save(state, tmp)
+    os.replace(tmp, path)
+
+
+def save_meta(directory: Path, best_value: float, monitor: str) -> None:
+    """Write ``meta.json`` (the best value and its metric) into a
+    checkpoint directory, where ``CheckpointManager`` reads it."""
+    Path(directory, "meta.json").write_text(json.dumps({"best_value": best_value, "monitor": monitor}))
+
+
 def load_state(path: Path) -> dict:
     path = Path(path)
     if path.is_dir():
         raise IsADirectoryError(
-            f"{path} is a directory: an Orbax checkpoint of the JAX package? The port reads only "
-            "its own checkpoints (one torch.save file)")
+            f"{path} is a directory: an Orbax checkpoint of the JAX package? The port reads only its own "
+            "checkpoints (one torch.save file); convert it first, where the JAX package is installed, with "
+            f"`python tools/orbax_to_torch.py {path} <file>` and pass that file as ckpt_path")
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
@@ -105,12 +123,7 @@ class CheckpointManager:
         self._drain()
         path = self.directory / name
 
-        def _do():
-            tmp = path.with_name(f".{name}.tmp")
-            torch.save(snap.to_host(), tmp)
-            os.replace(tmp, path)
-
-        self._pending = self._pool.submit(_do)
+        self._pending = self._pool.submit(lambda: save_state(path, snap.to_host()))
 
     def _drain(self):
         if self._pending is not None:
@@ -135,7 +148,7 @@ class CheckpointManager:
         if better:
             self.best_value = float(value)
             self._save("best", snap)
-            self._meta_path.write_text(json.dumps({"best_value": self.best_value, "monitor": self.monitor}))
+            save_meta(self.directory, self.best_value, self.monitor)
         return better
 
     def restore(self, net: torch.nn.Module, optimizer: Optional[SmartSGD] = None,

@@ -863,6 +863,101 @@ def test_boundary_snapshot_holds_the_epoch_state_on_card(dev, tmp_path, determin
     assert not all(torch.equal(v, end[k].cpu()) for k, v in first["net"].items())
 
 
+def test_capture_runs_without_the_garbage_collector_on_card(dev):
+    """A capture holds Python's cyclic collector off and turns it back on."""
+    import gc
+
+    from object_detection_cib_torch.ops.graph import CapturedGraph
+
+    x = torch.ones(4, device=dev)
+    seen = []
+
+    def step():
+        seen.append(gc.isenabled())
+        x.mul_(2.0)
+
+    g = CapturedGraph(step, torch.cuda.Stream(), "a probe")
+    g.replay()
+    torch.cuda.synchronize()
+    assert seen == [False] and gc.isenabled() and float(x[0]) == 2.0
+
+
+def test_capture_after_a_dead_trainer_on_card(dev):
+    """A trainer dropped while the collector waits leaves its graphs in
+    reference cycles; a collection inside the next trainer's capture would
+    free them there, and the capture would fail. The capture collects
+    first, so its step finds nothing left to free when it collects inside
+    the capture (as an automatic collection might) and the capture holds."""
+    import gc
+
+    dead = _tiny_trainer(dev)
+    dead.fit(max_epochs=1)
+    assert dead._fused_fn.graph
+    gc.disable()
+    try:
+        del dead
+        t = _tiny_trainer(dev)
+        real, collected = t.train_step, []
+
+        def step(batch, hp=None):
+            if torch.cuda.is_current_stream_capturing():
+                collected.append(gc.collect())
+            return real(batch, hp)
+
+        t.train_step = step
+        t.fit(max_epochs=1)
+    finally:
+        gc.enable()
+    assert t._fused_fn.graph and collected and not any(collected)
+
+
+def test_state_carried_across_the_jax_layout_resumes_bitwise_on_card(dev, tmp_path, deterministic):
+    """One fused epoch saves the port's own ``last``; that state through the
+    JAX layout and back (``torch_to_flax_state``, ``flax_state_to_torch``)
+    resumes the second epoch bitwise the own checkpoint, in fresh trainers
+    and in one whose graph was captured before the restore (its state
+    scrambled first: the restore must copy into the tensors the graph
+    reads), against the first trainer going on without a restore."""
+    from object_detection_cib_torch.models.convert import flax_state_to_torch, torch_to_flax_state
+    from object_detection_cib_torch.train.checkpoint import load_state, save_state
+
+    def tiny(tmp=None):
+        t = _tiny_trainer(dev, tmp, max_epochs=2)
+        t.loop = t.loop._replace(check_val_every_n_epoch=2)
+        return t
+
+    first = tiny(tmp_path)
+    first.fit(max_epochs=1)
+    own, converted = tmp_path / "ck" / "last", tmp_path / "converted"
+    save_state(converted, flax_state_to_torch(torch_to_flax_state(load_state(own))))
+    runs = {}
+    for name, path in (("own", own), ("converted", converted)):
+        t = tiny()
+        t.restore(path)
+        assert (t.epoch, t.optimizer.step_count) == (1, 5)
+        t.fit(max_epochs=2)
+        runs[name] = _state(t)
+    captured = tiny()
+    captured.fit(max_epochs=1)
+    assert captured._fused_fn.graph
+    with torch.no_grad():
+        for x in list(captured.net.parameters()) + list(captured.net.buffers()):
+            x.mul_(0.5)
+        for b in captured.optimizer.buffers.values():
+            b.zero_()
+    captured.optimizer.step_count = 0
+    captured.restore(converted)
+    assert (captured.epoch, captured.optimizer.step_count) == (1, 5)
+    counted = TRAINING_KERNELS + (nms_ops.greedy_nms_mask,)
+    for fn in counted:
+        fn.launches = 0
+    captured.fit(max_epochs=2)
+    assert [fn.launches for fn in counted] == [5, 5, 5, 2]  # replays of the graph captured before the restore
+    first.fit(max_epochs=2)
+    assert _max_diff(runs["own"], runs["converted"]) == 0
+    assert _max_diff(_state(captured), _state(first)) == 0
+
+
 # ------------------------------------------------- several cards: data parallelism
 
 @pytest.fixture
