@@ -11,6 +11,7 @@ Run from the root of a checkout, on a machine with one card:
     python3 chip_smoke.py --phase jpeg  # phases 1, 2, 7's letterbox, 10 and 17 alone (the JPEG feeds)
     python3 chip_smoke.py --phase flat  # phases 1, 2 and 18 alone (the flat corpus)
     python3 chip_smoke.py --phase carry # phases 1, 2 and 19 alone (a run carried across the JAX layout)
+    python3 chip_smoke.py --phase sizes # phases 1, 2 and 20 alone (yolov5m and yolov5l at full width)
 
 ``--baseline DIR`` (repeatable) also builds the four kernel sources
 (``nms.cu``, ``gather.cu``, ``hsv.cu``, ``warp.cu``) of another checkout at
@@ -161,13 +162,14 @@ result line):
     inside the graph), recorded by the step itself, bitwise equal to the
     step loop's iterator from the same seed. Then two trainers of the same
     seed, the step loop and the fused epoch, each fitted to epoch 2 and on
-    to epoch 4 in full 78-step epochs, validated at epochs 2 and 4, in turns
-    (step, fused, fused, step): each fit launches K2, K4, K5 156 times
+    to epoch 4 in epochs of 40 steps (of the corpus's 78, a depth cut to
+    make room for phase 20), validated at epochs 2 and 4, in turns
+    (step, fused, fused, step): each fit launches K2, K4, K5 80 times
     (counted by replay for the fused loop) and K1 5; finite losses and
     mAP, the fused trainer's parameters moved. Printed: img/s of each fit's
     second epoch (host clock; fetch to fetch for the fused loop), the
     device epoch walls (CUDA events), the first three losses of both loops,
-    the peak memory; for one whole fused epoch from an idle card the host's
+    the peak memory; for one fused epoch of 40 steps from an idle card the host's
     enqueue and the time a step; the graph's nodes and kernels per step
     (libcuda's ``cuGraphGetNodes``); over a 10-step fused epoch the profiler's kernel time
     and the card's busy time (the union of the kernels' intervals: two
@@ -285,10 +287,11 @@ result line):
 17. corpus: the main path from a JPEG corpus at full width:
     ``cli.train.main`` with ``experiment=yv5s`` (yolov5s, nc=10, 416, B=64,
     bf16), ``data.pipeline=device data.device_cache=True`` and the fused
-    epoch, over 4,992 train (``bench.py:237``'s count) and 320 val JPEG
-    files at 640 x 640 written from seeds by ``build_synthetic_dataset`` in
-    8 processes, two epochs, validated once: the letterbox once a chunk of
-    256 files at decode (20 + 2), K2/K4/K5 156 each by replay, K1 5; finite
+    epoch, over 2,496 train (half ``bench.py:237``'s count, a depth cut to
+    make room for phase 20) and 320 val JPEG files at 640 x 640 written
+    from seeds by ``build_synthetic_dataset`` in 8 processes, two epochs,
+    validated once: the letterbox once a chunk of 256 files at decode (10 +
+    2), K2/K4/K5 78 each by replay, K1 5; finite
     losses and mAP; the first 64 corpus rows against the CPU path. Printed:
     the corpus's decode img/s and seconds, the decode threads, the bytes
     copied up, img/s over both epochs' windows, the val cache's decode
@@ -337,7 +340,32 @@ result line):
     not in a checkpoint, in either package), so it is not compared with
     (a)'s trainer going on.
     ``--phase carry`` runs phases 1, 2 and 19 alone;
-20. the ``kernels`` JSON line (with each path's launches; K3's
+20. sizes: yolov5m (``model.net.deepen_factor=0.67
+    model.net.widen_factor=0.75``) and yolov5l (the default network of
+    ``configs/nn/networks/yv5.yaml``, no ``experiment=``) at full width,
+    nc=10, bf16, over fake corpora of 12 steps an epoch on the card: (a) m
+    at 640, B=96 through ``Trainer.from_config``, (b) l at 640, B=128 (under
+    the remat policy ``SIZES_RUNS`` names, measured by
+    ``tools/remat_peaks.py`` to fit the card) and at 416, B=64 without
+    remat, both through ``cli.train.main``; each a fused fit of 3 epochs
+    validated after the last: the parameter count of the size, img/s over
+    the fit's epoch windows summed (the first holds the set-up: cuDNN's
+    first calls at these shapes, the warm-up steps, the capture) and over
+    the device's walls of epochs 2 and 3 (CUDA events), ``max_memory_allocated``, K2/K4/K5 3 x 12 by replay and K1 once a
+    validation batch (launches zeroed just before and read just after),
+    finite losses and mAP. (c) one more
+    ``validate`` of l over its 640 val cache (K1 a batch), K2, K5 and K4
+    held BITWISE against their plain versions at l's 640 B=128 step (the
+    plain versions 16 groups a call), and
+    serving l at 640, B=32 through ``make_eval_step`` (K1 held bitwise on
+    its candidates; img/s over 60 steps, K1 once a step, peak memory). (d)
+    under ``cudnn.deterministic``, at m and l, 5 fused steps at 640, B=16
+    graphed bitwise the eager ones (state and losses; K2/K4/K5 5 in the
+    graphed run), and the first bf16 step's losses against the card's own
+    f32 step from the same weights on the same batch, each within
+    ``BF16_LOSS_RTOL`` (5%, the reasoning at the constant) and above 0.
+    ``--phase sizes`` runs phases 1, 2 and 20 alone;
+21. the ``kernels`` JSON line (with each path's launches; K3's
     ``launches`` are phase 18 (a)'s), the card line, and the result line
     last.
 """
@@ -477,7 +505,8 @@ def nms_pairs_needed(keep, live) -> int:
 LB_N = 256  # images a letterbox batch: DECODE_ROWS, a chunk of the corpus decode
 LB_SIZES = [(480, 640), (640, 480), (427, 640), (375, 500), (1, 517), (517, 1), (1203, 97)]  # (h, w)
 LETTERBOX_OPS_PER_PIXEL = 48  # per content pixel, 3 channels: csrc/letterbox.cu counted op by op (an FMA 2)
-CORPUS_N, CORPUS_VAL, CORPUS_PX = 4992, 320, 640  # phase 17: bench.py:237's count of JPEG files at 640 px
+# phase 17: JPEG files at 640 px, half bench.py:237's count of 4,992 (cut to make room for phase 20)
+CORPUS_N, CORPUS_VAL, CORPUS_PX = 2496, 320, 640
 CORPUS_NAME, CORPUS_EPOCHS, CORPUS_SHARDS = "synthetic-hard-zipf-640", 2, 8
 
 
@@ -1152,6 +1181,7 @@ def phase_corpus(card, zero_counts, read_counts):
 
 
 FUSED_EPOCHS = 4  # phase 12: two fits of two epochs per loop, in turns
+FUSED_STEPS = 40  # phase 12: steps an epoch (of the corpus's 78), cut to make room for phase 20
 PROBE_STEPS = 6  # phase 12's batch probe: 3 batches made eagerly, 3 inside the graph
 PROF_STEPS = 10  # phase 12's profiler window of replays
 
@@ -1191,7 +1221,7 @@ def phase_fused(card, dev, aug, train_info, val_info, corpus, zero_counts, read_
     from object_detection_cib_torch.data.device_pipeline import DeviceDataPipeline
     from object_detection_cib_torch.train.trainer import Trainer
 
-    steps = TRAIN_N // TRAIN_B
+    steps = FUSED_STEPS
     t_phase = time.perf_counter()
 
     # the batches: the fused epoch (pipelined, a CUDA graph) against the step loop's iterator
@@ -1238,7 +1268,7 @@ def phase_fused(card, dev, aug, train_info, val_info, corpus, zero_counts, read_
             torch.cuda.reset_peak_memory_stats()
         zero_counts()
         t0 = time.perf_counter()
-        m = t.fit(max_epochs=stop)
+        m = t.fit(max_epochs=stop, epoch_steps=steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = read_counts()
@@ -1295,7 +1325,7 @@ def phase_fused(card, dev, aug, train_info, val_info, corpus, zero_counts, read_
     body.replay = timed_replay
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    epoch(None)
+    epoch(steps)
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -2901,7 +2931,7 @@ def phase_carry(card):
             # (b) through the JAX layout, (c) back, written as the trainer writes
             t0 = time.perf_counter()
             saved = load_state(own)
-            jax_layout = torch_to_flax_state(saved)
+            jax_layout = torch_to_flax_state(saved, len(t.classes))
             leaves = [v for tree in (jax_layout["params"], jax_layout["batch_stats"],
                                      jax_layout["opt_state"]["momentum_buf"]) for v in _leaves(tree)]
             if not all(isinstance(v, np.ndarray) for v in leaves) or jax_layout["step"].dtype != np.int32 \
@@ -2986,6 +3016,319 @@ def phase_carry(card):
     return counts
 
 
+# ------------------------------------------------------------ 20 sizes
+SIZES_STEPS = 12  # phase 20: steps an epoch of each fused fit (fake train and val images: 12 x B)
+SIZES_EPOCHS = 3  # phase 20: epochs of each fit, validated after the last (the device times epochs 2 and 3)
+SIZES_CHUNK = 16  # phase 20 (c): groups a call of a plain version takes, beside l's trainer on the card
+# phase 20: run -> (overrides of the default network, image size, batch, remat policy). m and l at the
+# JAX bench's size_m and size_l shapes (bench.py:431-447); l at 640 and B=128 under the policy measured
+# to fit one card (tools/remat_peaks.py, PERF.md), l at the yv5s recipe's 416 and B=64 without remat
+SIZES_RUNS = {
+    "m": (("model.net.deepen_factor=0.67", "model.net.widen_factor=0.75"), 640, 96, None),
+    "l": ((), 640, 128, "conv_out_bn_stats"),
+    "l416": ((), 416, 64, None),
+}
+SIZES_PARAMS = {"m": 20_907_687, "l": 46_186_759}  # nc=10, tests/test_torch_sizes.py holds them to JAX's
+SIZES_SERVE_B, SIZES_SERVE_STEPS = 32, 60  # (c) serving yolov5l at 640: a window of steps
+SIZES_EQ_B, SIZES_EQ_STEPS = 16, 5  # (d) the graphed fused steps against the eager ones
+SIZES_GAP_B = 16  # (d) the first bf16 step against the card's own f32 step
+# (d) each loss of the first bf16 step within 5% of the f32 step's: bf16 keeps 8 significant bits (one
+# rounding <= 2**-9 = 0.2%); the forward rounds each of its ~100-150 layers' outputs once, the errors of
+# a layer's elements are near independent and the losses are means over the batch, the cells and the
+# targets, so their gap stays a small multiple of one rounding; 5% is 25 roundings, and the gap must be
+# above 0, so the step did round to bf16
+BF16_LOSS_RTOL = 0.05
+SIZES_CFG = ["dataset_name=fake", "data.pipeline=device", "data.device_cache=True", "seed=0",
+             f"trainer.max_epochs={SIZES_EPOCHS}", f"trainer.check_val_every_n_epoch={SIZES_EPOCHS}", "logger=csv",
+             "hydra=static",
+             "extras.enforce_tags=False", "print_config=False", "extras.print_config=False",
+             "callbacks.model_summary=null"]
+
+
+def _sizes_overrides(run: str, steps: int = SIZES_STEPS, batch=None) -> list:
+    """The overrides of phase 20's ``run`` at ``steps`` steps an epoch of
+    ``batch`` (the run's own by default)."""
+    net, S, B, policy = SIZES_RUNS[run]
+    B = batch or B
+    return [*SIZES_CFG, *net, f"data.target_image_size={S}", f"data.batch_size={B}",
+            f"data.fake_num_images={steps * B}", f"model.remat_policy={'null' if policy is None else policy}"]
+
+
+def _free_card():
+    gc.collect()  # a trainer's CUDA graphs sit in reference cycles
+    torch.cuda.empty_cache()
+
+
+def phase_sizes(card, dev):
+    """Phase 20: yolov5m and yolov5l, the default network, trained, validated
+    and served at full width (the module docstring). Returns each part's
+    launches."""
+    import numpy as np
+
+    from object_detection_cib_torch.cli.train import main as cli_main
+    from object_detection_cib_torch.config import compose
+    from object_detection_cib_torch.core.nms import select_candidates
+    from object_detection_cib_torch.core.types import default_anchors
+    from object_detection_cib_torch.data.device_pipeline import draw_augment
+    from object_detection_cib_torch.data.host_augment import AugParams
+    from object_detection_cib_torch.eval.decode import decode_predictions
+    from object_detection_cib_torch.models.yolov5 import build_network
+    from object_detection_cib_torch.ops import augment as aug_ops
+    from object_detection_cib_torch.ops import gather as gather_ops
+    from object_detection_cib_torch.ops import hsv as hsv_ops
+    from object_detection_cib_torch.ops import nms as nms_ops
+    from object_detection_cib_torch.ops import warp as warp_ops
+    from object_detection_cib_torch.train import trainer as trainer_mod
+    from object_detection_cib_torch.train.steps import make_eval_step
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    counts = {}
+    made = []  # the Trainer of each cli.train run, to look inside
+    from_config = trainer_mod.Trainer.from_config.__func__
+
+    def recording(cls, cfg, mesh=None):
+        made.append(from_config(cls, cfg, mesh))
+        return made[-1]
+
+    def built(overrides):  # not recorded: the trainer dies with its caller
+        return from_config(trainer_mod.Trainer, compose(root / "configs", "train", overrides))
+
+    def fit(run: str, tmp: Path, via_cli: bool):
+        """One fused fit of ``SIZES_EPOCHS`` epochs with one validation:
+        checks, prints and returns the trainer."""
+        _, S, B, policy = SIZES_RUNS[run]
+        overrides = [*_sizes_overrides(run), f"paths.output_dir={tmp / run}"]
+        _free_card()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        _zero_kernels()
+        t0 = time.perf_counter()
+        if via_cli:
+            m = cli_main(overrides)
+            t = made.pop()
+        else:
+            t = built(overrides)
+            m = t.fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[run] = got = _read_kernels()
+        peak = torch.cuda.max_memory_allocated()
+        steps, blocks = SIZES_STEPS, -(-len(t.val_indices) // t.batch_size)
+        n = SIZES_EPOCHS * steps
+        want = {"gather_rows_planar": n, "hsv_planar": n, "warp_quadrants": n, "greedy_nms_mask": blocks,
+                "gather_rows_flat": 0}
+        if {k: got[k] for k in want} != want:
+            fail(f"[sizes] {run}: launches {got}, want {want}")
+        size = "m" if run == "m" else "l"
+        n_params = sum(p.numel() for p in t.net.parameters())
+        if n_params != SIZES_PARAMS[size] or t.steps_per_epoch != steps or t.batch_size != B:
+            fail(f"[sizes] {run}: {n_params} parameters (want yolov5{size}'s {SIZES_PARAMS[size]}), "
+                 f"{t.steps_per_epoch} steps of {t.batch_size}")
+        losses = np.concatenate([em["total"] for em in t.epoch_metrics])
+        if t._fused_fn is None or not t._fused_fn.graph or len(losses) != n \
+                or not np.isfinite(losses).all() or not finite_map(m):
+            fail(f"[sizes] {run}: not the graphed fused epoch, or losses / mAP not finite: {losses}, {m}")
+        # the fit's windows hold its set-up (cuDNN's first calls at these
+        # shapes, two eager steps, the capture) in the first epoch's; the
+        # device's epoch walls (between the CUDA events at the ends of
+        # epochs) time epochs 2 and 3 alone. The host windows of those two
+        # do not: the host enqueues an epoch ahead and each replay waits for
+        # room in the card's queue, so the windows shift by about an epoch
+        ips = sum(t.epoch_imgs) / sum(t.epoch_walls)
+        walls = t.device_epoch_walls()
+        ips_device = sum(t.epoch_imgs[e] for e in walls) / sum(walls.values()) if walls else math.nan
+        corpus = t.pipeline.corpus
+        replays = {k: g.replays for k, g in t._fused_fn.graphs.items()}
+        log(f"[sizes] ({run}) yolov5{size} ({n_params} parameters, nc={len(t.classes)}) at {S} B={B} bf16, remat "
+            f"{policy}, {'cli.train.main, no experiment=' if via_cli else 'Trainer.from_config'}: fused fit of "
+            f"{SIZES_EPOCHS} epochs of {steps} steps, {ips:.2f} img/s over the fit's epoch windows summed (host "
+            f"clock, fetch to fetch, the set-up in the first: {[round(w, 4) for w in t.epoch_walls]} s); "
+            f"{ips_device:.2f} img/s over the device's walls of epochs 2-{SIZES_EPOCHS} (CUDA events: "
+            f"{ {e + 1: round(w, 4) for e, w in walls.items()} } s); peak "
+            f"{peak / 2**30:.3f} GiB (max_memory_allocated, {held / 2**30:.3f} GiB of it held before the run "
+            f"began; corpus {corpus.numel() / 2**30:.3f} GiB and val cache on the card); launches {got} (graph replays {replays}); losses {losses[0]:.4f}->"
+            f"{losses[-1]:.4f}; whole {'command' if via_cli else 'fit with set-up'} {wall:.2f} s | {card}")
+        log(f"[sizes] ({run}) validation of {len(t.val_indices)} images " + json.dumps(m))
+        return t, dict(img_s_fit=ips, img_s_device=ips_device, peak_gib=peak / 2**30, policy=policy, launches=got)
+
+    def chunked(plain, *args):
+        """``plain`` over ``SIZES_CHUNK`` groups a call (its f32 temporaries
+        at B=128 and 640 px do not fit beside l's trainer), concatenated."""
+        return torch.cat([plain(*(a[i:i + SIZES_CHUNK] for a in args))
+                          for i in range(0, args[0].shape[0], SIZES_CHUNK)])
+
+    def hold_kernels(t):
+        """K2, K5 and K4 on a step of ``t``'s pipeline, each one call at its
+        shapes held bitwise against its plain version."""
+        pipe, S, B = t.pipeline, t.image_shape.width, t.batch_size
+        corpus = pipe.corpus
+        idx = torch.from_numpy(pipe._epoch_plan()[0][0].astype(np.int32)).to(dev)
+        errs = [check_equal(f"[sizes] gather_rows_planar {tuple(corpus.shape)}[{idx.numel()}]",
+                            gather_ops.gather_rows_planar(corpus, idx), gather_ops.gather_rows_plain(corpus, idx))]
+        draws = draw_augment(torch.Generator(device=dev).manual_seed(7), B, S, AugParams())
+        sample = pipe.gather(idx)
+        placement = aug_ops._mosaic_placement(sample.sizes.reshape(B, 4, 2), draws.centers, S)
+        M = aug_ops._affine_matrices(draws.values, 2 * S, 2 * S, S, S)
+        taps = aug_ops.mosaic_warp_taps(M, placement, S, draws.flip)
+        imgs = sample.images.reshape(B, 4, 3, S, S)
+        warped = warp_ops.warp_quadrants(imgs, *taps, out_dtype=torch.bfloat16)
+        errs.append(check_equal(
+            f"[sizes] warp_quadrants real draw {tuple(imgs.shape)} -> bf16", warped,
+            chunked(lambda *a: warp_ops.warp_quadrants_plain(*a, out_dtype=torch.bfloat16), imgs, *taps)))
+        errs.append(check_equal(f"[sizes] hsv_planar real warp output {tuple(warped.shape)} bf16",
+                                hsv_ops.hsv_planar(warped, draws.hsv_r),
+                                chunked(hsv_ops.hsv_planar_plain, warped, draws.hsv_r)))
+        return max(errs)
+
+    def graphed_vs_eager(run: str, tmp: Path):
+        """(d) ``SIZES_EQ_STEPS`` fused steps at ``SIZES_EQ_B``, eager and
+        graphed, from the same weights and seed: the state and the losses
+        after them bitwise equal; K2/K4/K5 once a step in the graphed run."""
+        def one(graph):
+            _free_card()
+            t = built([*_sizes_overrides(run, SIZES_EQ_STEPS, SIZES_EQ_B), f"paths.output_dir={tmp / 'eq'}"])
+            fn = t.pipeline.build_fused_epoch_fn(lambda b, hp: t.train_step(b, hp), pipelined=True,
+                                                 stack_metrics=True, graph=graph)
+            _zero_kernels()
+            flat = fn(t.pipeline.epoch_host_arrays(), t.optimizer.hyper_table(0, SIZES_EQ_STEPS))
+            torch.cuda.synchronize()
+            got = _read_kernels()
+            state = [v.detach().cpu().clone() for v in
+                     list(t.net.state_dict().values()) + list(t.optimizer.buffers.values())]
+            if fn.graph != graph:
+                fail(f"[sizes] (d) {run}: asked graph={graph}, the fused epoch ran graph={fn.graph}")
+            return state, flat.cpu(), got
+
+        eager, graphed = one(False), one(True)
+        want = {"gather_rows_planar": SIZES_EQ_STEPS, "hsv_planar": SIZES_EQ_STEPS, "warp_quadrants": SIZES_EQ_STEPS}
+        if {k: graphed[2][k] for k in want} != want:
+            fail(f"[sizes] (d) {run}: graphed launches {graphed[2]}, want {want}")
+        same = torch.equal(graphed[1], eager[1]) and all(torch.equal(a, b) for a, b in zip(graphed[0], eager[0]))
+        if not same:
+            err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(graphed[0], eager[0]))
+            again = one(False)
+            spread = max(float((a.double() - b.double()).abs().max()) for a, b in zip(again[0], eager[0]))
+            fail(f"[sizes] (d) {run}: the graphed fused steps differ from the eager ones by {err} (two eager runs "
+                 f"by {spread})")
+        log(f"[sizes] (d) {run} at {SIZES_RUNS[run][1]} B={SIZES_EQ_B}, remat {SIZES_RUNS[run][3]}, "
+            f"cudnn.deterministic: {SIZES_EQ_STEPS} fused steps graphed (2 eager warm-up steps, then replays) "
+            f"bitwise_equal=True to the eager ones ({len(eager[0])} parameters, statistics and momentum buffers, "
+            f"the losses {eager[1][0].tolist()}); graphed launches {graphed[2]} | {card}")
+
+    def bf16_gap(run: str, tmp: Path) -> float:
+        """(d) the first bf16 step's losses against the card's own f32 step
+        from the same weights on the same batch (module constants)."""
+        _free_card()
+        base = [*_sizes_overrides(run, 2, SIZES_GAP_B), "data.fused_epoch=False", f"paths.output_dir={tmp / 'gap'}"]
+        t16, t32 = built(base), built([*base, "model.net.dtype=null"])
+        if t16.net.dtype != torch.bfloat16 or t32.net.dtype is not None:
+            fail(f"[sizes] (d) {run}: compute dtypes {t16.net.dtype} and {t32.net.dtype}")
+        if not all(torch.equal(a, b) for a, b in zip(t16.net.state_dict().values(), t32.net.state_dict().values())):
+            fail(f"[sizes] (d) {run}: the bf16 and f32 trainers start from other weights")
+        (b16, _), (b32, _) = next(iter(t16.pipeline.epoch(1))), next(iter(t32.pipeline.epoch(1)))
+        if not (torch.equal(b16.images, b32.images.to(torch.bfloat16)) and torch.equal(b16.boxes, b32.boxes)
+                and torch.equal(b16.labels, b32.labels) and torch.equal(b16.mask, b32.mask)):
+            fail(f"[sizes] (d) {run}: the two trainers' first batches differ beyond the feed's bf16 rounding")
+        m16, m32 = t16.train_step(b16), t32.train_step(b32)
+        gaps = {}
+        for k in ("total", "box", "obj", "cls"):
+            a, b = float(getattr(m16, k)), float(getattr(m32, k))
+            gaps[k] = (a, b, abs(a - b) / abs(b))
+        worst = max(g for _, _, g in gaps.values())
+        ok = worst <= BF16_LOSS_RTOL and gaps["total"][2] > 0
+        log(f"[sizes] (d) {run} at {SIZES_RUNS[run][1]} B={SIZES_GAP_B}, the first step (step loop) in bf16 against "
+            f"the card's own f32 step, same weights, same batch (the f32 feed's images rounded to bf16 in the bf16 "
+            f"feed): (bf16, f32, relative gap) " + ", ".join(f"{k} ({a:.6f}, {b:.6f}, {g:.3e})" for k, (a, b, g) in
+                                                              gaps.items())
+            + f"; worst {worst:.3e}, tolerance {BF16_LOSS_RTOL} and above 0: {ok} | {card}")
+        if not ok:
+            fail(f"[sizes] (d) {run}: bf16 against f32 gaps {gaps}, tolerance {BF16_LOSS_RTOL} and above 0")
+        return worst
+
+    res = {}
+    trainer_mod.Trainer.from_config = classmethod(recording)
+    try:
+        with tempfile.TemporaryDirectory(prefix="sizes-") as tmp:
+            tmp = Path(tmp)
+            # (a) yolov5m at 640, B=96
+            t, res["m"] = fit("m", tmp, via_cli=False)
+            del t
+            # (b) yolov5l, the default network, at 640, B=128 and at 416, B=64
+            t, res["l"] = fit("l", tmp, via_cli=True)
+            # (c) one more validation of l over its 640 val cache, then K2/K5/K4 at its shapes
+            _zero_kernels()
+            t0 = time.perf_counter()
+            m = t.validate()
+            torch.cuda.synchronize()
+            val_s = time.perf_counter() - t0
+            counts["l validate"] = got = _read_kernels()
+            blocks = -(-len(t.val_indices) // t.batch_size)
+            if got["greedy_nms_mask"] != blocks or got["gather_rows_planar"] or not finite_map(m):
+                fail(f"[sizes] (c) validate: launches {got}, want K1 {blocks} and no training kernel; map {m}")
+            log(f"[sizes] (c) Evaluator.validate of yolov5l over {len(t.val_indices)} images at {t.image_shape.width} "
+                f"B={t.batch_size} "
+                f"on the card: {val_s:.3f} s ({len(t.val_indices) / val_s:.1f} img/s incl. host mAP), launches "
+                f"{got} | {card}")
+            res["kernels_max_abs_err"] = hold_kernels(t)
+            del t
+            t, res["l416"] = fit("l416", tmp, via_cli=True)
+            del t
+            _free_card()
+
+            # (c) serving yolov5l at 640, B=32 through make_eval_step
+            anchors = default_anchors()
+            net = build_network(NC, "l", dtype=torch.bfloat16, device=dev, seed=0).eval()
+            images = torch.rand(SIZES_SERVE_B, 640, 640, 3, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+            with torch.inference_mode():
+                cand = select_candidates(decode_predictions(net(images), anchors), CONF, max_nms=MAX_NMS)
+            res["kernels_max_abs_err"] = max(res["kernels_max_abs_err"], check_equal(
+                f"[sizes] greedy_nms_mask yolov5l@640 B={SIZES_SERVE_B} K={cand.live.shape[1]}",
+                nms_ops.greedy_nms_mask(cand.offset_boxes, cand.live, IOU),
+                nms_ops.greedy_nms_mask_plain(cand.offset_boxes, cand.live, IOU)))
+            del cand
+            estep = make_eval_step(net, anchors, conf_thres=CONF, iou_thres=IOU, max_det=MAX_DET, max_nms=MAX_NMS)
+            for _ in range(2):
+                estep(images)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_kernels()
+            t0 = time.perf_counter()
+            for _ in range(SIZES_SERVE_STEPS):
+                out = estep(images)
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
+            counts["l serving"] = got = _read_kernels()
+            if got["greedy_nms_mask"] != SIZES_SERVE_STEPS or got["gather_rows_planar"]:
+                fail(f"[sizes] (c) serving: launches {got}, want K1 {SIZES_SERVE_STEPS} and no training kernel")
+            if tuple(out.boxes.shape) != (SIZES_SERVE_B, MAX_DET, 4) or not torch.isfinite(out.boxes).all() \
+                    or not (out.num_valid > 0).all():
+                fail(f"[sizes] (c) serving result: boxes {tuple(out.boxes.shape)}, detections {out.num_valid.tolist()}")
+            res["serve_img_s"] = SIZES_SERVE_B * SIZES_SERVE_STEPS / serve_s
+            log(f"[sizes] (c) serving yolov5l nc={NC} 640x640 B={SIZES_SERVE_B} bf16 through make_eval_step: "
+                f"{SIZES_SERVE_STEPS} steps in {serve_s:.4f} s = {res['serve_img_s']:.2f} img/s; launches {got} "
+                f"(K1 once a step); peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; detections per image "
+                f"{out.num_valid.min().item()}..{out.num_valid.max().item()} | {card}")
+            del net, estep, out, images
+            _free_card()
+
+            # (d) correctness at m and l on the card
+            deterministic = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True  # two runs of the same steps bitwise equal
+            try:
+                for run in ("m", "l"):
+                    graphed_vs_eager(run, tmp)
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
+            res["bf16_gap"] = {run: bf16_gap(run, tmp) for run in ("m", "l")}
+            _free_card()
+    finally:
+        trainer_mod.Trainer.from_config = classmethod(from_config)
+    log(f"[sizes] summary: " + json.dumps({k: v for k, v in res.items()}) + f" | {card}")
+    log(f"[sizes] phase 20 {time.perf_counter() - t_phase:.2f} s | {card}")
+    return counts
+
+
 def _leaves(tree: dict) -> list:
     return [x for v in tree.values() for x in (_leaves(v) if isinstance(v, dict) else [v])]
 
@@ -3058,9 +3401,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path, action="append", default=[],
                     help="root of another checkout whose four kernel sources are timed beside")
-    ap.add_argument("--phase", choices=["all", "ddp", "hosts", "rest", "spatial", "jpeg", "flat", "carry"],
+    ap.add_argument("--phase", choices=["all", "ddp", "hosts", "rest", "spatial", "jpeg", "flat", "carry", "sizes"],
                     default="all",
-                    help="carry: phases 1, 2 and 19 alone (a run carried across the JAX layout); "
+                    help="sizes: phases 1, 2 and 20 alone (yolov5m and yolov5l at full width); "
+                         "carry: phases 1, 2 and 19 alone (a run carried across the JAX layout); "
                          "flat: phases 1, 2 and 18 alone (the flat corpus, over a planar corpus built for it); "
                          "jpeg: phases 1, 2, the letterbox kernel of 7, 10 and 17 alone (the JPEG feeds); "
                          "ddp: phases 1, 2 and 13 alone (data parallelism; (c) needs two or more cards); "
@@ -3144,6 +3488,12 @@ def main() -> None:
         corpus_counts = phase_corpus(card, _zero_kernels, _read_kernels)
         print(json.dumps({"letterbox": {"max_abs_err": lb_err, "timing": lb_timing},
                           "jpeg_launches": jpeg, "corpus_launches": corpus_counts}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
+    if args.phase == "sizes":
+        print(json.dumps({"sizes_launches": phase_sizes(card, dev)}), flush=True)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}), flush=True)
@@ -3988,8 +4338,12 @@ def main() -> None:
 
     # ----------------------------------------------------------------- 19 carry
     carry = phase_carry(card)
+    _free_card()
 
-    # -------------------------------------------------------------- 20 report
+    # ----------------------------------------------------------------- 20 sizes
+    sizes = phase_sizes(card, dev)
+
+    # -------------------------------------------------------------- 21 report
     src = "object_detection_cib_torch/ops/csrc/"
     rows = [
         ("greedy_nms_mask", "nms.cu", "object_detection_cib_tpu/ops/pallas_nms.py:131", serve_launches),
@@ -4027,7 +4381,8 @@ def main() -> None:
                                  "spatial": {part: n[name] for part, n in spatial.items()},
                                  "corpus": {part: n[name] for part, n in corpus_counts.items()},
                                  "flat": {part: n[name] for part, n in flat_counts.items()},
-                                 "carry": {part: n[name] for part, n in carry.items()}},
+                                 "carry": {part: n[name] for part, n in carry.items()},
+                                 "sizes": {part: n[name] for part, n in sizes.items()}},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -29,7 +29,6 @@ gloo ranks).
 from __future__ import annotations
 
 import hashlib
-import os
 import sys
 from typing import Union
 
@@ -106,13 +105,21 @@ def _fused_run(mesh, img: int, sharding: str, layout: str = "planar") -> dict:
                 launches={k.__name__: k.launches - before[k.__name__] for k in KERNELS})
 
 
+def _one_cpu_thread(mesh) -> None:
+    """On the CPU a rank runs one intra-op thread. At the dry runs' sizes
+    more threads gain nothing, and where other processes load the host the
+    ranks' threads oversubscribe its cores: three dry runs at once on eight
+    cores took 170 s for dry runs 1, 3 and 4 with four threads a rank
+    against 12 s with one."""
+    if mesh.device.type == "cpu":
+        torch.set_num_threads(1)
+
+
 def _dryrun_rank(mesh, img: int, layout: str = "planar") -> dict:
     """One rank of the dry runs. (1) its rows of a global batch of two images
     a rank, one step: the loss summed over the ranks and a digest of the
-    weights; then (3) and (4), ``_fused_run``. On the CPU a rank takes its
-    share of the host's cores."""
-    if mesh.device.type == "cpu":
-        torch.set_num_threads(max(min(torch.get_num_threads(), (os.cpu_count() or 1) // mesh.local_size), 1))
+    weights; then (3) and (4), ``_fused_run``."""
+    _one_cpu_thread(mesh)
     net = build_network(NUM_CLASSES, "s", device=mesh.device, seed=0)
     opt = SmartSGD(net, OptimizerConfig(max_epochs=300), steps_per_epoch=10)
     step = make_train_step(net, default_anchors(), FeatureShape(img, img), opt, mesh=mesh)
@@ -132,8 +139,7 @@ def _dryrun_spatial_rank(mesh, num_data: int) -> dict:
     ``max(num_data * 2, 2)`` images at 256 px over a ``(num_data, 2)`` mesh,
     one step: the loss summed over the data ranks and a digest of the
     weights."""
-    if mesh.device.type == "cpu":
-        torch.set_num_threads(max(min(torch.get_num_threads(), (os.cpu_count() or 1) // mesh.local_size), 1))
+    _one_cpu_thread(mesh)
     sp = make_mesh(num_data, 2, device=mesh.device)
     img = SPATIAL_IMAGE
     net = build_network(NUM_CLASSES, "s", device=mesh.device, seed=0)

@@ -24,7 +24,9 @@ It returns the port's checkpoint dict, ``{"net": state_dict, "optimizer":
 ``SmartSGD.state_dict``). The momentum tree is shaped like ``params`` and
 takes the parameters' rules, so each buffer lands under its parameter's
 name, and with it in the optimizer group of that parameter. ``torch_to_flax_state``
-is the inverse; the round trip is bitwise both ways.
+is the inverse; the round trip is bitwise both ways. It splits each head by
+the anchors a cell and the class count the caller built the network with,
+and refuses a head of any other width.
 """
 
 from __future__ import annotations
@@ -95,10 +97,11 @@ def _params_to_torch(params: Mapping, what: str = "parameter") -> Dict[str, np.n
     return sd
 
 
-def _params_to_flax(named: Mapping[str, torch.Tensor]) -> dict:
+def _params_to_flax(named: Mapping[str, torch.Tensor], num_classes: int, num_anchors_per_cell: int) -> dict:
     """The inverse of ``_params_to_torch``: a head is the one conv with a
-    bias (every other conv's bias is its BatchNorm's), split by the
-    network's ``ANCHORS_PER_CELL`` into box (4A) | obj (A) | cls (the rest)."""
+    bias (every other conv's bias is its BatchNorm's), of A * (5 + nc)
+    outputs, split into box (4A) | obj (A) | cls (A nc)."""
+    A = num_anchors_per_cell
     flat: Dict[tuple, np.ndarray] = {}
     for name, t in named.items():
         v = t.detach().cpu().numpy().copy()
@@ -108,9 +111,9 @@ def _params_to_flax(named: Mapping[str, torch.Tensor]) -> dict:
             flat[mod + (_BN_PARAMS_BACK[leaf],)] = v
         elif mod and mod[-1] == "conv" and ".".join(mod + ("bias",)) in named:
             head = mod[:-1]
-            A = ANCHORS_PER_CELL
-            if v.shape[0] % A or v.shape[0] <= 5 * A:
-                raise ValueError(f"head {name} has {v.shape[0]} outputs, not A * (5 + nc) for A={A}")
+            if v.shape[0] != A * (5 + num_classes):
+                raise ValueError(f"head {name} has {v.shape[0]} outputs, not A * (5 + nc) = {A * (5 + num_classes)} "
+                                 f"for num_anchors_per_cell={A} and num_classes={num_classes}")
             cuts = np.cumsum([4 * A, A])
             parts = np.split(v.transpose(2, 3, 1, 0) if leaf == "weight" else v, cuts, axis=-1)
             suffix = {"weight": "kernel", "bias": "bias"}[leaf]
@@ -160,9 +163,11 @@ def flax_state_to_torch(state: Mapping) -> dict:
                           "momentum": _tensors(_params_to_torch(opt["momentum_buf"], "momentum"))}}
 
 
-def torch_to_flax_state(ckpt: Mapping) -> dict:
-    """The port's checkpoint dict -> the JAX ``TrainState`` layout as nested
-    numpy dicts (what Orbax restores without a target)."""
+def torch_to_flax_state(ckpt: Mapping, num_classes: int, num_anchors_per_cell: int = ANCHORS_PER_CELL) -> dict:
+    """The port's checkpoint dict of a network of ``num_classes`` classes
+    and ``num_anchors_per_cell`` anchors a cell -> the JAX ``TrainState``
+    layout as nested numpy dicts (what Orbax restores without a target).
+    A head whose outputs are not ``A * (5 + nc)`` raises, naming both."""
     net, opt = ckpt["net"], ckpt["optimizer"]
     stats = {k: v for k, v in net.items() if k.rsplit(".", 1)[-1] in _BN_STATS_BACK}
     params = {k: v for k, v in net.items() if k not in stats}
@@ -172,7 +177,8 @@ def torch_to_flax_state(ckpt: Mapping) -> dict:
                        f"{sorted(set(opt['momentum']) - set(params))}")
     batch_stats = _nest({tuple(k.split("."))[:-1] + (_BN_STATS_BACK[k.rsplit(".", 1)[-1]],):
                          v.detach().cpu().numpy().copy() for k, v in stats.items()})
-    return {"params": _params_to_flax(params),
+    heads = (num_classes, num_anchors_per_cell)
+    return {"params": _params_to_flax(params, *heads),
             "batch_stats": batch_stats,
-            "opt_state": {"momentum_buf": _params_to_flax(opt["momentum"])},
+            "opt_state": {"momentum_buf": _params_to_flax(opt["momentum"], *heads)},
             "step": np.asarray(opt["step_count"], np.int32)}

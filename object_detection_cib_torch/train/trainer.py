@@ -38,7 +38,10 @@ config.
 Config keys the port does not act on are named at start-up, never dropped
 silently (``_KEYS_READ_NOT_ACTED_ON``): ``model.net.stem_space_to_depth``
 (the same function as the plain 6x6/2 stem), ``trainer.compile_cache``
-(XLA's), ``trainer.deterministic`` (the JAX trainer ignores it too).
+(XLA's), ``trainer.deterministic``, ``trainer.min_epochs`` and the step
+schedule's ``model.scheduler.step_size`` and ``model.scheduler.gamma``
+(the JAX trainer ignores them too; ``make_schedule`` takes its defaults,
+100 epochs and 0.5).
 Keys with a value it does not know raise, naming the key
 (``_refuse_unported``): an unknown ``model.remat_policy``,
 ``data.corpus_sharding`` or ``data.corpus_layout``. ``model.remat_policy``
@@ -1217,6 +1220,11 @@ _KEYS_READ_NOT_ACTED_ON = {
     "model.net.stem_space_to_depth": "a TPU rewrite of the same 6x6/2 stem function",
     "trainer.compile_cache": "XLA's compile cache",
     "trainer.deterministic": "the JAX trainer ignores it too",
+    "trainer.min_epochs": "the JAX trainer reads it nowhere; a fit stops at max_epochs or early stopping",
+    "model.scheduler.step_size": "neither trainer passes it on: the step schedule halves every 100 epochs, "
+                                 "make_schedule's default",
+    "model.scheduler.gamma": "neither trainer passes it on: the step schedule's factor is 0.5, "
+                             "make_schedule's default",
 }
 
 

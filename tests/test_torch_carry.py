@@ -240,12 +240,12 @@ def test_a_tree_that_is_not_a_train_state_raises(run, fault):
 
 def test_round_trip_is_bitwise_both_ways(run, tmp_path):
     s = run["restored"]
-    back = torch_to_flax_state(flax_state_to_torch(s))
+    back = torch_to_flax_state(flax_state_to_torch(s), NC)
     assert jax.tree.structure(back) == jax.tree.structure(s)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(s)):
         assert a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
     ckpt = flax_state_to_torch(s)
-    again = flax_state_to_torch(torch_to_flax_state(ckpt))
+    again = flax_state_to_torch(torch_to_flax_state(ckpt, NC))
     assert again["optimizer"]["step_count"] == ckpt["optimizer"]["step_count"]
     for part in ("net", "momentum"):
         x = again["net"] if part == "net" else again["optimizer"]["momentum"]

@@ -929,7 +929,7 @@ def test_state_carried_across_the_jax_layout_resumes_bitwise_on_card(dev, tmp_pa
     first = tiny(tmp_path)
     first.fit(max_epochs=1)
     own, converted = tmp_path / "ck" / "last", tmp_path / "converted"
-    save_state(converted, flax_state_to_torch(torch_to_flax_state(load_state(own))))
+    save_state(converted, flax_state_to_torch(torch_to_flax_state(load_state(own), len(first.classes))))
     runs = {}
     for name, path in (("own", own), ("converted", converted)):
         t = tiny()

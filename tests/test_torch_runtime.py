@@ -460,6 +460,17 @@ def test_ignored_keys_are_named(tmp_path, capsys):
         assert key not in out  # acted on: they select the loop (tests/test_torch_fused.py)
 
 
+def test_step_schedule_and_min_epochs_are_named(tmp_path, capsys):
+    """Keys neither trainer acts on: ``trainer.min_epochs`` and, with the
+    step schedule composed into ``model.scheduler``, its ``step_size`` and
+    ``gamma`` (``make_schedule`` takes its defaults, 100 and 0.5)."""
+    t = _port(tmp_path, "trainer.max_epochs=1", "nn/schedulers=step")
+    out = capsys.readouterr().out
+    assert t.optimizer.config.schedule == "step"
+    for key in ("trainer.min_epochs", "model.scheduler.step_size", "model.scheduler.gamma"):
+        assert key in out
+
+
 # --------------------------------------------------------- early stopping
 
 def _es_trainer(tmp_path, values, monkeypatch, *es):
