@@ -168,7 +168,7 @@ result line):
     (counted by replay for the fused loop) and K1 5; finite losses and
     mAP, the fused trainer's parameters moved. Printed: img/s of each fit's
     second epoch (host clock; fetch to fetch for the fused loop), the
-    device epoch walls (CUDA events), the first three losses of both loops,
+    device epoch walls (the last stage stamps), the first three losses of both loops,
     the peak memory; for one fused epoch of 40 steps from an idle card the host's
     enqueue and the time a step; the graph's nodes and kernels per step
     (libcuda's ``cuGraphGetNodes``); over a 10-step fused epoch the profiler's kernel time
@@ -351,7 +351,7 @@ result line):
     validated after the last: the parameter count of the size, img/s over
     the fit's epoch windows summed (the first holds the set-up: cuDNN's
     first calls at these shapes, the warm-up steps, the capture) and over
-    the device's walls of epochs 2 and 3 (CUDA events), ``max_memory_allocated``, K2/K4/K5 3 x 12 by replay and K1 once a
+    the device's walls of epochs 2 and 3 (marks), ``max_memory_allocated``, K2/K4/K5 3 x 12 by replay and K1 once a
     validation batch (launches zeroed just before and read just after),
     finite losses and mAP. (c) one more
     ``validate`` of l over its 640 val cache (K1 a batch), K2, K5 and K4
@@ -1292,7 +1292,7 @@ def phase_fused(card, dev, aug, train_info, val_info, corpus, zero_counts, read_
         log(f"[fused] turn {turn} {name} loop, fit to epoch {stop}: {ips:.2f} img/s over its two epochs "
             f"(host clock, the epochs' walls summed: {[round(w, 4) for w in t.epoch_walls[-2:]]} s, "
             f"{'fetch to fetch' if name == 'fused' else 'start to fetch'}); epoch {stop} alone "
-            f"{t.epoch_imgs[-1] / t.epoch_walls[-1]:.2f} img/s; device epoch walls (CUDA events) "
+            f"{t.epoch_imgs[-1] / t.epoch_walls[-1]:.2f} img/s; device epoch walls (stage stamps) "
             f"{ {e: round(w, 4) for e, w in walls.items()} } s; whole fit {wall:.2f} s with one validation; "
             f"launches {got}; losses {losses[0]:.4f}->{losses[-1]:.4f}; map {m['map']:.6g} | {card}")
     first = [loops[n].epoch_metrics[0]["total"][:3] for n in ("step", "fused")]
@@ -3131,8 +3131,8 @@ def phase_sizes(card, dev):
             fail(f"[sizes] {run}: not the graphed fused epoch, or losses / mAP not finite: {losses}, {m}")
         # the fit's windows hold its set-up (cuDNN's first calls at these
         # shapes, two eager steps, the capture) in the first epoch's; the
-        # device's epoch walls (between the CUDA events at the ends of
-        # epochs) time epochs 2 and 3 alone. The host windows of those two
+        # device's epoch walls (between the epochs' last stage stamps)
+        # time epochs 2 and 3 alone. The host windows of those two
         # do not: the host enqueues an epoch ahead and each replay waits for
         # room in the card's queue, so the windows shift by about an epoch
         ips = sum(t.epoch_imgs) / sum(t.epoch_walls)
@@ -3144,7 +3144,7 @@ def phase_sizes(card, dev):
             f"{policy}, {'cli.train.main, no experiment=' if via_cli else 'Trainer.from_config'}: fused fit of "
             f"{SIZES_EPOCHS} epochs of {steps} steps, {ips:.2f} img/s over the fit's epoch windows summed (host "
             f"clock, fetch to fetch, the set-up in the first: {[round(w, 4) for w in t.epoch_walls]} s); "
-            f"{ips_device:.2f} img/s over the device's walls of epochs 2-{SIZES_EPOCHS} (CUDA events: "
+            f"{ips_device:.2f} img/s over the device's walls of epochs 2-{SIZES_EPOCHS} (stage stamps: "
             f"{ {e + 1: round(w, 4) for e, w in walls.items()} } s); peak "
             f"{peak / 2**30:.3f} GiB (max_memory_allocated, {held / 2**30:.3f} GiB of it held before the run "
             f"began; corpus {corpus.numel() / 2**30:.3f} GiB and val cache on the card); launches {got} (graph replays {replays}); losses {losses[0]:.4f}->"

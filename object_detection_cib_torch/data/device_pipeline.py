@@ -169,6 +169,7 @@ from object_detection_cib_torch.parallel.distributed import reduce_scatter_sum
 from object_detection_cib_torch.parallel.mesh import DataMesh, batch_sharding, host_batch_sharding, refuse_model_axis
 from object_detection_cib_torch.train.steps import Batch
 from object_detection_cib_torch.utils.device import resolve_device, to_unit
+from object_detection_cib_torch.utils import tracing
 from object_detection_cib_torch.utils.fs import get_root_dir
 from object_detection_cib_torch.utils.threads import put_unless_stopped
 
@@ -1085,6 +1086,15 @@ class FusedEpoch:
     made before step i trains, into a second buffer, so the draws keep the
     batch order.
 
+    Each step stamps its stage boundaries on the card's clock
+    (``utils/tracing.py:mark``) into an int64 ``(len(MARKS), cap)`` stamp
+    matrix, at the step counter's column: ``augment_begin`` and
+    ``augment_end`` around the making of batch i (column i; on the forked
+    stream when pipelined), the train step's own marks, and
+    ``optimizer_end`` after the metric column. ``stamps`` holds the last
+    call's stamps, ``(len(MARKS), steps)`` on the device, copied at the
+    epoch's end.
+
     The step is one function on tensors: it reads its plan and table rows
     and writes its metric column by a step counter on the device. On the
     CPU (or with ``graph=False``) it runs eagerly. On the card it is
@@ -1128,6 +1138,8 @@ class FusedEpoch:
         self._tables: list = []
         self._i: Optional[torch.Tensor] = None  # the step counter, int64 on the device
         self._out: Optional[torch.Tensor] = None  # f32[n_leaves + 1, cap]
+        self._stamps: Optional[torch.Tensor] = None  # int64[len(MARKS), cap]
+        self.stamps: Optional[torch.Tensor] = None  # the last call's, (len(MARKS), steps)
         self._cur = None  # pipelined: (Batch, overflow) of the step that trains next
         self._template = None  # the structure of train_step's metrics
         self._stream = self._side = None  # capture stream; the fork's stream
@@ -1145,17 +1157,22 @@ class FusedEpoch:
             self._plans = [torch.empty((cap,) + tuple(x.shape[1:]), dtype=torch.int32, device=dev) for x in xs]
             self._tables = [torch.empty((cap,) + tuple(t.shape[1:]), dtype=t.dtype, device=dev) for t in tables]
             self._i = torch.zeros((), dtype=torch.int64, device=dev)
+            self._stamps = tracing.stamp_matrix(cap, dev)
             self._out, self._cap, self.graphs = None, cap, {}
         for buf, x in zip(self._plans + self._tables, xs + tables):
             buf[:n].copy_(x, non_blocking=True)
         self._i.zero_()
+        self._stamps.zero_()
         return n
 
     # ----- one step, as tensors
     def _make(self, i: torch.Tensor):
         """(Batch, overflow) of plan row ``i`` with the next draws."""
+        tracing.mark("augment_begin", i)
         rows = [p.index_select(0, i.view(1))[0] for p in self._plans]
-        return self.pipe.gather_augment(rows[0], self.pipe.draw(), rows[1] if len(rows) > 1 else None)
+        made = self.pipe.gather_augment(rows[0], self.pipe.draw(), rows[1] if len(rows) > 1 else None)
+        tracing.mark("augment_end", i)
+        return made
 
     def _train(self, batch: Batch, overflow: torch.Tensor, i: torch.Tensor) -> None:
         rows = [t.index_select(0, i.view(1))[0] for t in self._tables]
@@ -1165,6 +1182,7 @@ class FusedEpoch:
         if self._out is None:
             self._out = torch.zeros((col.shape[0], self._cap), dtype=torch.float32, device=col.device)
         self._out.index_copy_(1, i.view(1), col[:, None])
+        tracing.mark("optimizer_end")
 
     def _step(self) -> None:
         self._train(*self._make(self._i), self._i)
@@ -1218,6 +1236,15 @@ class FusedEpoch:
 
     def __call__(self, xs, *tables):
         n = self._load(xs, tables)
+        with tracing.stamping(self._stamps, self._i):
+            self._run(n)
+        self.stamps = self._stamps[:, :n].clone()
+        flat = self._out[:, :n].clone()
+        if self.stack_metrics:
+            return flat
+        return _rebuild(self._template, iter(flat[:-1])), flat[-1].to(torch.int32)
+
+    def _run(self, n: int) -> None:
         if self.pipelined:
             first = self._make(self._i)
             if self._cur is None:
@@ -1242,7 +1269,3 @@ class FusedEpoch:
                 body()
             if self.pipelined:
                 self._step_last()
-        flat = self._out[:, :n].clone()
-        if self.stack_metrics:
-            return flat
-        return _rebuild(self._template, iter(flat[:-1])), flat[-1].to(torch.int32)

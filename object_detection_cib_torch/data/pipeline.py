@@ -39,7 +39,6 @@ from __future__ import annotations
 import queue
 import random as pyrandom
 import threading
-import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, List, NamedTuple, Optional, Sequence, Tuple, Union
@@ -52,6 +51,7 @@ from object_detection_cib_torch.data.host_augment import mixup, mosaic4
 from object_detection_cib_torch.data.reader import AugmentedSample, SampleReader
 from object_detection_cib_torch.data.samplers import shard_indices
 from object_detection_cib_torch.train.steps import Batch
+from object_detection_cib_torch.utils import tracing
 from object_detection_cib_torch.utils.device import resolve_device, to_unit
 from object_detection_cib_torch.utils.threads import put_unless_stopped
 
@@ -199,7 +199,8 @@ class Prefetcher:
     with ``device=None`` the collated host batches (uint8 images, pinned on
     a machine with a card) for a caller that uploads them itself.
     ``overflow_total`` counts the targets dropped by ``max_targets``, and
-    ``wait_seconds`` the host time the consumer spent waiting on the queue.
+    ``wait_seconds`` the host time the consumer spent waiting on the queue
+    (each wait is also the span ``feed_wait``, ``utils/tracing.py``).
     With ``rows`` (a rank's rows of a global batch, ``parallel.mesh.
     batch_sharding``) each batch is made whole, from the whole seeded
     stream, and only those rows are yielded; ``overflow_total`` counts the
@@ -324,9 +325,9 @@ class Prefetcher:
         t.start()
         try:
             while True:
-                t0 = time.perf_counter()
-                item = q.get()
-                self.wait_seconds += time.perf_counter() - t0
+                with tracing.span("feed_wait") as wait:
+                    item = q.get()
+                self.wait_seconds += wait.ns / 1e9
                 if item is None:
                     break
                 if isinstance(item, Exception):

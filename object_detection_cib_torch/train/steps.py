@@ -92,6 +92,7 @@ from object_detection_cib_torch.parallel.distributed import all_reduce_sum_
 from object_detection_cib_torch.parallel.spatial import spatial_of
 from object_detection_cib_torch.train.loss import LossParams, yolov5_loss
 from object_detection_cib_torch.train.optim import SmartSGD
+from object_detection_cib_torch.utils import tracing
 
 
 class Batch(NamedTuple):
@@ -148,7 +149,12 @@ def make_train_step(
 
     The step makes no host-device synchronisation: its losses stay on the
     device, and the anchors are copied to the device once. So it can be
-    captured in a CUDA graph (the fused epoch).
+    captured in a CUDA graph (the fused epoch). It marks its stage
+    boundaries (``utils/tracing.py:mark``: ``forward_begin``,
+    ``forward_end``, ``loss_end`` after the assignment, the compaction and
+    the loss, ``backward_end``, and ``allreduce_end`` under a group) into
+    the stamp matrix that the fused epoch installs; elsewhere the marks do
+    nothing.
     """
     if remat_policy is not None and remat_policy not in REMAT_SAVES:
         raise ValueError(f"unknown remat_policy {remat_policy!r}: expected one of {sorted(REMAT_SAVES)} or None")
@@ -168,7 +174,9 @@ def make_train_step(
         if bands > 1:
             _check_bands(batch.images.shape[1] * bands, bands)
         net.train()
+        tracing.mark("forward_begin")
         out = net(batch.images)
+        tracing.mark("forward_end")
         assignment = assign_targets(batch.boxes, batch.labels, batch.mask, image_shape,
                                     anchors, anchor_tensors, assign_threshold, assign_offset_capacity)
         assign_drop = torch.zeros((), dtype=torch.int64, device=batch.boxes.device)
@@ -183,10 +191,13 @@ def make_train_step(
                 assignment, assign_drop = _compact_over_ranks(assignment, cap, mesh)
         lres = yolov5_loss(out, assignment, image_shape, loss_params, class_weights, group)
         total = batch.images.shape[0] * ranks * lres.total  # ref exp.py:126-130, the global batch
+        tracing.mark("loss_end")
         optimizer.zero_grad()
         total.backward()
+        tracing.mark("backward_end")
         if group is not None:
             _all_reduce_gradients(params, world)
+            tracing.mark("allreduce_end")
         lr_other = optimizer.step(hp)
         return StepMetrics(
             total=total.detach(),
@@ -261,7 +272,10 @@ def make_eval_step(
     """Build ``eval_step(images) -> NMSResult`` for (B, H, W, 3) images in [0, 1].
 
     The step runs the network in eval mode (running BN statistics) under
-    ``torch.inference_mode`` and restores the module's mode afterwards.
+    ``torch.inference_mode`` and restores the module's mode afterwards. Its
+    three layers are host spans (``utils/tracing.py:span``):
+    ``infer.forward`` (the network), ``infer.decode`` and ``infer.nms``
+    (candidate selection, K1, compaction).
     """
 
     @torch.inference_mode()
@@ -269,16 +283,19 @@ def make_eval_step(
         was_training = net.training
         net.eval()
         try:
-            out = net(images)
+            with tracing.span("infer.forward"):
+                out = net(images)
         finally:
             net.train(was_training)
-        det = decode_predictions(out, anchors)
-        return non_max_suppression(
-            det,
-            conf_thres=conf_thres,
-            iou_thres=iou_thres,
-            max_det=max_det,
-            max_nms=max_nms,
-        )
+        with tracing.span("infer.decode"):
+            det = decode_predictions(out, anchors)
+        with tracing.span("infer.nms"):
+            return non_max_suppression(
+                det,
+                conf_thres=conf_thres,
+                iou_thres=iou_thres,
+                max_det=max_det,
+                max_nms=max_nms,
+            )
 
     return eval_step

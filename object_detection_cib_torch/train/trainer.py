@@ -20,11 +20,17 @@ select by the JAX rule (``_fused_config``): per epoch the whole plan runs
 as gather -> augment -> train step, on the card one captured CUDA graph a
 step replayed once per step, with batch i+1 made while step i trains
 (pipelined) and the next epoch enqueued before this one's metrics are
-fetched (dispatch-ahead); the training stream is the step loop's. The
+fetched (dispatch-ahead); the training stream is the step loop's. Each
+fused epoch's stage marks (``utils/tracing.py``) give ``epoch_metrics[-1]
+["stage_ms"]``, each stage's median device ms a step, and the epoch's
+device time, which ``images_per_sec`` (logged with each validation, beside
+the stage ms) and ``device_epoch_walls`` read. The
 step loop runs the per-step control flow: ``limit_train_batches`` as a
 fraction (``max(int(n * f), 1)``), ``fast_dev_run`` (one epoch, one train
-batch, one val batch), ``overfit_batches`` (the first k batches replayed),
-a ``torch.profiler`` trace of a window of steps. Both: validation every
+batch, one val batch), ``overfit_batches`` (the first k batches replayed).
+Both: ``trainer.profiler``'s ``torch.profiler`` trace of a window of steps
+(on the fused loop, of the epochs that hold them; a Chrome trace under
+``profile/``), validation every
 ``check_val_every_n_epoch`` epochs (``limit_val_batches`` a fraction too),
 the losses logged every ``log_every_n_steps`` steps from the one per-epoch
 copy of the step metrics (no host sync per step), early stopping, best and
@@ -145,6 +151,7 @@ from object_detection_cib_torch.train.checkpoint import CheckpointManager, Snaps
 from object_detection_cib_torch.train.loss import LossParams
 from object_detection_cib_torch.train.optim import OptimizerConfig, SmartSGD, WarmupParams
 from object_detection_cib_torch.train.steps import REMAT_SAVES, Batch, StepMetrics, make_eval_step, make_train_step
+from object_detection_cib_torch.utils import tracing
 from object_detection_cib_torch.utils.device import resolve_device, to_unit
 from object_detection_cib_torch.utils.fs import get_default_dataset_cache_dir, get_default_datasets_dir
 from object_detection_cib_torch.utils.loggers import ProgressTable, build_loggers
@@ -581,7 +588,8 @@ class Trainer:
         self._fused_fn = None  # the pipeline's FusedEpoch, built at the first fused epoch
         self._fused_inflight = None  # the next epoch, enqueued ahead of this one's fetch
         self._fused_prev_fetch: Optional[float] = None
-        self._epoch_end_events: List[Tuple[int, "torch.cuda.Event"]] = []
+        self._epoch_stamps: Dict[int, np.ndarray] = {}  # the fused epochs' stage stamps, by epoch
+        self._prof = None  # trainer.profiler's trace: None (not started), running, or False (written)
 
     # ------------------------------------------------------------------ config
     @classmethod
@@ -872,8 +880,11 @@ class Trainer:
         ``f32[7, steps]`` matrix (``METRIC_ROWS``, overflow last):
         ``epoch_metrics`` holds per step ``total``, ``box``, ``obj``,
         ``cls``, ``lr`` and ``assign_drop``, and the epoch's
-        ``targets_dropped``. The loggers and the progress table get every
-        ``log_every_n_steps``-th step's losses from that copy.
+        ``targets_dropped`` (and on the fused loop ``stage_ms``, from the
+        stage stamps copied with the matrix). The loggers and the progress
+        table get every ``log_every_n_steps``-th step's losses from that
+        copy; each validation's call also carries ``images_per_sec`` and
+        the stage ms (``stage_ms.<stage>``).
         """
         if self.train_info is None:
             raise RuntimeError("this trainer was built without a training set (train=False)")
@@ -897,7 +908,7 @@ class Trainer:
             n_steps = _fraction_of(n_steps, loop.limit_train_batches)
         if epoch_steps:
             n_steps = min(int(epoch_steps), n_steps)
-        prof, prof_window = None, (loop.profile_start_step, loop.profile_start_step + loop.profile_steps)
+        self._prof = None
         self._overfit_cache = None
         self._es_best, self._es_bad = None, 0
         # a fit interrupted mid-epoch must not leave an epoch for the next fit
@@ -906,14 +917,18 @@ class Trainer:
         for epoch in range(self.epoch, stop):
             t0 = time.perf_counter()
             boundary_snap = None  # the state at this epoch's end, when the next is already enqueued
+            stamps = None
             if fused:
-                flat, step0, boundary_snap, prev_fetch = self._fused_epoch(epoch, stop, val_every, epoch_steps)
+                flat, stamps, step0, boundary_snap, prev_fetch = self._fused_epoch(
+                    epoch, stop, val_every, epoch_steps)
                 host_dropped = 0
                 if prev_fetch is not None:
                     t0 = prev_fetch
+                if self._profile_ends(step0 + flat.shape[1]):
+                    self._end_profile()
             else:
                 step0 = self.optimizer.step_count
-                flat, host_dropped, prof = self._step_epoch(epoch, n_steps, on_step, prof, prof_window)
+                flat, host_dropped = self._step_epoch(epoch, n_steps, on_step)
             n = flat.shape[1]
             self.epoch_walls.append(time.perf_counter() - t0)
             # the JAX rule (:1101-1103): the fused epoch's global batch, the step loop's host batch
@@ -927,6 +942,9 @@ class Trainer:
             else:
                 dropped = host_dropped
             metrics["targets_dropped"] = np.int64(dropped)
+            if stamps is not None:
+                self._epoch_stamps[epoch] = stamps
+                metrics["stage_ms"] = tracing.stage_ms(stamps)
             self.epoch_metrics.append(metrics)
             self.epoch = epoch + 1
             for i in range(n):
@@ -936,19 +954,26 @@ class Trainer:
                     self._log(logged, gstep)
                     self.progress.update(epoch, gstep, logged)
             gstep = step0 + n
-            ips = self.epoch_imgs[-1] / self.epoch_walls[-1]
+            seconds = self._epoch_seconds(epoch)
+            ips = self.epoch_imgs[-1] / seconds
+            stage = metrics.get("stage_ms", {})
             self._warn_overflow(epoch, int(metrics["assign_drop"].sum()), dropped, gstep)
             if self.verbose:
-                print(f"[epoch {epoch}] train ips={ips:.1f} ({self.epoch_imgs[-1]} imgs in "
-                      f"{self.epoch_walls[-1]:.2f}s)", flush=True)
+                print(f"[epoch {epoch}] train ips={ips:.1f} ({self.epoch_imgs[-1]} imgs in {seconds:.2f}s)"
+                      + (", device ms a step: " + " ".join(f"{k} {v:.2f}" for k, v in stage.items())
+                         if stage else ""), flush=True)
 
             if (epoch + 1) % val_every == 0 or loop.fast_dev_run:
+                before = tracing.counters()
                 last_val = self.validate()
+                spans = {k: tracing.ms_per_call(before, tracing.counters(), f"infer.{k}")
+                         for k in ("forward", "decode", "nms")}
                 last_val["images_per_sec"] = ips
-                self._log(last_val, gstep)
+                self._log({**last_val, **{f"stage_ms.{k}": v for k, v in stage.items()}}, gstep)
                 if self.verbose:
                     print(f"[epoch {epoch}] map={last_val.get('map', 0):.4f} "
-                          f"map50={last_val.get('map50', 0):.4f} ips={ips:.1f}", flush=True)
+                          f"map50={last_val.get('map50', 0):.4f} ips={ips:.1f}; host ms a batch: "
+                          + " ".join(f"{k} {v:.2f}" for k, v in spans.items() if v is not None), flush=True)
                 if self.ckpt:
                     self.ckpt.maybe_save_best(Snapshot(self.net, self.optimizer), last_val)
                 reason = self._early_stop_reason(last_val)
@@ -967,8 +992,8 @@ class Trainer:
             if self.sampler_debug:
                 self._dump_sampler_stats(epoch, n)
 
-        if prof:
-            _stop_profiler(prof, self.device, self._profile_dir(), prof_window)
+        if self._prof:
+            self._end_profile()
         if self.ckpt and stop % self.ckpt_every_n_epochs != 0:
             # the cadence skipped the final epoch's save: 'last' must still be
             # the end-of-fit state
@@ -978,9 +1003,9 @@ class Trainer:
         barrier(self.mesh)  # rank 0's checkpoint is whole before any rank goes on
         return last_val
 
-    def _step_epoch(self, epoch: int, n_steps: int, on_step, prof, prof_window):
+    def _step_epoch(self, epoch: int, n_steps: int, on_step):
         """One epoch of the step loop: -> (the f32[7, steps] metric matrix on
-        the host, the targets the host feed dropped, the profiler's state).
+        the host, the targets the host feed dropped).
         Under ``overfit_batches`` the first epoch's batches are kept in
         ``_overfit_cache`` and replayed."""
         loop = self.loop
@@ -1000,13 +1025,11 @@ class Trainer:
         no_overflow = torch.zeros((), dtype=torch.int32, device=self.device)  # the host feed counts its own
         cols = []
         for i, (batch, ovf) in enumerate(batches):
-            if loop.profiler and self.is_main and prof is None and self.optimizer.step_count == prof_window[0]:
-                prof = _start_profiler(self.device)  # then the trace, then False once written
+            self._maybe_start_profile(self.optimizer.step_count, self.optimizer.step_count + 1)
             m = self.train_step(batch, table[i])
             cols.append(metric_column(m, no_overflow if ovf is None else ovf))
-            if prof and self.optimizer.step_count == prof_window[1]:
-                _stop_profiler(prof, self.device, self._profile_dir(), prof_window)
-                prof = False
+            if self._profile_ends(self.optimizer.step_count):
+                self._end_profile()
             if bar is not None:
                 bar.advance()
             if on_step is not None:
@@ -1016,21 +1039,23 @@ class Trainer:
         flat = self._sum_over_ranks(torch.stack(cols, 1)).cpu().numpy()
         if self.prefetcher is not None:
             host_dropped = self.prefetcher.overflow_total - host_dropped
-        return flat, host_dropped, prof
+        return flat, host_dropped
 
     # ------------------------------------------------------- the fused epoch
     def _fused_config(self) -> bool:
         """True when the configuration selects the fused epoch, by the JAX
         trainer's rule (:537-554): the device pipeline with the corpus on
         the card and ``fused_epoch``, and none of ``fast_dev_run``,
-        ``overfit_batches``, ``limit_train_batches`` or ``profiler``
-        (per-step control flow, which the step loop runs). ``fit`` also
-        takes the step loop for its own per-step knobs, ``on_step`` and
-        ``debug_nans`` (anomaly mode checks every backward on the host)."""
+        ``overfit_batches`` or ``limit_train_batches`` (per-step control
+        flow, which the step loop runs). The JAX rule also takes the step
+        loop for ``profiler``; here the profiler traces whichever loop runs
+        (``_maybe_start_profile``), so a trace shows the loop users run.
+        ``fit`` also takes the step loop for its own per-step knobs,
+        ``on_step`` and ``debug_nans`` (anomaly mode checks every backward
+        on the host)."""
         loop = self.loop
         return (self.pipeline_name == "device" and self.device_cache and self.fused_epoch
-                and not (loop.fast_dev_run or loop.overfit_batches or loop.limit_train_batches
-                         or loop.profiler))
+                and not (loop.fast_dev_run or loop.overfit_batches or loop.limit_train_batches))
 
     def _fused_epoch(self, epoch: int, stop: int, val_every: int, epoch_steps: Optional[int]):
         """One epoch of the fused loop (the JAX trainer's :1019-1131):
@@ -1052,36 +1077,44 @@ class Trainer:
         pending, self._fused_inflight = self._fused_inflight, None
         if pending is None:
             pending = self._enqueue_epoch(epoch, epoch_steps)
+        host, stamps, event, step0 = pending
         boundary_snap = None
-        reads_state = (epoch + 1) % val_every == 0 or epoch + 1 >= stop
+        # the trace's end reads the card too (a synchronize before it is written)
+        reads_state = ((epoch + 1) % val_every == 0 or epoch + 1 >= stop
+                       or self._profile_ends(step0 + host.shape[1]))
         if self.fused_dispatch_ahead and not reads_state:
             if self.ckpt and (epoch + 1) % self.ckpt_every_n_epochs == 0:
                 boundary_snap = Snapshot(self.net, self.optimizer)
             self._fused_inflight = self._enqueue_epoch(epoch + 1, epoch_steps)
-        host, event, step0 = pending
-        if event is not None:
-            event.synchronize()
+        with tracing.span("train.fetch"):
+            if event is not None:
+                event.synchronize()
         prev, self._fused_prev_fetch = self._fused_prev_fetch, time.perf_counter()
-        return host.numpy(), step0, boundary_snap, prev
+        return host.numpy(), stamps.numpy(), step0, boundary_snap, prev
 
     def _enqueue_epoch(self, epoch: int, epoch_steps: Optional[int]):
-        """Enqueue one fused epoch and the copy of its metric matrix into
-        pinned memory: -> (host matrix, the CUDA event behind its copy or
-        None on the CPU, the epoch's first global step). ``step_count``
-        moves to the epoch's end: the steps are enqueued."""
+        """Enqueue one fused epoch and the copies of its metric matrix and
+        its stage stamps into pinned memory: -> (host matrix, host stamps,
+        the CUDA event behind both copies or None on the CPU, the epoch's
+        first global step). ``step_count`` moves to the epoch's end: the
+        steps are enqueued. The profiler starts here for an epoch that
+        holds a step of its window."""
         step0 = self.optimizer.step_count
-        xs = self.pipeline.epoch_host_arrays(epoch_steps)
+        with tracing.span("train.plan"):
+            xs = self.pipeline.epoch_host_arrays(epoch_steps)
         n = int(xs[0].shape[0])
+        self._maybe_start_profile(step0, step0 + n)
         flat = self._sum_over_ranks(self._fused_fn(xs, self.optimizer.hyper_table(step0, n)))
+        stamps = self._fused_fn.stamps
         self.optimizer.step_count = step0 + n
         if not flat.is_cuda:
-            return flat, None, step0
-        host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+            return flat, stamps, None, step0
+        host, host_stamps = (torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in (flat, stamps))
         host.copy_(flat, non_blocking=True)
-        event = torch.cuda.Event(enable_timing=True)
+        host_stamps.copy_(stamps, non_blocking=True)
+        event = torch.cuda.Event()
         event.record()
-        self._epoch_end_events.append((epoch, event))
-        return host, event, step0
+        return host, host_stamps, event, step0
 
     def _sum_over_ranks(self, flat: torch.Tensor) -> torch.Tensor:
         """An epoch's metric matrix on the device summed over the mesh's
@@ -1096,15 +1129,47 @@ class Trainer:
 
     def device_epoch_walls(self) -> Dict[int, float]:
         """The fused epochs' device times, ``{epoch: seconds}``: between the
-        CUDA events recorded at the ends of consecutive epochs (the JAX
-        trainer's readiness stamps, :570-633, with neither a thread nor an
-        environment variable). An epoch whose predecessor has no event (the
-        first) is left out; a gap between the two (a validation, the host's
-        wait) counts in. Empty on the CPU."""
-        ev = self._epoch_end_events
-        if ev:
-            ev[-1][1].synchronize()
-        return {e: a.elapsed_time(b) / 1e3 for (pe, a), (e, b) in zip(ev, ev[1:]) if e == pe + 1}
+        last stage stamps (``utils/tracing.py:mark``) of consecutive fetched
+        epochs, on the card's clock (the JAX trainer's readiness stamps,
+        :570-633, with neither a thread nor an environment variable; the
+        host's clock on the CPU). An epoch whose predecessor has no stamps
+        (the first) is left out; a gap between the two (a validation, the
+        host's wait) counts in."""
+        last = {e: b[1] for e, s in self._epoch_stamps.items() if (b := tracing.epoch_bounds(s))}
+        return {e: (t - last[e - 1]) / 1e9 for e, t in last.items() if e - 1 in last}
+
+    def _epoch_seconds(self, epoch: int) -> float:
+        """The time ``images_per_sec`` rates the epoch by: on the fused epoch
+        its stamps' span, from the later of the previous epoch's last stamp
+        and its own first to its own last (the card's clock, the host's on
+        the CPU), which holds neither the next epoch's time, which the host
+        window holds under dispatch-ahead, nor a validation between; the
+        host window otherwise."""
+        own, before = (tracing.epoch_bounds(self._epoch_stamps.get(e)) for e in (epoch, epoch - 1))
+        if own is None:
+            return self.epoch_walls[-1]
+        start = own[0] if before is None else max(own[0], before[1])
+        return (own[1] - start) / 1e9 if own[1] > start else self.epoch_walls[-1]
+
+    # ------------------------------------------------------------- profiler
+    def _profile_window(self) -> Tuple[int, int]:
+        return self.loop.profile_start_step, self.loop.profile_start_step + self.loop.profile_steps
+
+    def _maybe_start_profile(self, first: int, end: int) -> None:
+        """Start ``trainer.profiler``'s trace before steps [first, end) are
+        enqueued when they hold a step of its window (main rank, once a fit)."""
+        a, b = self._profile_window()
+        if self.loop.profiler and self.is_main and self._prof is None and first < b and end > a:
+            self._prof = _start_profiler(self.device)
+
+    def _profile_ends(self, steps_done: int) -> bool:
+        """Whether a running trace's window is over once ``steps_done`` steps
+        have run."""
+        return bool(self._prof) and steps_done >= self._profile_window()[1]
+
+    def _end_profile(self) -> None:
+        _stop_profiler(self._prof, self.device, self._profile_dir(), self._profile_window())
+        self._prof = False
 
     def _warn_overflow(self, epoch: int, adrop: int, dropped: int, step: int) -> None:
         """The JAX trainer's warnings for the epoch's compaction drops and the

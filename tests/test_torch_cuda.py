@@ -812,6 +812,34 @@ def test_fused_fit_counts_launches_by_replay_on_card(dev):
     assert set(t.device_epoch_walls()) == {1} and t.device_epoch_walls()[1] > 0
 
 
+def test_stage_stamps_advance_once_per_replay_on_card(dev):
+    """Two graphed pipelined epochs of 5 steps (the first: 2 eager warm-up
+    steps, 2 replays of the body and the last step's graph; the second: 4
+    and 1): every stage stamps every step's column, in stage order; each
+    replay stamps its own column, so the optimizer's stamps advance column
+    by column; the second epoch stamps anew, after the first."""
+    from object_detection_cib_torch.utils import tracing
+
+    t = _tiny_trainer(dev)
+    fn = t.pipeline.build_fused_epoch_fn(lambda b, hp: t.train_step(b, hp), pipelined=True, stack_metrics=True)
+    epochs = []
+    for e in range(2):
+        xs = t.pipeline.epoch_host_arrays()
+        n = int(xs[0].shape[0])
+        fn(xs, t.optimizer.hyper_table(e * n, n))
+        epochs.append(fn.stamps.cpu().numpy())
+    assert fn.graph and {k: g.replays for k, g in fn.graphs.items()} == {"body": 2 + 4, "last": 2}
+    order = ("forward_begin", "forward_end", "loss_end", "backward_end", "optimizer_end")
+    for s in epochs:
+        r = {m: s[i] for i, m in enumerate(tracing.MARKS)}
+        assert s.shape == (len(tracing.MARKS), n) and not r["allreduce_end"].any()
+        assert all((r[m] > 0).all() for m in tracing.MARKS if m != "allreduce_end")
+        assert all((r[a] <= r[b]).all() for a, b in zip(order, order[1:]))
+        assert (r["augment_begin"] <= r["augment_end"]).all() and (np.diff(r["optimizer_end"]) > 0).all()
+        assert set(tracing.stage_ms(s)) == {"augment", "forward", "loss", "backward", "optimizer"}
+    assert epochs[1][epochs[1] > 0].min() > epochs[0].max()
+
+
 def test_dispatch_ahead_changes_no_bit_on_card(dev, deterministic):
     """Three epochs validated once at the end: epochs 2 and 3 are enqueued
     before the fetch of the epoch before them, or not; the parameters come

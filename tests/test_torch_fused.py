@@ -135,6 +135,7 @@ CONFIGS = {
     "overfit_batches": (DEVICE + ["trainer.overfit_batches=2"], False),
     "limit_train_batches": (DEVICE + ["trainer.limit_train_batches=0.5"], False),
     "profiler": (DEVICE + ["debug=profiler"], False),
+    "profiler_alone": (DEVICE + ["trainer.profiler=torch"], True),
     "host_pipeline": ([], False),
     "device_cache_false": (["data.pipeline=device", "data.device_cache=False"], False),
 }
@@ -148,7 +149,11 @@ def test_fused_config_matches_jax(tmp_path, case):
     assert cfg == j_engine.compose(ROOT / "configs", "train", overrides)
     jax_says = JTrainer._fused_config(SimpleNamespace(cfg=cfg))
     t = Trainer.from_config(cfg)
-    assert t._fused_config() == jax_says == want
+    # the port's one departure: its profiler traces the fused epoch, where
+    # the JAX rule takes the step loop for it (``debug=profiler`` still
+    # gets the step loop here, from its debug_nans, in fit)
+    departs = case.startswith("profiler")
+    assert t._fused_config() == (want or departs) and jax_says == (want and not departs)
     assert (t.fused_pipelined, t.fused_dispatch_ahead) == (True, True)  # configs/data/default.yaml
 
 
@@ -331,13 +336,19 @@ def _run(tmp_path, sub, *extra):
     return t, metrics, saves, out
 
 
+def _timing(key: str) -> bool:
+    """A key of a timing (images_per_sec, the fused loop's stage ms), which
+    no two runs share."""
+    return key == "images_per_sec" or key.startswith("stage_ms")
+
+
 def _csv_rows(out: Path):
     rows = list(csv.DictReader(open(out / "csv" / "metrics.csv")))
-    return [{k: v for k, v in r.items() if k != "images_per_sec"} for r in rows]
+    return [{k: v for k, v in r.items() if not _timing(k)} for r in rows]
 
 
 def _no_timing(m):
-    return {k: v for k, v in m.items() if k != "images_per_sec"}
+    return {k: v for k, v in m.items() if not _timing(k)}
 
 
 def test_fused_dispatch_ahead_equivalence(tmp_path):
@@ -358,7 +369,7 @@ def test_fused_dispatch_ahead_equivalence(tmp_path):
         for (k, va), vb in zip(t_a.net.state_dict().items(), t_b.net.state_dict().values()):
             assert torch.equal(va, vb), (sub, k)
         assert _no_timing(runs["ahead"][1]) == _no_timing(m_b) and "map" in m_b
-        for ea, eb in zip(t_a.epoch_metrics, t_b.epoch_metrics, strict=True):
+        for ea, eb in zip(map(_no_timing, t_a.epoch_metrics), map(_no_timing, t_b.epoch_metrics), strict=True):
             assert ea.keys() == eb.keys() and all(np.array_equal(ea[k], eb[k]) for k in ea), sub
         assert _csv_rows(runs["ahead"][3]) == _csv_rows(out_b)
         for e in range(4):
