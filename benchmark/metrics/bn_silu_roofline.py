@@ -1,0 +1,20 @@
+"""bn_silu_roofline (%): the training step's BatchNorm + SiLU (ops/csrc/
+bn_silu.cu) moving 10 B of each BatchNorm output element of the reference
+network (counts/bn_silu.py; bf16: x read and y written forward, x and dy
+read and dx written backward) at HBM speed, over the device time of every
+kernel named bn_silu_* in the traced window; a launch is one
+bn_silu_apply kernel, one a layer a step. None for a program without them."""
+
+from counts.bn_silu import bn_silu
+from counts.roofline import launches, share
+from harness.registry import workload
+
+APPLY = "bn_silu_apply"
+
+
+def read(record):
+    if not record or record.get("kind") != "train" or launches(record, APPLY) == 0:
+        return None
+    cfg = workload(record["cell"])["model"]
+    per_image, layers = bn_silu(cfg["nc"], cfg["deepen_factor"], cfg["widen_factor"], record["image_size"])
+    return share(record, per_image * record["batch"] / layers, APPLY, "bn_silu_")

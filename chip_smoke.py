@@ -12,6 +12,7 @@ Run from the root of a checkout, on a machine with one card:
     python3 chip_smoke.py --phase flat  # phases 1, 2 and 18 alone (the flat corpus)
     python3 chip_smoke.py --phase carry # phases 1, 2 and 19 alone (a run carried across the JAX layout)
     python3 chip_smoke.py --phase sizes # phases 1, 2 and 20 alone (yolov5m and yolov5l at full width)
+    python3 chip_smoke.py --phase bn_silu  # phases 1, 2, 7's BatchNorm + SiLU and a fused fit of 10 steps
 
 ``--baseline DIR`` (repeatable) also builds the four kernel sources
 (``nms.cu``, ``gather.cu``, ``hsv.cu``, ``warp.cu``) of another checkout at
@@ -84,11 +85,23 @@ result line):
    raw images (COCO-like and extreme sizes with a failed file, and the main
    path's 640 x 640), at S = 416 and 640, top-left and centred, planar and
    NHWC; each batch at 416 timed in turns with its plain version, beside
-   ``F.interpolate`` + pad and the bytes bound;
+   ``F.interpolate`` + pad and the bytes bound. Then the training BatchNorm +
+   SiLU (``csrc/bn_silu.cu``, the port's own kernels: the JAX package leaves
+   it to XLA) at every layer shape of yolov5s and yolov5l at 416, B=64:
+   held to its plain version within ``test_utils/bn_silu.py``'s limits (y
+   within one bf16 unit of the plain version from the kernels' own
+   statistics; the statistics and gradients relative to their scale), the
+   op through autograd bitwise the kernels, then a captured graph of one
+   forward and backward timed in turns with the plain layers', beside
+   ``F.batch_norm(training=True)`` + ``F.silu`` and the bound of 10 B an
+   element; its kernels-line numbers are yolov5s's layers a step.
+   ``--phase bn_silu`` runs phases 1, 2, this and a 10-step fused fit of
+   yolov5s (launches zeroed just before: BS 57 a step by replay);
 8. training: the step loop (``Trainer(fused_epoch=False)``),
    ``Trainer.fit(max_epochs=1, epoch_steps=40)`` with the
    launch counts zeroed just before and read just after (K2, K4, K5 once
-   per step; K1 five times in the epoch-end validation); finite losses,
+   per step, BS once a training BatchNorm a step; K1 five times in the
+   epoch-end validation); finite losses,
    every parameter moved, a finite mAP; img/s over the last 30 steps, ms
    per stage and the host's time to enqueue one step; then two f32 steps
    of yolov5n at 64 px from the same weights and draws on the CPU and the
@@ -165,7 +178,7 @@ result line):
     to epoch 4 in epochs of 40 steps (of the corpus's 78, a depth cut to
     make room for phase 20), validated at epochs 2 and 4, in turns
     (step, fused, fused, step): each fit launches K2, K4, K5 80 times
-    (counted by replay for the fused loop) and K1 5; finite losses and
+    (counted by replay for the fused loop), BS 80 x 57, and K1 5; finite losses and
     mAP, the fused trainer's parameters moved. Printed: img/s of each fit's
     second epoch (host clock; fetch to fetch for the fused loop), the
     device epoch walls (the last stage stamps), the first three losses of both loops,
@@ -233,9 +246,11 @@ result line):
     ``cudnn.deterministic``: a fused fit of 4 steps at 416 B=64, then a
     timed fused epoch of 10 replays (K2/K4/K5 10 each by replay), and the
     step loop at 640 B=32 (JAX's remat resolution): the gradients, the
-    parameters after SmartSGD and the running statistics bitwise those
-    without remat (else the largest gap, which may be no more than twice
-    the run-to-run gap), peak memory (``max_memory_allocated`` above what
+    parameters after SmartSGD and the running statistics of each policy
+    bitwise those of ``nothing``, the fullest recompute (else the largest
+    gap, which may be no more than twice the run-to-run gap without
+    remat); remat keeps the plain BatchNorm + SiLU where no remat takes
+    BS, so the gap to no remat is printed, not held; peak memory (``max_memory_allocated`` above what
     was allocated before) and ms a step; then, over NCCL ranks (one, or
     two where two cards are visible; the global BatchNorm, its all-reduces
     captured in the graph), a fused
@@ -366,7 +381,7 @@ result line):
     ``BF16_LOSS_RTOL`` (5%, the reasoning at the constant) and above 0.
     ``--phase sizes`` runs phases 1, 2 and 20 alone;
 21. the ``kernels`` JSON line (with each path's launches; K3's
-    ``launches`` are phase 18 (a)'s), the card line, and the result line
+    ``launches`` are phase 18 (a)'s, BS's phase 12's fused fit's), the card line, and the result line
     last.
 """
 
@@ -605,6 +620,154 @@ def phase_letterbox(card, dev, resources):
             out = (err, (k_ms, p_ms, lib_ms, b_ms, b_by), call)
     log(f"[kernels] letterbox.cu: {resources('letterbox_kernel', 0)}")
     return out
+
+
+BS_REPS = 20  # phase 7's BatchNorm + SiLU: replays of a captured call in a turn
+BS_FIT_N, BS_FIT_VAL, BS_FIT_STEPS = 640, 64, 10  # --phase bn_silu's fused fit: images, val images, steps
+
+
+def _graphed(fn):
+    """``fn`` captured as a CUDA graph (after two calls on a side stream);
+    its replay enqueues the card's work without the host's dispatch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return g.replay
+
+
+def phase_bn_silu(card, dev, resources):
+    """Phase 7's training BatchNorm + SiLU (``ops/bn_silu.py``) at every
+    layer shape of yolov5s and yolov5l at 416, B = 64: the kernels held to
+    their plain versions within ``test_utils/bn_silu.py``'s limits, the op
+    through autograd bitwise the kernels it calls, then timed in turns with
+    the plain layers (a captured graph of one forward and backward each,
+    the kernels called as the op calls them),
+    beside ``F.batch_norm(training=True)`` + ``F.silu`` and the bound of 10
+    B an element at 3.35 TB/s. Returns (y's largest gap from the plain
+    version of the kernels' own statistics, (ms, plain_ms, library_ms,
+    bound_ms, "bytes") over yolov5s's layers a step, (call_ms,
+    library_call_ms) of one forward and backward at yolov5s's stem)."""
+    import torch.nn.functional as F
+
+    from object_detection_cib_torch.models.layers import BatchNorm
+    from object_detection_cib_torch.ops import bn_silu as bn_ops
+    from object_detection_cib_torch.test_utils import bn_silu as bn_cases
+
+    y_err, a_step, calls = 0.0, {}, None
+    for net, shapes in bn_cases.LAYERS.items():
+        total = dict(ms=0.0, plain=0.0, library=0.0, bound=0.0)
+        for side, C, count in shapes:
+            x, dy, w, b, rm, rv = bn_cases.layer_inputs(dev, TRAIN_B, C, side, side, seed=side * 7 + C)
+            M = x.numel() // C
+            gaps = bn_cases.against_plain(x, dy, w, b, rm, rv)
+            over = bn_cases.exceeded(gaps)
+            if over:
+                fail(f"[bn_silu] yolov5{net} ({M} rows, {C}): beyond the limits {over}; gaps {gaps}")
+            y_err = max(y_err, gaps["y_own_abs"])
+            rk, vk = rm.clone(), rv.clone()
+
+            def leaves(*ts):
+                """Fresh leaves for each use: the autograd engine syncs a
+                leaf's first stream into every later backward through it,
+                which a capture on another stream cannot take."""
+                return [t.detach().clone().requires_grad_(True) for t in ts]
+
+            def kernel():  # the kernels the op launches, forward then backward
+                y, st = bn_ops._forward_kernels(x, w, b, rk, vk, 0.03, 1e-3)
+                return y, bn_ops._backward_kernels(x, dy, w, b, st)
+
+            xo, wo, bo = leaves(x, w, b)
+
+            def op():  # the same through autograd, as a training step calls it
+                return torch.autograd.grad(bn_ops.bn_silu_train(xo, wo, bo, rk, vk, 0.03, 1e-3), (xo, wo, bo), dy)
+
+            with torch.enable_grad():
+                got = (bn_ops.bn_silu_train(xo, wo, bo, rm.clone(), rv.clone(), 0.03, 1e-3),)
+                got += torch.autograd.grad(got[0], (xo, wo, bo), dy)
+            y_k, stats = bn_ops._forward_kernels(x, w, b, rm.clone(), rv.clone(), 0.03, 1e-3)
+            if not all(torch.equal(a, c) for a, c in zip(got, (y_k,) + bn_ops._backward_kernels(x, dy, w, b, stats))):
+                fail(f"[bn_silu] yolov5{net} ({M} rows, {C}): the op through autograd differs from its kernels")
+            bn = BatchNorm(C).to(dev)
+            with torch.no_grad():
+                bn.weight.copy_(w)
+                bn.bias.copy_(b)
+            (xp,) = leaves(x)
+
+            def plain():
+                return torch.autograd.grad(F.silu(bn(xp)), (xp, bn.weight, bn.bias), dy)
+
+            rl, vl = rm.clone(), rv.clone()
+            xl, wl, bl = leaves(x, w, b)
+
+            def library():
+                y = F.silu(F.batch_norm(xl, rl, vl, wl, bl, training=True, momentum=0.03, eps=1e-3))
+                return torch.autograd.grad(y, (xl, wl, bl), dy)
+
+            with torch.enable_grad():
+                k_ms, p_ms, turns = in_turns(_graphed(kernel), _graphed(plain), BS_REPS, BS_REPS)
+                lib_replay = _graphed(library)
+                lib_ms = statistics.median([run_ms(lib_replay, BS_REPS) for _ in range(2)])
+                if calls is None:  # the stem of yolov5s, one eager call from an idle stream
+                    xl, wl, bl = leaves(x, w, b)
+                    calls = (cuda_ms(op, 30), cuda_ms(library, 30))
+            b_ms = bound(10 * M * C, 0)[0]
+            for key, v in (("ms", k_ms), ("plain", p_ms), ("library", lib_ms), ("bound", b_ms)):
+                total[key] += count * v
+            log(f"[bn_silu] yolov5{net} {M} rows x {C} ({count} layers): kernels {k_ms:.4f} ms, plain layers "
+                f"{p_ms:.4f} ms (turns {turns}), F.batch_norm + F.silu {lib_ms:.4f} ms, bound {b_ms:.6f} ms "
+                f"(bytes: {10 * M * C} B), {b_ms / k_ms:.4f} of it; gaps "
+                f"{ {k: float(f'{v:.3g}') for k, v in gaps.items()} } | {card}")
+            del x, dy, xo, xp, xl, bn, got, y_k, stats, lib_replay
+            torch.cuda.empty_cache()
+        a_step[net] = total
+        log(f"[bn_silu] yolov5{net}'s {sum(c for *_, c in shapes)} layers a step at 416 B={TRAIN_B}: kernels "
+            f"{total['ms']:.4f} ms, plain layers {total['plain']:.4f}, F.batch_norm + F.silu {total['library']:.4f}, "
+            f"bound {total['bound']:.6f} ({total['bound'] / total['ms']:.4f} of it) | {card}")
+    log(f"[bn_silu] one forward and backward at yolov5s's stem from an idle stream, host launch path included "
+        f"(median of 30): the op {calls[0]:.4f} ms, F.batch_norm + F.silu {calls[1]:.4f} ms | {card}")
+    log(f"[kernels] bn_silu.cu: {resources('bn_silu_', 0)}")
+    s = a_step["s"]
+    return y_err, (s["ms"], s["plain"], s["library"], s["bound"], "bytes"), calls
+
+
+def bn_silu_fit(card, dev):
+    """``--phase bn_silu``'s main-path fit: the fused epoch (the config's
+    default loop) of yolov5s at 416, B = 64, bf16 over BS_FIT_N fake images,
+    BS_FIT_STEPS steps and a validation, launches zeroed just before and read
+    just after: BS once a training BatchNorm a step (by replay), K2, K4, K5
+    once a step. Returns the launches."""
+    import numpy as np
+
+    from object_detection_cib_torch.data.host_augment import AugParams
+    from object_detection_cib_torch.data.synthetic import build_fake_manifest
+    from object_detection_cib_torch.models.layers import ConvBnAct
+    from object_detection_cib_torch.train.trainer import Trainer
+
+    train_info = build_fake_manifest(num_classes=NC, num_images=BS_FIT_N, seed=0, zipf_a=1.01)
+    val_info = build_fake_manifest(num_classes=NC, num_images=BS_FIT_VAL, image_size=VAL_S, zipf_a=1.01, seed=0)
+    t = Trainer(train_info, val_info, size="s", image_size=TRAIN_S, batch_size=TRAIN_B, aug_params=AugParams(),
+                max_targets=MAX_TARGETS, seed=0, dtype=torch.bfloat16, device=dev, max_epochs=1)
+    n_bn = sum(isinstance(m, ConvBnAct) for m in t.net.modules())
+    _zero_kernels()
+    m = t.fit(max_epochs=1, epoch_steps=BS_FIT_STEPS)
+    torch.cuda.synchronize()
+    got = _read_kernels()
+    want = {"bn_silu_train": BS_FIT_STEPS * n_bn, "gather_rows_planar": BS_FIT_STEPS,
+            "hsv_planar": BS_FIT_STEPS, "warp_quadrants": BS_FIT_STEPS}
+    if n_bn != 57 or t._fused_fn is None or {k: got[k] for k in want} != want:
+        fail(f"[bn_silu] fused fit: {n_bn} training BatchNorms, launches {got}, want {want}")
+    losses = t.epoch_metrics[0]["total"]
+    if not np.isfinite(losses).all() or not finite_map(m):
+        fail(f"[bn_silu] fused fit: losses or mAP not finite: {losses}, {m}")
+    log(f"[bn_silu] fused fit of yolov5s at {TRAIN_S}, B={TRAIN_B}, {BS_FIT_STEPS} steps: launches {got} "
+        f"({n_bn} training BatchNorms x {BS_FIT_STEPS} steps); losses {losses[0]:.4f}->{losses[-1]:.4f} | {card}")
+    return got
 
 
 JPEG_TRAIN_N, JPEG_VAL_N, JPEG_STEPS = 640, 128, 5
@@ -1219,6 +1382,7 @@ def phase_fused(card, dev, aug, train_info, val_info, corpus, zero_counts, read_
     import numpy as np
 
     from object_detection_cib_torch.data.device_pipeline import DeviceDataPipeline
+    from object_detection_cib_torch.models.layers import ConvBnAct
     from object_detection_cib_torch.train.trainer import Trainer
 
     steps = FUSED_STEPS
@@ -1259,6 +1423,7 @@ def phase_fused(card, dev, aug, train_info, val_info, corpus, zero_counts, read_
     for t in loops.values():
         t.loop = t.loop._replace(check_val_every_n_epoch=2)
     t_f = loops["fused"]
+    n_bn = sum(isinstance(m, ConvBnAct) for m in t_f.net.modules())
     before = [p.detach().clone() for p in t_f.net.parameters()]
     n_val = math.ceil(len(val_info.samples) / TRAIN_B)
     counts, turns = {}, []
@@ -1273,7 +1438,7 @@ def phase_fused(card, dev, aug, train_info, val_info, corpus, zero_counts, read_
         wall = time.perf_counter() - t0
         got = read_counts()
         want_n = {"gather_rows_planar": 2 * steps, "hsv_planar": 2 * steps, "warp_quadrants": 2 * steps,
-                  "greedy_nms_mask": n_val}
+                  "greedy_nms_mask": n_val, "bn_silu_train": 2 * steps * n_bn}
         for kname, nw in want_n.items():
             if got[kname] != nw:
                 fail(f"[fused] turn {turn} ({name}) launched {kname} {got[kname]} times, want {nw}")
@@ -1385,6 +1550,7 @@ MESH_PER_CARD = 1280  # phase 13 (c): fake images a card (20 steps an epoch at 6
 
 
 def _kernel_entries():
+    from object_detection_cib_torch.ops import bn_silu as bn_ops
     from object_detection_cib_torch.ops import gather as gather_ops
     from object_detection_cib_torch.ops import hsv as hsv_ops
     from object_detection_cib_torch.ops import letterbox as lb_ops
@@ -1392,7 +1558,17 @@ def _kernel_entries():
     from object_detection_cib_torch.ops import warp as warp_ops
 
     return (gather_ops.gather_rows_planar, gather_ops.gather_rows_flat, hsv_ops.hsv_planar,
-            warp_ops.warp_quadrants, nms_ops.greedy_nms_mask, lb_ops.letterbox)
+            warp_ops.warp_quadrants, nms_ops.greedy_nms_mask, lb_ops.letterbox, bn_ops.bn_silu_train)
+
+
+def kernel_entry(name, file, replaces, launches, err, timing, calls, by_path) -> dict:
+    """One kernel of the ``kernels`` JSON line: ``timing`` (ms, plain_ms,
+    library_ms, bound_ms, bound_by), ``calls`` (call_ms, library_call_ms)."""
+    k_ms, p_ms, lib_ms, b_ms, b_by = timing
+    return {"name": name, "route": "cuda", "source": "object_detection_cib_torch/ops/csrc/" + file,
+            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "call_ms": calls[0],
+            "library_call_ms": calls[1], "launches_by_path": by_path}
 
 
 def _zero_kernels():
@@ -2241,13 +2417,19 @@ def phase_rest(card):
         for name in policies[1:]:
             r = runs[name]
             gap = {k: _same_state(r[k], ref[k]) for k in ("grads", "state")}
-            # the gap to no remat may be no larger than twice the gap of a second run without remat
-            if any(gap[k] > 2 * floor[k] for k in gap):
-                fail(f"[rest] (a) {where} {name}: gap to no remat {gap} beyond twice the run-to-run gap {floor}")
-            log(f"[rest] (a) remat {name}, {where} (yolov5s bf16, cudnn.deterministic): gradients "
-                f"{'bitwise equal' if gap['grads'] == 0 else 'max gap %.3e' % gap['grads']}, parameters and "
-                f"running statistics {'bitwise equal' if gap['state'] == 0 else 'max gap %.3e' % gap['state']} "
-                f"to no remat (run-to-run gap {floor}); peak memory (max_memory_allocated above what was "
+            # remat runs the plain BatchNorm + SiLU and no remat the BS op: the
+            # policies are held to each other (to ``nothing``), each gap no
+            # larger than twice the gap of a second run without remat
+            other = "nothing" if name in REMAT_SAVES else "none"
+            held = {k: _same_state(r[k], runs[other][k]) for k in ("grads", "state")}
+            if any(held[k] > 2 * floor[k] for k in held):
+                fail(f"[rest] (a) {where} {name}: gap to remat {other} {held} beyond twice the run-to-run gap {floor}")
+            log(f"[rest] (a) remat {name}, {where} (yolov5s bf16, cudnn.deterministic): gradients, parameters "
+                f"and running statistics {'bitwise equal' if not any(held.values()) else held} to remat {other}; "
+                f"to no remat (BS) gradients "
+                f"{'bitwise equal' if gap['grads'] == 0 else 'max gap %.3e' % gap['grads']}, "
+                f"state {'bitwise equal' if gap['state'] == 0 else 'max gap %.3e' % gap['state']} (run-to-run gap "
+                f"{floor}); peak memory (max_memory_allocated above what was "
                 f"allocated before {'the trainer was built' if 'fused' in where else 'the first step'}) "
                 f"{r['peak'] / 2**30:.3f} GiB (none {ref['peak'] / 2**30:.3f}); "
                 f"{'step' if 'fused' not in where else 'fused step'} {r['ms']:.4f} ms (none {ref['ms']:.4f})"
@@ -3401,9 +3583,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path, action="append", default=[],
                     help="root of another checkout whose four kernel sources are timed beside")
-    ap.add_argument("--phase", choices=["all", "ddp", "hosts", "rest", "spatial", "jpeg", "flat", "carry", "sizes"],
+    ap.add_argument("--phase", choices=["all", "ddp", "hosts", "rest", "spatial", "jpeg", "flat", "carry", "sizes",
+                                        "bn_silu"],
                     default="all",
-                    help="sizes: phases 1, 2 and 20 alone (yolov5m and yolov5l at full width); "
+                    help="bn_silu: phases 1, 2, 7's BatchNorm + SiLU and a fused fit (the training BatchNorm "
+                         "kernels); sizes: phases 1, 2 and 20 alone (yolov5m and yolov5l at full width); "
                          "carry: phases 1, 2 and 19 alone (a run carried across the JAX layout); "
                          "flat: phases 1, 2 and 18 alone (the flat corpus, over a planar corpus built for it); "
                          "jpeg: phases 1, 2, the letterbox kernel of 7, 10 and 17 alone (the JPEG feeds); "
@@ -3488,6 +3672,16 @@ def main() -> None:
         corpus_counts = phase_corpus(card, _zero_kernels, _read_kernels)
         print(json.dumps({"letterbox": {"max_abs_err": lb_err, "timing": lb_timing},
                           "jpeg_launches": jpeg, "corpus_launches": corpus_counts}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
+    if args.phase == "bn_silu":
+        err, bs_timing, bs_calls = phase_bn_silu(card, dev, resources)
+        launches = bn_silu_fit(card, dev)
+        print(json.dumps({"kernels": [kernel_entry(
+            "bn_silu_train", "bn_silu.cu", "models/layers.py BatchNorm + SiLU (the port's own kernels; no pallas_call)",
+            launches["bn_silu_train"], err, bs_timing, bs_calls, {"fused": launches["bn_silu_train"]})]}), flush=True)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}), flush=True)
@@ -3998,6 +4192,7 @@ def main() -> None:
     timing["greedy_nms_mask"] = (nms_ms, plain_ms, None, bound_ms, bound_by)
     errs["greedy_nms_mask"] = max_err
     errs["letterbox"], timing["letterbox"], call_ms["letterbox"] = phase_letterbox(card, dev, resources)
+    errs["bn_silu_train"], timing["bn_silu_train"], call_ms["bn_silu_train"] = phase_bn_silu(card, dev, resources)
 
     # ------------------------------------------------------------- 8 training
     net = trainer.net
@@ -4022,6 +4217,12 @@ def main() -> None:
             fail(f"training launched {name} {train_launches[name]} times in {TRAIN_STEPS} steps")
     if train_launches["greedy_nms_mask"] != n_blocks:
         fail(f"epoch-end validation launched NMS {train_launches['greedy_nms_mask']} times, want {n_blocks}")
+    from object_detection_cib_torch.models.layers import ConvBnAct
+
+    n_bn = sum(isinstance(m, ConvBnAct) for m in net.modules())
+    if train_launches["bn_silu_train"] != TRAIN_STEPS * n_bn:
+        fail(f"training launched bn_silu_train {train_launches['bn_silu_train']} times, want {TRAIN_STEPS} steps "
+             f"x {n_bn} training BatchNorms")
     em = trainer.epoch_metrics[-1]
     if not all(np.isfinite(v).all() for v in em.values()):
         fail(f"training losses not finite: {em}")
@@ -4344,7 +4545,6 @@ def main() -> None:
     sizes = phase_sizes(card, dev)
 
     # -------------------------------------------------------------- 21 report
-    src = "object_detection_cib_torch/ops/csrc/"
     rows = [
         ("greedy_nms_mask", "nms.cu", "object_detection_cib_tpu/ops/pallas_nms.py:131", serve_launches),
         ("gather_rows_planar", "gather.cu", "object_detection_cib_tpu/ops/pallas_gather.py:98",
@@ -4360,30 +4560,28 @@ def main() -> None:
         # package's host letterbox; its main path is phase 17's decode
         ("letterbox", "letterbox.cu", "native/loader.cpp:75-118 (the port's own kernel; no pallas_call)",
          corpus_counts["jpeg"]["letterbox"]),
+        # the port's own training BatchNorm + SiLU (the JAX package leaves
+        # it to XLA); its main path is phase 12's fused fit
+        ("bn_silu_train", "bn_silu.cu", "models/layers.py BatchNorm + SiLU (the port's own kernels; no pallas_call)",
+         fused["bn_silu_train"]),
     ]
     kernels = []
     for name, file, replaces, launches in rows:
-        k_ms, p_ms, lib_ms, b_ms, b_by = timing[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src + file, "replaces": replaces,
-            "launches": launches, "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "call_ms": call_ms[name][0], "library_call_ms": call_ms[name][1],
-            "launches_by_path": {"serving": serve_launches if name == "greedy_nms_mask" else 0,
-                                 "validation": val_launches if name == "greedy_nms_mask" else 0,
-                                 "train": train_launches[name],
-                                 **{f"jpeg_{part}": n[name] for part, n in jpeg.items()},
-                                 "cli": {part: n[name] for part, n in cli.items()},
-                                 "fused": fused[name],
-                                 "ddp": {part: n[name] for part, n in ddp.items()},
-                                 "hosts": {part: n[name] for part, n in hosts.items()},
-                                 "rest": {part: n[name] for part, n in rest.items()},
-                                 "spatial": {part: n[name] for part, n in spatial.items()},
-                                 "corpus": {part: n[name] for part, n in corpus_counts.items()},
-                                 "flat": {part: n[name] for part, n in flat_counts.items()},
-                                 "carry": {part: n[name] for part, n in carry.items()},
-                                 "sizes": {part: n[name] for part, n in sizes.items()}},
-        })
+        by_path = {"serving": serve_launches if name == "greedy_nms_mask" else 0,
+                   "validation": val_launches if name == "greedy_nms_mask" else 0,
+                   "train": train_launches[name],
+                   **{f"jpeg_{part}": n[name] for part, n in jpeg.items()},
+                   "cli": {part: n[name] for part, n in cli.items()},
+                   "fused": fused[name],
+                   "ddp": {part: n[name] for part, n in ddp.items()},
+                   "hosts": {part: n[name] for part, n in hosts.items()},
+                   "rest": {part: n[name] for part, n in rest.items()},
+                   "spatial": {part: n[name] for part, n in spatial.items()},
+                   "corpus": {part: n[name] for part, n in corpus_counts.items()},
+                   "flat": {part: n[name] for part, n in flat_counts.items()},
+                   "carry": {part: n[name] for part, n in carry.items()},
+                   "sizes": {part: n[name] for part, n in sizes.items()}}
+        kernels.append(kernel_entry(name, file, replaces, launches, errs[name], timing[name], call_ms[name], by_path))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

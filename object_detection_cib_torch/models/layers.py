@@ -65,6 +65,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
+from object_detection_cib_torch.ops import bn_silu
 from object_detection_cib_torch.parallel.distributed import all_reduce_sum_
 from object_detection_cib_torch.parallel.spatial import Spatial, conv_reach
 
@@ -254,6 +255,10 @@ class ConvBnAct(nn.Module):
     """Conv (no bias) + BatchNorm(eps 1e-3, momentum 0.03) + SiLU.
 
     Conv2dNormActivation equivalent (BN settings: ref networks/yolov5.py:24).
+    A training forward with grad enabled, local statistics, no remat policy
+    and a bf16 activation on the card runs BatchNorm and SiLU as one op
+    (``ops/bn_silu.py``), which raises for a conv output its kernels cannot
+    read; everything else runs the plain layers.
     """
 
     def __init__(
@@ -281,7 +286,12 @@ class ConvBnAct(nn.Module):
         return self._forward(x)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.silu(self.bn(conv2d(x, self.conv, pad_rows=self.spatial is None)))
+        x = conv2d(x, self.conv, pad_rows=self.spatial is None)
+        bn = self.bn
+        if (bn.training and torch.is_grad_enabled() and bn.group is None and self.remat is None
+                and x.is_cuda and x.dtype == torch.bfloat16):
+            return bn_silu.bn_silu_train(x, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.momentum, bn.eps)
+        return F.silu(bn(x))
 
 
 class CSPBlock(nn.Module):

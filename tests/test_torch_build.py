@@ -30,7 +30,7 @@ def test_kernel_usage_of_an_empty_report():
 
 
 def test_every_kernel_source_is_listed():
-    assert kbuild.sources() == ["gather", "hsv", "letterbox", "marks", "nms", "warp"]
+    assert kbuild.sources() == ["bn_silu", "gather", "hsv", "letterbox", "marks", "nms", "warp"]
 
 
 def test_report_of_an_earlier_build_is_read_back(tmp_path, monkeypatch, capsys):

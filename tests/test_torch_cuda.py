@@ -13,12 +13,15 @@ import numpy as np
 import pytest
 import torch
 
+from object_detection_cib_torch.models import layers
 from object_detection_cib_torch.ops import augment as aug_ops
+from object_detection_cib_torch.ops import bn_silu as bn_ops
 from object_detection_cib_torch.ops import gather as gather_ops
 from object_detection_cib_torch.ops import hsv as hsv_ops
 from object_detection_cib_torch.ops import nms as nms_ops
 from object_detection_cib_torch.ops import warp as warp_ops
 from object_detection_cib_torch.ops.build import build_all
+from object_detection_cib_torch.test_utils import bn_silu as bn_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -984,6 +987,132 @@ def test_state_carried_across_the_jax_layout_resumes_bitwise_on_card(dev, tmp_pa
     first.fit(max_epochs=2)
     assert _max_diff(runs["own"], runs["converted"]) == 0
     assert _max_diff(_state(captured), _state(first)) == 0
+
+
+# ------------------------------------------------- training BatchNorm + SiLU
+
+# (side, C): every training BatchNorm's (M = 64 side^2 rows, C) of yolov5s at
+# 416 px, B = 64, and yolov5l's 1024-channel layer
+BN_LAYERS = [(side, C) for side, C, _ in bn_cases.LAYERS["s"]] + [(13, 1024)]
+_bn_inputs = bn_cases.layer_inputs
+
+
+def _bn_against_plain(x, dy, w, b, rm, rv):
+    """The kernels against ``bn_silu_train_plain`` / ``bn_silu_grad_plain``
+    within ``test_utils/bn_silu.py``'s limits; both outputs channels_last."""
+    gaps = bn_cases.against_plain(x, dy, w, b, rm, rv)
+    print({k: f"{v:.3g}" for k, v in gaps.items()})
+    assert not bn_cases.exceeded(gaps), gaps
+    y, stats = bn_ops._forward_kernels(x, w, b, rm.clone(), rv.clone(), 0.03, 1e-3)
+    dx = bn_ops._backward_kernels(x, dy, w, b, stats)[0]
+    assert y.is_contiguous(memory_format=torch.channels_last) and dx.is_contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("side,C", BN_LAYERS)
+def test_bn_silu_kernels_equal_plain_at_the_layer_shapes(dev, side, C):
+    x, dy, w, b, rm, rv = _bn_inputs(dev, 64, C, side, side, seed=side * 7 + C)
+    _bn_against_plain(x, dy, w, b, rm, rv)
+
+
+@pytest.mark.parametrize("N,C,H,W", [(1, 8, 1, 1), (1, 24, 1, 7), (3, 96, 5, 7), (2, 4096, 3, 3),
+                                     (5, 2048, 2, 3), (7, 40, 33, 31)])
+def test_bn_silu_kernels_equal_plain_at_other_shapes(dev, N, C, H, W):
+    """Widths whose 8-channel vectors do not divide a block's 256 threads
+    (24, 40, 96), two blocks across a row (4096), a row of one block (2048),
+    and few or ragged rows."""
+    x, dy, w, b, rm, rv = _bn_inputs(dev, N, C, H, W, seed=C + H)
+    _bn_against_plain(x, dy, w, b, rm, rv)
+
+
+def test_bn_silu_backward_reads_a_channel_slice_of_a_concat(dev):
+    """dy as a channel slice of a channels_last concat's gradient (rows of
+    96 elements, 32 of them read) gives the dx of the same dy made
+    contiguous, bitwise."""
+    x, _, w, b, rm, rv = _bn_inputs(dev, 4, 32, 9, 11, seed=5)
+    wide = _bn_inputs(dev, 4, 96, 9, 11, seed=6)[1]
+    dy = wide[:, 32:64]
+    assert bn_ops._row_stride(dy) == 96
+    _, stats = bn_ops._forward_kernels(x, w, b, rm, rv, 0.03, 1e-3)
+    got = bn_ops._backward_kernels(x, dy, w, b, stats)
+    want = bn_ops._backward_kernels(x, dy.contiguous(memory_format=torch.channels_last), w, b, stats)
+    for g, v in zip(got, want):
+        assert torch.equal(g, v)
+
+
+@pytest.mark.parametrize("side,C", [(208, 32), (13, 1024)])
+def test_bn_silu_kernels_give_the_same_bits_twice(dev, side, C):
+    x, dy, w, b, rm, rv = _bn_inputs(dev, 64, C, side, side, seed=1)
+    runs = []
+    for _ in range(2):
+        rk, vk = rm.clone(), rv.clone()
+        y, stats = bn_ops._forward_kernels(x, w, b, rk, vk, 0.03, 1e-3)
+        runs.append((y, stats, rk, vk) + bn_ops._backward_kernels(x, dy, w, b, stats))
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+
+
+def test_bn_silu_variance_comes_from_deviations_at_a_large_mean(dev):
+    """x = 1000 + noise (std 8 to 48 by channel) in bf16 over the stem's
+    2.77 M rows: the kernel's statistics within 1e-5 of the f64 ones of the
+    same values (E[x^2] - E[x]^2 in f32 would miss by far more)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    sd = torch.linspace(8.0, 48.0, 32, device=dev)
+    x = (1000.0 + torch.randn(64, 208, 208, 32, generator=g, device=dev) * sd).to(torch.bfloat16).permute(0, 3, 1, 2)
+    ones = torch.ones(32, device=dev)
+    _, stats = bn_ops._forward_kernels(x, ones, ones, ones.clone(), ones.clone(), 0.03, 1e-3)
+    v64 = x.double().var(dim=(0, 2, 3), unbiased=False)
+    m64 = x.double().mean((0, 2, 3))
+    assert float(((stats[1].double() - v64).abs() / v64).max()) < 1e-5
+    assert float(((stats[0].double() - m64).abs() / v64.sqrt()).max()) < 1e-5
+
+
+@pytest.mark.parametrize("case", ["channels_8x_not", "nchw", "bf16_parameters"])
+def test_conv_bn_act_raises_where_the_kernels_cannot_read_its_output_on_card(dev, case):
+    """A bf16 training forward with grad on the card takes the op whatever
+    the conv output: where the kernels cannot read it (C % 8 != 0, an NCHW
+    output, bf16 BatchNorm parameters) the op raises and nothing launches;
+    no case falls back to the plain layers."""
+    torch.manual_seed(0)
+    m = layers.ConvBnAct(8, 12 if case == "channels_8x_not" else 16, 3).to(dev)
+    x = torch.randn(2, 8, 6, 6, device=dev).to(torch.bfloat16)
+    if case != "nchw":
+        m, x = m.to(memory_format=torch.channels_last), x.contiguous(memory_format=torch.channels_last)
+    if case == "bf16_parameters":
+        m.bn.to(torch.bfloat16)
+    m.train()
+    before = bn_ops.bn_silu_train.launches
+    with pytest.raises(ValueError, match="bn_silu_train"):
+        m(x)
+    assert bn_ops.bn_silu_train.launches == before
+
+
+def test_bn_silu_counts_each_layer_once_a_step_by_replay_on_card(dev, deterministic):
+    """Five bf16 yolov5n steps on the fused path (every training BatchNorm
+    takes the op): the op's launches are the layers times the steps, eager
+    or graphed (two eager warm-up steps, then replays); the graphed state
+    bitwise the eager one's where two eager runs are bitwise."""
+    counts = []
+
+    def run(graph):
+        t = _tiny_trainer(dev)
+        bns = sum(isinstance(m, layers.ConvBnAct) for m in t.net.modules())
+        fn = t.pipeline.build_fused_epoch_fn(lambda b, hp: t.train_step(b, hp), pipelined=True,
+                                             stack_metrics=True, graph=graph)
+        before = bn_ops.bn_silu_train.launches
+        fn(t.pipeline.epoch_host_arrays(), t.optimizer.hyper_table(0, 5))
+        torch.cuda.synchronize()
+        counts.append((bn_ops.bn_silu_train.launches - before, 5 * bns, bool(fn.graph)))
+        return _state(t)
+
+    e1, e2, g = run(False), run(False), run(True)
+    assert all(got == want for got, want, _ in counts) and counts[0][1] == 5 * 57, counts
+    assert [graphed for *_, graphed in counts] == [False, False, True]
+    spread, err = _max_diff(e1, e2), _max_diff(g, e1)
+    print(f"eager vs eager {spread}, graph vs eager {err}")
+    if spread == 0:
+        assert err == 0
+    else:
+        assert err <= 4 * spread
 
 
 # ------------------------------------------------- several cards: data parallelism
