@@ -1,36 +1,22 @@
-"""The training step's BatchNorm + SiLU: the elements the reference
-network's BatchNorms normalise for one image, counted from shapes on the
-meta device, and the bytes a training step must move for them."""
+"""The training step's BatchNorm + SiLU: the elements a reference network's
+BatchNorms normalise for one image, counted from shapes on the meta
+device, and the bytes a training step must move for each."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Type
 
 import torch
 
-from reference.network import BatchNorm, YOLOv5
+from counts.flops import hooked_forward
 
 # bf16: forward x read and y written, backward x and dy read and dx written
 BYTES_PER_ELEMENT = 10
 
 
-def bn_elements(nc: int, deepen: float, widen: float, size: int) -> Tuple[int, int]:
-    """(BatchNorm output elements for one (size x size) image, BatchNorm layers)."""
-    net = YOLOv5(nc, deepen, widen).to("meta")
+def bn_elements(net: torch.nn.Module, size: int, kind: Type[torch.nn.Module]) -> Tuple[int, int]:
+    """(BatchNorm output elements for one (size x size) image, BatchNorm
+    layers): the outputs of every module of type ``kind``."""
     seen = []
-    handles = [m.register_forward_hook(lambda mod, i, out: seen.append(out.numel()))
-               for m in net.modules() if isinstance(m, BatchNorm)]
-    try:
-        with torch.no_grad():
-            net.eval()(torch.empty(1, size, size, 3, device="meta"))
-    finally:
-        for h in handles:
-            h.remove()
+    hooked_forward(net, size, kind, lambda mod, i, out: seen.append(out.numel()))
     return sum(seen), len(seen)
-
-
-def bn_silu(nc: int, deepen: float, widen: float, size: int) -> Tuple[int, int]:
-    """(the least bytes one image's BatchNorm + SiLU moves in a training
-    step, BatchNorm layers)."""
-    elements, layers = bn_elements(nc, deepen, widen, size)
-    return BYTES_PER_ELEMENT * elements, layers

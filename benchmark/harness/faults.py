@@ -109,6 +109,40 @@ def wrong_candidates(evaluator) -> None:
     _inside_eval(evaluator, "select_candidates", make)
 
 
+def no_exchange(trainer) -> None:
+    """Every step leaves out the exchange of gradients between the ranks:
+    each rank updates with the gradient of its own rows alone."""
+    from object_detection_cib_torch.train import steps
+
+    step = trainer.train_step
+
+    def alone(batch, hp=None):
+        with _swapped(steps, "_all_reduce_gradients", lambda params, group: None):
+            return step(batch, hp)
+
+    trainer.train_step = alone
+
+
+def local_batchnorm(trainer) -> None:
+    """Every step leaves out the exchange of BatchNorm's statistics between
+    the ranks: each rank normalises over its own rows alone."""
+    from object_detection_cib_torch.models import layers
+
+    step, synced = trainer.train_step, layers._GlobalBatchNorm
+
+    class Local:
+        @staticmethod
+        def apply(x, weight, bias, group, ranks, eps, stats=None):
+            return synced.apply(x, weight, bias, None, 1, eps, stats)
+
+    def alone(batch, hp=None):
+        with _swapped(layers, "_GlobalBatchNorm", Local):
+            return step(batch, hp)
+
+    trainer.train_step = alone
+
+
 TRAIN = {"unchanged_state": unchanged_state, "half_batch": half_batch}
+MESH = {"no_exchange": no_exchange, "local_batchnorm": local_batchnorm}  # a training cell's faults over several cards
 INFER = {"altered_answer": altered_answer, "half_answers": half_answers, "loose_suppression": loose_suppression,
          "class_blind_suppression": class_blind_suppression, "wrong_candidates": wrong_candidates}

@@ -29,11 +29,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from counts.flops import conv_flops
-from harness import faults, inputs, judge, tracing
+from harness import faults, inputs, judge, registry, tracing
 from reference import plain_math
-from reference.detect import decode, nms
-from reference.network import YOLOv5
+from reference.detect import nms
 
 WARMUP_REQUESTS = 3
 FAULTS = faults.INFER  # what ``calibrate.py`` plants under this window
@@ -41,20 +39,18 @@ FAULTS = faults.INFER  # what ``calibrate.py`` plants under this window
 
 def build(cell: dict, seed: int, device):
     """-> (the program's Evaluator, the pool as (batches, B, S, S, 3), the weights)."""
-    from object_detection_cib_torch.core.types import default_anchors
-    from object_detection_cib_torch.models.yolov5 import build_network
     from object_detection_cib_torch.train.trainer import Evaluator
 
     cfg = cell["model"]
+    net_family = registry.family(cfg)
     S, B = cell["image_size"], cell["batch"]
-    nc, d, w = cfg["nc"], cfg["deepen_factor"], cfg["widen_factor"]
+    nc = cfg["nc"]
     pool = inputs.pool(seed, cell["pool_images"], S, device)
     calib = pool[:B].to(device).float() / 255.0
-    state = inputs.calibrated(inputs.of_config(seed, cfg, device), nc, d, w,
-                              calib)
-    net = build_network(nc, {"deepen_factor": d, "widen_factor": w}, dtype=torch.bfloat16, device=device)
+    state = net_family.calibrated(cfg, net_family.weights(seed, cfg, device), calib)
+    net, anchors = net_family.eval_network(cfg, device)
     net.load_state_dict(state)
-    ev = Evaluator(net, default_anchors(), [f"class_{i}" for i in range(nc)], batch_size=B,
+    ev = Evaluator(net, anchors, [f"class_{i}" for i in range(nc)], batch_size=B,
                    conf_thres=cell["conf"], iou_thres=cell["iou"], max_det=cell["max_det"],
                    max_nms=cell["max_nms"], device=device)
     return ev, pool.view(-1, B, S, S, 3), state
@@ -132,7 +128,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device, t_process: f
         tr = tracing.traced(work, device)
         record = dict(tr, cell=cell["name"], kind="infer", chips=1, batch=B, image_size=cell["image_size"],
                       requests=reqs, rate_img_s=res["e2e"]["infer_img_s"], enqueue_ms=res["enqueue_ms"],
-                      image_flops=conv_flops(cfg["nc"], cfg["deepen_factor"], cfg["widen_factor"], cell["image_size"]),
+                      image_flops=registry.family(cfg).conv_flops(cfg, cell["image_size"]),
                       nms_k=cell["max_nms"])
     res["memory_peak_bytes"] = torch.cuda.max_memory_allocated(device) if on_card else 0
     del ev
@@ -152,15 +148,15 @@ def judge_requests(cell: dict, state: dict, batches: torch.Tensor, answers: dict
     """The widest of each detection number over the judged requests;
     ``answers`` {request: (pool batch, detections)}."""
     cfg = cell["model"]
-    nc = cfg["nc"]
+    net_family = registry.family(cfg)
     worst = {}
     with plain_math(), torch.no_grad():
-        net = YOLOv5(nc, cfg["deepen_factor"], cfg["widen_factor"]).to(device).eval()
+        net = net_family.reference(cfg).to(device).eval()
         net.load_state_dict(state)
         net.set_quant(quant)
         for j, det in answers.values():
             images = batches[j].to(device).float() / 255.0
-            decoded = decode(net(images), nc)
+            decoded = net_family.decode(cfg, net(images))
             ref = nms(decoded, cell["conf"], cell["iou"], cell["max_det"], cell["max_nms"])
             got = judge.detection_numbers(tuple(torch.as_tensor(t) for t in det), decoded, ref)
             worst = {k: max(v, worst.get(k, v)) for k, v in got.items()}
@@ -171,14 +167,16 @@ def reference_answers(cell: dict, state: dict, batches: torch.Tensor, picks, dev
     """The reference's own detections (``quant``: its fp8 control) for pool
     batches ``picks``, as a program's answers: {i: (batch, detections)}."""
     cfg = cell["model"]
+    net_family = registry.family(cfg)
     out = {}
     with plain_math(), torch.no_grad():
-        net = YOLOv5(cfg["nc"], cfg["deepen_factor"], cfg["widen_factor"]).to(device).eval()
+        net = net_family.reference(cfg).to(device).eval()
         net.load_state_dict(state)
         net.set_quant(quant)
         for i, j in enumerate(picks):
             images = batches[j].to(device).float() / 255.0
-            d = nms(decode(net(images), cfg["nc"]), cell["conf"], cell["iou"], cell["max_det"], cell["max_nms"])
+            d = nms(net_family.decode(cfg, net(images)), cell["conf"], cell["iou"], cell["max_det"],
+                    cell["max_nms"])
             out[i] = (j, (d.boxes.cpu(), d.scores.cpu(), d.classes.cpu(), d.num.cpu()))
     return out
 

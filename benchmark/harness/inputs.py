@@ -1,5 +1,6 @@
 """Every input of a run, made from its seed: the corpus's manifest and
-targets, the corpus images on the card, the weights, the request pool.
+targets, the corpus images on the card, the request pool, and the streams
+from which each network family draws its weights (``networks/``).
 
 The same seed gives the same inputs, on the card in a few large calls. The
 program gets them through its public types; the reference gets the same
@@ -9,13 +10,12 @@ arrays, or makes them again from the seed after the program is gone.
 from __future__ import annotations
 
 from datetime import datetime
-from typing import Dict, List, NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from reference.feed import FILL, content_size
-from reference.network import YOLOv5, head_priors
 
 STREAM_CORPUS, STREAM_WEIGHTS, STREAM_POOL, STREAM_PICK = 1, 2, 3, 4
 
@@ -96,54 +96,6 @@ def corpus(seed: int, m: Manifest, size: int, device, chunk: int = 256) -> Tuple
     return images, dev_sizes
 
 
-def of_config(seed: int, cfg: dict, device) -> Dict[str, torch.Tensor]:
-    """``weights`` of a configuration, with its assumed scales."""
-    a = cfg["assumed"]
-    return weights(seed, cfg["nc"], cfg["deepen_factor"], cfg["widen_factor"], device, a["batchnorm_scale"],
-                   a["head_scale"])
-
-
-def weights(seed: int, nc: int, deepen: float, widen: float, device, bn_scale: float = 1.0,
-            head_scale: float = 1.0) -> Dict[str, torch.Tensor]:
-    """The network's f32 state, drawn on ``device`` in one call: conv
-    kernels and head biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)), the head
-    kernels times ``head_scale``, YOLOv5's obj / cls priors on the head
-    biases; BatchNorm scale ``bn_scale``, shift 0, running mean 0, running
-    variance 1."""
-    net = YOLOv5(nc, deepen, widen).to("meta")
-    state = net.state_dict()
-    bounds = {}
-    for name, mod in net.named_modules():
-        if hasattr(mod, "weight") and mod.weight is not None and mod.weight.dim() == 4:
-            fan_in = mod.weight.shape[1] * mod.weight.shape[2] * mod.weight.shape[3]
-            bounds[f"{name}.weight"] = 1.0 / fan_in ** 0.5
-            if getattr(mod, "bias", None) is not None:
-                bounds[f"{name}.bias"] = 1.0 / fan_in ** 0.5
-    drawn = [k for k in state if k in bounds]
-    flat = torch.rand(sum(state[k].numel() for k in drawn), generator=generator(seed, STREAM_WEIGHTS, device),
-                      device=device)
-    out, at = {}, 0
-    for k, v in state.items():
-        if k in bounds:
-            n = v.numel()
-            out[k] = ((flat[at:at + n] * 2.0 - 1.0) * bounds[k]).reshape(v.shape)
-            at += n
-        elif k.endswith("running_var"):
-            out[k] = torch.ones(v.shape, device=device)
-        elif k.endswith(".weight") and v.dim() == 1:
-            out[k] = torch.full(v.shape, float(bn_scale), device=device)
-        else:
-            out[k] = torch.zeros(v.shape, device=device)
-    for prefix in ("ll_head", "ml_head", "hl_head"):
-        head = getattr(net, prefix)
-        A, (obj_add, cls_add) = head.anchors, head_priors(nc, head.stride)
-        out[f"{prefix}.conv.weight"] *= head_scale
-        b = out[f"{prefix}.conv.bias"]
-        b[A * 4:A * 5] += obj_add
-        b[A * 5:] += cls_add
-    return out
-
-
 def pool(seed: int, n: int, size: int, device) -> torch.Tensor:
     """``n`` uint8 (S, S, 3) request images, made on ``device`` and held in
     pinned host memory (plain host memory without a card)."""
@@ -152,22 +104,3 @@ def pool(seed: int, n: int, size: int, device) -> torch.Tensor:
     host = torch.empty(img.shape, dtype=torch.uint8, pin_memory=torch.device(device).type == "cuda")
     host.copy_(img)
     return host
-
-
-def calibrated(state: Dict[str, torch.Tensor], nc: int, deepen: float, widen: float,
-               images: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """``state`` with each BatchNorm's running statistics set to the batch
-    statistics of ``images`` ((B, S, S, 3) in [0, 1]) in the float32
-    reference: random weights whose eval-mode activations neither vanish
-    nor blow up, so that every image's detections carry information."""
-    from reference import plain_math
-    from reference.network import BatchNorm
-
-    net = YOLOv5(nc, deepen, widen).to(images.device)
-    net.load_state_dict(state)
-    for m in net.modules():
-        if isinstance(m, BatchNorm):
-            m.momentum = 1.0
-    with plain_math(), torch.no_grad():
-        net.train()(images)
-    return {k: v.detach().clone() for k, v in net.state_dict().items()}

@@ -7,7 +7,10 @@ Training (the program's first steps against the reference's):
     the first gradient as SmartSGD takes it (its momentum after step 1),
     relative to the reference's norm of that leaf or of the median leaf,
     whichever is larger;
-  * ``update_gap``: the same for each leaf's change over the judged steps.
+  * ``update_gap``: the same for each leaf's change over the judged steps;
+  * ``first_loss_gap``: the relative gap of the first step's total loss, a
+    number steady from seed to seed where the later steps' losses are not
+    (a cell compares it where its limits name it).
 Leaves whose reference gradient is under a thousandth of the median
 leaf's (nought to rounding) are left out of both.
 
@@ -66,7 +69,8 @@ def train_numbers(loss_p: Sequence[float], loss_r: Sequence[float], first_p, fir
     if len(loss_p) != len(loss_r):
         raise ValueError(f"{len(loss_p)} program losses against {len(loss_r)} reference losses")
     return {"loss_gap": max(abs(a - b) / abs(b) for a, b in zip(loss_p, loss_r)),
-            "grad_gap": leaf_gap(first_p, first_r, first_r), "update_gap": leaf_gap(delta_p, delta_r, first_r)}
+            "grad_gap": leaf_gap(first_p, first_r, first_r), "update_gap": leaf_gap(delta_p, delta_r, first_r),
+            "first_loss_gap": abs(loss_p[0] - loss_r[0]) / abs(loss_r[0])}
 
 
 def _pair_iou(b: torch.Tensor) -> torch.Tensor:

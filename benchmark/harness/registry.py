@@ -1,7 +1,12 @@
 """Everything the harness runs is found by name, in files of its own.
 
   * ``configs/<config>.json``: a model configuration (source, reduced,
-    assumed, and the source's ``nc``, ``depth_multiple``, ``width_multiple``);
+    assumed, ``network``, and the keys its network family reads);
+  * ``networks/<network>.py``: a network family, the one module that knows
+    the network (``networks/__init__.py`` gives the names it defines:
+    ``KEYS``, the reference and its control, the seed's weights, the
+    program's ``Trainer`` keywords and eval network, the reference's
+    training steps and decode, the counts of one image);
   * ``workloads/<cell>.json``: a cell (its configuration, ``kind``,
     ``chips``, sizes, traffic, the limits of ``correct``, ``why``);
   * ``harness/<kind>_cell.py``: the window of every cell of that ``kind``,
@@ -11,8 +16,11 @@
   * ``BENCHMARK.json`` at the root of the checkout: which metrics each cell
     reports, and their units.
 
-A later change adds a cell, a configuration or a metric by adding files;
-no file here needs an edit for it.
+A later change adds a cell, a configuration, a metric or a network by
+adding files; no file here needs an edit for it. A new network brings its
+family module, its reference beside ``reference/`` (plain float32 PyTorch
+that imports neither the program nor JAX), a configuration naming it, and
+its cells.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import importlib.util
 import json
 import re
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
@@ -59,14 +68,35 @@ def names(kind: str, root: Path = BENCH_DIR) -> List[str]:
     return sorted(p.name[:-len(suffix)] for p in (root / kind).glob(f"*{suffix}") if not p.name.startswith("_"))
 
 
+_FAMILIES: Dict[str, ModuleType] = {}  # each family's module, loaded once from its file
+
+
 def config(name: str, root: Path = BENCH_DIR) -> dict:
+    """The configuration ``name``; ``network_file`` is its family's module."""
     cfg = _load(root / "configs" / f"{check_name(name)}.json")
     cfg["name"] = name
-    for key in ("source", "reduced", "assumed", "depth_multiple", "width_multiple", "nc"):
+    for key in ("source", "reduced", "assumed", "network"):
         if key not in cfg:
             raise KeyError(f"configuration {name} has no {key!r}")
-    cfg["deepen_factor"], cfg["widen_factor"] = cfg["depth_multiple"], cfg["width_multiple"]
+    path = root / "networks" / f"{check_name(cfg['network'])}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"configuration {name} names network {cfg['network']!r}, and {path} does not exist")
+    cfg["network_file"] = str(path)
+    for key in family(cfg).KEYS:
+        if key not in cfg:
+            raise KeyError(f"configuration {name} has no {key!r}, which network {cfg['network']} reads")
     return cfg
+
+
+def family(cfg: dict) -> ModuleType:
+    """The module of the configuration's network family."""
+    path = cfg["network_file"]
+    if path not in _FAMILIES:
+        spec = importlib.util.spec_from_file_location(f"_bench_network_{cfg['network'].replace('.', '_')}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _FAMILIES[path] = mod
+    return _FAMILIES[path]
 
 
 def workload(name: str, root: Path = BENCH_DIR) -> dict:

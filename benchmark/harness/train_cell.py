@@ -1,9 +1,11 @@
-"""A training cell: ``Trainer.fit`` on the fused epoch, whole epochs.
+"""A training cell: ``Trainer.fit`` on the fused epoch, whole epochs, on
+one card or over ``chips`` cards.
 
 The cell's file states the traffic: sizes, ``aug`` (the augment's ranges,
 ``reference.feed.Aug``'s fields, given to the program as its
 ``AugParams`` and to the reference as they are) and ``program`` (further
-``Trainer`` keywords, among ``PROGRAM_KEYS``).
+``Trainer`` keywords, among ``PROGRAM_KEYS``). The network is the
+configuration's family (``networks/``).
 
 Set-up builds one ``Trainer`` from the public constructor over a corpus
 made on the card from the seed, loads the seed's weights into it, and
@@ -26,6 +28,22 @@ stops it after the second's. Under dispatch-ahead the card then runs the
 end of the second epoch and the third but for its last steps: whole steps
 and one epoch boundary, as the timed window runs them, without the fit's
 start or end.
+
+Over several cards the program's own launcher
+(``parallel/distributed.py:launch``) starts one rank a card, NCCL between
+them (gloo on the CPU). ``batch`` is the global batch: each rank builds
+its trainer on its card, as one host's rank, and trains on its
+``batch / chips`` rows of every step, its BatchNorm statistics and the
+gradient summed over the ranks. Every rank runs the set-up above and waits
+for the others before the window; rank 0 times its ``fit`` (the global
+batch's images over its wall time), traces its own card and hands back the
+judged steps; ``setup_s`` runs from this process's start, the ranks' start
+included, and the peak memory is the fullest card's. Each rank hands back
+the forbidden modules it holds once its window has closed, and a run in
+which any holds one raises. Once the ranks have
+exited the reference follows the judged steps on the first card at the
+global batch, as one batch: BatchNorm over all of it, as the synchronised
+BatchNorm computes it.
 """
 
 from __future__ import annotations
@@ -38,15 +56,15 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from counts.flops import TRAIN_FACTOR, conv_flops
-from harness import faults, inputs, judge, tracing
+from counts.flops import TRAIN_FACTOR
+from harness import faults, inputs, judge, registry, tracing
+from harness.loaded import forbidden_modules, refuse_ranks
 from reference import plain_math
-from reference.feed import (Aug, content_size, count_draws, draw_step, epoch_plans, reached_bytes, steps_batches,
-                            target_arrays)
-from reference.network import YOLOv5
-from reference.train import train_steps
+from reference.feed import (Aug, Draws, content_size, count_draws, draw_step, epoch_plans, reached_bytes,
+                            steps_batches, target_arrays)
 
 FAULTS = faults.TRAIN  # what ``calibrate.py`` plants under this window
+MESH_FAULTS = faults.MESH  # and, under a cell of several cards, these
 # ``Trainer`` keywords a cell's ``program`` may set: they change how the
 # program computes its steps, not what; the reference follows any of them.
 # A keyword that changes what is computed (no mosaic, mixup, a sampler,
@@ -54,6 +72,7 @@ FAULTS = faults.TRAIN  # what ``calibrate.py`` plants under this window
 PROGRAM_KEYS = ("fused_epoch", "fused_pipelined", "fused_dispatch_ahead", "remat_policy", "warp_pallas")
 STEP_KERNEL = "gather_rows_kernel"  # K2: one launch a step in every recipe the reference follows (no mixup)
 TRACED_EPOCHS = 3  # a traced window's fewest epochs: the second's fetch must come before the last epoch's
+RANKS_TIMEOUT_S = 900.0  # the ranks of one launch end within this, or the launch raises
 
 
 def aug(cell: dict) -> Aug:
@@ -82,24 +101,25 @@ def window_epochs(cell: dict, seconds: float) -> int:
     return cell["window_epochs"] * max(1, math.ceil(seconds / cell["window_seconds"]))
 
 
-def build(cell: dict, seed: int, device, m: inputs.Manifest):
+def build(cell: dict, seed: int, device, m: inputs.Manifest, mesh=None):
     """The program's trainer over the seed's corpus, with the seed's
-    weights: -> (trainer, weights)."""
+    weights (on ``mesh``, this rank's): -> (trainer, weights)."""
     from object_detection_cib_torch.data.device_pipeline import DeviceCorpus
     from object_detection_cib_torch.train.trainer import FitConfig, Trainer
 
     cfg = cell["model"]
+    net_family = registry.family(cfg)
     S, B = cell["image_size"], cell["batch"]
     info = inputs.dataset_info(m)
     images, sizes = inputs.corpus(seed, m, S, device)
     trainer = Trainer(
-        info, info, size={"deepen_factor": cfg["deepen_factor"], "widen_factor": cfg["widen_factor"]},
+        info, info, **net_family.trainer_keywords(cfg),
         image_size=S, batch_size=B, aug_params=program_aug(aug(cell)), max_targets=cell["max_targets"], seed=seed,
         dtype=torch.bfloat16, device=device, pipeline="device", device_cache=True,
         corpus=DeviceCorpus(info, images, sizes, device), max_epochs=cell["max_epochs"], val_device_cache=False,
-        assign_compact_slots=cell["compact_slots"], **program_keywords(cell))
+        assign_compact_slots=cell["compact_slots"], mesh=mesh, **program_keywords(cell))
     trainer.loop = FitConfig(check_val_every_n_epoch=10**9, log_every_n_steps=10**9)
-    state = inputs.of_config(seed, cfg, device)
+    state = net_family.weights(seed, cfg, device)
     with torch.no_grad():
         trainer.net.load_state_dict(state)
     return trainer, state
@@ -120,11 +140,13 @@ def first_steps(trainer, judged: int):
 def reference_steps(cell: dict, seed: int, device, m: inputs.Manifest, state: dict, judged: int,
                     quant: bool = False):
     """The reference (``quant``: its fp8 control) over the same first
-    steps: -> (losses, first gradient, parameters after)."""
+    steps at the global batch: -> (losses, first gradient, parameters
+    after)."""
     cfg = cell["model"]
+    net_family = registry.family(cfg)
     S, B = cell["image_size"], cell["batch"]
     with plain_math():
-        net = YOLOv5(cfg["nc"], cfg["deepen_factor"], cfg["widen_factor"]).to(device)
+        net = net_family.reference(cfg).to(device)
         net.load_state_dict(state)
         net.set_quant(quant)
         images, sizes = inputs.corpus(seed, m, S, device)
@@ -132,7 +154,7 @@ def reference_steps(cell: dict, seed: int, device, m: inputs.Manifest, state: di
         plans = epoch_plans(seed, len(m.shapes), B, 2)
         batches = steps_batches(images, sizes, targets, plans, [1, judged - 1], seed, S, aug(cell),
                                 cell["max_targets"])
-        losses, first = train_steps(net, batches, len(m.shapes) // B, cfg["nc"], S)
+        losses, first = net_family.train_steps(cfg, net, batches, len(m.shapes) // B, S)
         after = {n: p.detach().clone() for n, p in net.named_parameters()}
     return losses, first, after
 
@@ -143,9 +165,11 @@ def judge_steps(prog, ref, state: dict) -> dict:
 
 
 def k5_reached(cell: dict, seed: int, device, m: inputs.Manifest, done: int, epoch: int, steps: int):
-    """Source bytes K5's taps reach in each of the first ``steps`` steps of
-    epoch ``epoch``, after ``done`` steps' draws."""
+    """Source bytes K5's taps reach on rank 0's card (its ``batch /
+    chips`` groups of the global step) in each of the first ``steps``
+    steps of epoch ``epoch``, after ``done`` steps' draws."""
     S, B = cell["image_size"], cell["batch"]
+    mine = B // cell["chips"]
     a = aug(cell)
     gen = torch.Generator(device=device).manual_seed(seed)
     count_draws(gen, B, S, a, done)
@@ -153,8 +177,8 @@ def k5_reached(cell: dict, seed: int, device, m: inputs.Manifest, done: int, epo
     sizes = torch.tensor([content_size(h, w, S) for h, w in m.shapes], dtype=torch.int32, device=device)
     out = []
     for i in range(steps):
-        d = draw_step(gen, B, S, a)
-        out.append(reached_bytes(sizes[torch.from_numpy(plan[i]).to(device)], d, S))
+        d = Draws(*(t[:mine] for t in draw_step(gen, B, S, a)))
+        out.append(reached_bytes(sizes[torch.from_numpy(plan[i][:4 * mine]).to(device)], d, S))
     return out
 
 
@@ -178,14 +202,13 @@ class _TraceOneEpoch:
             self.trace.stop()
 
 
-def run(cell: dict, seed: int, seconds: float, trace: bool, device, t_process: float,
-        hook: Optional[Callable] = None) -> dict:
-    """One run of a training cell; ``hook(trainer)`` may plant a fault."""
+def _train(cell: dict, seed: int, seconds: float, trace: bool, device, t_process: float, hook: Optional[Callable],
+           m: inputs.Manifest, mesh=None) -> dict:
+    """The program's part of one run, on one card or as one rank of
+    ``mesh``: set-up, the judged first steps (``prog``) and the window."""
     cfg = cell["model"]
     S, B = cell["image_size"], cell["batch"]
-    a = cfg["assumed"]
-    m = inputs.manifest(seed, a["corpus_images"], S, cfg["nc"], tuple(a["boxes_per_image"]), a["zipf_a"])
-    trainer, state = build(cell, seed, device, m)
+    trainer, state = build(cell, seed, device, m, mesh)
     if hook is not None:
         hook(trainer)
     judged = cell["judged_steps"]
@@ -194,12 +217,18 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device, t_process: f
     epochs = window_epochs(cell, seconds)
     spans = tracing.Spans()
     on_card = torch.device(device).type == "cuda"
+    main = mesh is None or mesh.rank == 0
     tr = None
     if trace:
         epochs = max(epochs, TRACED_EPOCHS)
-        tr = _TraceOneEpoch(tracing.Trace(device, sync=False))
         trainer.loop = trainer.loop._replace(log_every_n_steps=spe)
-        trainer.loggers = list(trainer.loggers) + [tr]
+        if main:
+            tr = _TraceOneEpoch(tracing.Trace(device, sync=False))
+            trainer.loggers = list(trainer.loggers) + [tr]
+    if mesh is not None:
+        from object_detection_cib_torch.parallel.distributed import barrier
+
+        barrier(mesh)
     if on_card:
         torch.cuda.synchronize(device)
     setup_s = time.perf_counter() - t_process
@@ -214,67 +243,164 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device, t_process: f
     out = {"setup_s": setup_s, "e2e": {"train_img_s": images / (t1 - t0), "setup_s": setup_s},
            "attempted": images, "failed": failed, "window_epochs": epochs, "window_s": t1 - t0}
     record = None
-    if trace:
+    if tr is not None:
         if tr.calls < 2:
             raise RuntimeError(f"the traced window's fit called its loggers {tr.calls} times in {epochs} epochs")
-        record = dict(tr.trace.record(), cell=cell["name"], kind="train", chips=1, batch=B, image_size=S,
-                      step_kernel=STEP_KERNEL,
-                      step_flops=TRAIN_FACTOR * conv_flops(cfg["nc"], cfg["deepen_factor"], cfg["widen_factor"], S) * B,
+        record = dict(tr.trace.record(), cell=cell["name"], kind="train", chips=cell["chips"],
+                      batch=B // cell["chips"], image_size=S, step_kernel=STEP_KERNEL,
+                      step_flops=TRAIN_FACTOR * registry.family(cfg).conv_flops(cfg, S) * B,
                       k5_reached=k5_reached(cell, seed, device, m, judged + 2 * spe, start + 2, spe))
         lead, tail = record["edge_idle_s"]
         out["detail"] = (f"trace: {record['window_s']:.3f} s window, idle {record['window_s'] - record['busy_s']:.6f} s, "
                          f"of it {lead:.6f} s at its start and {tail:.6f} s at its end; "
                          f"{len(record['kernels'])} device operations")
     out["memory_peak_bytes"] = torch.cuda.max_memory_allocated(device) if on_card else 0
+    out["record"], out["prog"], out["state"] = record, prog, state
     del trainer, window, tr
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    ref = reference_steps(cell, seed, device, m, state, judged)
-    out["numbers"] = judge_steps(prog, ref, state)
-    out["record"] = record
     return out
 
 
-def reading(cell: dict, seed: int, device, hook=None, what: str = "program") -> dict:
-    """``calibrate.py``'s reading: the judged first steps at the cell's own
-    sizes, as a run judges them, without a window. ``what``: "program"
-    (``hook`` may plant a fault), "control" (the fp8 reference in the
-    program's place) or "float32_program" (the program computing in
-    float32, a second witness). The leaves with the widest gaps come
-    beside the numbers."""
-    cfg, S = cell["model"], cell["image_size"]
+def _moved(x, device):
+    """``x`` with its tensors copied to ``device``: to the host as a rank
+    hands them back, to the first card for the reference."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device)
+    if isinstance(x, dict):
+        return {k: _moved(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_moved(v, device) for v in x)
+    return x
+
+
+def _rank_run(mesh, cell, seed, seconds, trace, t_process, hook):
+    """One rank of a run over several cards (``launch``'s function): rank 0
+    hands back its run without the weights, which the reference draws
+    again; the others their peak memory; each the forbidden modules it
+    holds once the window has closed."""
+    m = manifest(cell, seed)
+    out = _train(cell, seed, seconds, trace, mesh.device, t_process, hook, m, mesh)
+    out.pop("state")
+    out = _moved(out, "cpu") if mesh.rank == 0 else {"memory_peak_bytes": out["memory_peak_bytes"]}
+    return dict(out, forbidden=forbidden_modules())
+
+
+def _launch(cell: dict, device, fn, args: tuple) -> list:
+    """``fn(mesh, *args)`` on ``cell["chips"]`` ranks, one a card from the
+    first (or on the CPU over gloo), by the program's launcher."""
+    from object_detection_cib_torch.parallel.distributed import launch
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:  # built once here, not by every rank at once
+        from object_detection_cib_torch.ops.build import build_all
+
+        build_all()
+    return launch(fn, cell["chips"], args=args, device_type="cuda" if on_card else "cpu",
+                  join_timeout_s=RANKS_TIMEOUT_S)
+
+
+def manifest(cell: dict, seed: int) -> inputs.Manifest:
+    cfg = cell["model"]
     a = cfg["assumed"]
-    m = inputs.manifest(seed, a["corpus_images"], S, cfg["nc"], tuple(a["boxes_per_image"]), a["zipf_a"])
-    judged = cell["judged_steps"]
-    if what == "control":
-        state = inputs.of_config(seed, cfg, device)
-        prog = reference_steps(cell, seed, device, m, state, judged, quant=True)
-    elif what in ("program", "float32_program"):
-        trainer, state = _built(cell, seed, device, m, what == "float32_program")
-        if hook is not None:
-            hook(trainer)
-        prog = first_steps(trainer, judged)
-        del trainer
-        gc.collect()
+    return inputs.manifest(seed, a["corpus_images"], cell["image_size"], cfg["nc"], tuple(a["boxes_per_image"]),
+                           a["zipf_a"])
+
+
+def run(cell: dict, seed: int, seconds: float, trace: bool, device, t_process: float,
+        hook: Optional[Callable] = None) -> dict:
+    """One run of a training cell; ``hook(trainer)`` may plant a fault (on
+    every rank)."""
+    if cell["chips"] == 1:
+        m = manifest(cell, seed)
+        out = _train(cell, seed, seconds, trace, device, t_process, hook, m)
+        state = out.pop("state")
     else:
-        raise ValueError(f"a training cell has no {what!r} reading")
+        outs = _launch(cell, device, _rank_run, (cell, seed, seconds, trace, t_process, hook))
+        refuse_ranks([o.pop("forbidden") for o in outs])
+        out = outs[0]
+        out["memory_peak_bytes"] = max(o["memory_peak_bytes"] for o in outs)
+        m = manifest(cell, seed)
+        cfg = cell["model"]
+        state = registry.family(cfg).weights(seed, cfg, device)
+    prog = _moved(out.pop("prog"), device)
+    ref = reference_steps(cell, seed, device, m, state, cell["judged_steps"])
+    out["numbers"] = judge_steps(prog, ref, state)
+    return out
+
+
+def _judged(cell: dict, seed: int, device, hook, in_float32: bool, mesh=None):
+    """The program's judged first steps, without a window: -> (prog, weights)."""
+    trainer, state = _built(cell, seed, device, manifest(cell, seed), in_float32, mesh)
+    if hook is not None:
+        hook(trainer)
+    prog = first_steps(trainer, cell["judged_steps"])
+    del trainer
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return prog, state
+
+
+def _rank_readings(mesh, cell, jobs):
+    """Every job's judged steps on the ranks of one launch: -> (rank 0's
+    readings, else None; the forbidden modules this rank holds)."""
+    progs = [_judged(cell, seed, mesh.device, hook, in_float32, mesh)[0] for seed, hook, in_float32 in jobs]
+    return ([_moved(p, "cpu") for p in progs] if mesh.rank == 0 else None), forbidden_modules()
+
+
+def _numbers(cell: dict, seed: int, device, prog, state) -> dict:
+    """A reading's numbers: ``prog`` (None: the fp8 control's) against the
+    reference, the leaves with the widest gaps beside them."""
+    cfg = cell["model"]
+    m = manifest(cell, seed)
+    judged = cell["judged_steps"]
+    if state is None:
+        state = registry.family(cfg).weights(seed, cfg, device)
+    if prog is None:
+        prog = reference_steps(cell, seed, device, m, state, judged, quant=True)
+    prog = _moved(prog, device)
     ref = reference_steps(cell, seed, device, m, state, judged)
     numbers = judge_steps(prog, ref, state)
     delta = lambda run: {n: run[2][n] - state[n] for n in ref[2]}  # noqa: E731
     numbers["worst_grad_leaves"] = judge.worst_leaves(prog[1], ref[1], ref[1])
     numbers["worst_update_leaves"] = judge.worst_leaves(delta(prog), delta(ref), ref[1])
+    numbers["step_loss_gaps"] = [abs(a - b) / abs(b) for a, b in zip(prog[0], ref[0])]
     return numbers
 
 
-def _built(cell, seed, device, m, in_float32: bool):
+def readings(cell: dict, jobs, device) -> list:
+    """``calibrate.py``'s readings: the judged first steps at the cell's own
+    sizes, as a run judges them, without a window. Each job is (seed,
+    hook, what): "program" (``hook`` may plant a fault), "control" (the
+    fp8 reference in the program's place) or "float32_program" (the
+    program computing in float32, a second witness). Over several cards
+    the program's jobs run first, on the ranks of one launch, and the
+    references after it."""
+    for _, _, what in jobs:
+        if what not in ("program", "control", "float32_program"):
+            raise ValueError(f"a training cell has no {what!r} reading")
+    if cell["chips"] == 1:
+        return [_numbers(cell, seed, device, *((None, None) if what == "control" else
+                                               _judged(cell, seed, device, hook, what == "float32_program")))
+                for seed, hook, what in jobs]
+    ran = [(seed, hook, what == "float32_program") for seed, hook, what in jobs if what != "control"]
+    outs = _launch(cell, device, _rank_readings, (cell, ran)) if ran else [([], [])]
+    refuse_ranks([found for _, found in outs])
+    progs = iter(outs[0][0])
+    return [_numbers(cell, seed, device, None if what == "control" else next(progs), None)
+            for seed, _, what in jobs]
+
+
+def _built(cell, seed, device, m, in_float32: bool, mesh=None):
     from object_detection_cib_torch.train import trainer as T
 
     if not in_float32:
-        return build(cell, seed, device, m)
+        return build(cell, seed, device, m, mesh)
     init = T.Trainer.__init__
     T.Trainer.__init__ = lambda self, *a, **k: init(self, *a, **{**k, "dtype": torch.float32})
     try:
-        return build(cell, seed, device, m)
+        return build(cell, seed, device, m, mesh)
     finally:
         T.Trainer.__init__ = init

@@ -10,7 +10,8 @@ read by ``benchmark/metrics/<metric>.py`` from the traced record) and a
 breakdown. The last line of standard output is one JSON object; the last
 lines of standard error, and the result's last key, give each number that
 decided ``correct`` beside its limit. Exits non-zero, printing no result,
-without a card, or if JAX or the JAX package was loaded.
+without a card, or if JAX or the JAX package was loaded (here or, over
+several cards, in a rank: the window raises).
 """
 
 import time
@@ -30,15 +31,6 @@ for p in (str(BENCH), str(BENCH.parent)):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "object_detection_cib_tpu")
-
-
-def forbidden_modules() -> list:
-    """Loaded modules whose top-level name, compared whole, is JAX's or the
-    JAX package's."""
-    return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
-
-
 def card(chips: int):
     """The first card, or None (and why) where there are too few."""
     import torch
@@ -50,12 +42,24 @@ def card(chips: int):
     return torch.device("cuda", 0), None
 
 
-def power_limit() -> str:
+def smi(query: str) -> list:
+    """``nvidia-smi``'s reading of ``query``, a line a card (none if it
+    cannot be read)."""
     try:
-        return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                              capture_output=True, text=True, timeout=20).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError, IndexError):
-        return "not read"
+        return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                              capture_output=True, text=True, timeout=20).stdout.strip().splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return []
+
+
+def power_limit() -> str:
+    return (smi("name,power.limit") or ["not read"])[0]
+
+
+def card_state(chips: int) -> str:
+    """Each card's SM clock, its maximum, temperature and power draw as the
+    run ends: what a drift between runs is looked for in."""
+    return "; ".join(smi("index,clocks.sm,clocks.max.sm,temperature.gpu,power.draw")[:chips]) or "not read"
 
 
 def result(cell: dict, out: dict, bench: dict, traced: bool, kind: str) -> dict:
@@ -96,6 +100,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from harness import registry
+    from harness.loaded import forbidden_modules
 
     cell = registry.workload(args.workload)
     bench = registry.spec()
@@ -114,6 +119,8 @@ def main(argv=None) -> int:
     line = result(cell, out, bench, bool(args.trace), torch.cuda.get_device_name(device))
     print(f"benchmark: {args.workload} seed {args.seed} on {power_limit()}; window {out['window_s']:.3f} s, "
           f"set-up {out['setup_s']:.3f} s", file=sys.stderr)
+    print(f"benchmark: cards as the run ends (index, SM clock, its maximum, temperature, power): "
+          f"{card_state(cell['chips'])}", file=sys.stderr)
     if out.get("detail"):
         print(f"benchmark: {out['detail']}", file=sys.stderr)
     for k, v in line["checks"].items():

@@ -9,8 +9,8 @@ import time
 import pytest
 import torch
 
-from _tiny import infer_cell, train_cell
-from harness import faults, infer_cell as infer, inputs, judge, train_cell as train
+from _tiny import infer_cell, train4_cell, train_cell
+from harness import faults, infer_cell as infer, judge, registry, train_cell as train
 
 CPU = torch.device("cpu")
 SEED = 2**31 + 17
@@ -56,14 +56,33 @@ def test_training_faults_are_not_correct(fault):
 
 def test_training_control_is_not_correct():
     cell = train_cell()
-    cfg, S = cell["model"], cell["image_size"]
-    a = cfg["assumed"]
-    m = inputs.manifest(SEED, a["corpus_images"], S, cfg["nc"], tuple(a["boxes_per_image"]), a["zipf_a"])
-    state = inputs.of_config(SEED, cfg, CPU)
+    cfg = cell["model"]
+    m = train.manifest(cell, SEED)
+    state = registry.family(cfg).weights(SEED, cfg, CPU)
     ctl = train.reference_steps(cell, SEED, CPU, m, state, cell["judged_steps"], quant=True)
     ref = train.reference_steps(cell, SEED, CPU, m, state, cell["judged_steps"])
     numbers = train.judge_steps(ctl, ref, state)
     assert not judge.verdict(numbers, cell["limits"]), numbers
+
+
+def test_float32_program_over_ranks_agrees_with_the_reference(few_threads):
+    """Two gloo ranks, each on its rows of the global batch with BatchNorm
+    and the gradient summed over them, read as the reference at the
+    global batch in one piece does (the program in float32)."""
+    numbers, = train.readings(train4_cell(), [(SEED, None, "float32_program")], CPU)
+    assert numbers["loss_gap"] < 1e-5 and numbers["grad_gap"] < 1e-3 and numbers["update_gap"] < 1e-3, numbers
+
+
+@pytest.mark.parametrize("fault", sorted({**faults.TRAIN, **faults.MESH}))
+def test_training_faults_over_ranks_are_not_correct(few_threads, fault):
+    """A run over two gloo ranks, each with the fault planted, is judged
+    not correct: an unchanged state, half of each rank's rows, the
+    gradient's exchange left out, BatchNorm's statistics a rank's own (at
+    this size; at the cell's, 64 images a card, that one reads as sound
+    runs do)."""
+    cell = train4_cell()
+    out = train.run(cell, SEED, 0.1, False, CPU, time.perf_counter(), hook={**faults.TRAIN, **faults.MESH}[fault])
+    assert not judge.verdict(out["numbers"], cell["limits"]), out["numbers"]
 
 
 def _infer(hook=None):

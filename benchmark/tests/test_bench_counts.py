@@ -1,30 +1,67 @@
-"""The yardstick's counts: model FLOPs, parameters and kernel byte bounds."""
+"""The yardstick's counts, through each configuration's network family:
+model FLOPs, parameters, BatchNorm bytes and the seed's weights equal the
+values pinned before the family modules existed; and kernel byte bounds."""
+
+import hashlib
 
 import pytest
+import torch
 
+from counts.bn_silu import BYTES_PER_ELEMENT
 from counts.bytes import bound_ms, gather_rows, greedy_nms, hsv_planar, warp_quadrants
-from counts.flops import TRAIN_FACTOR, conv_flops, parameters
+from counts.flops import TRAIN_FACTOR
+from harness import registry
 
-S_, L_ = (0.33, 0.50), (1.0, 1.0)
+SEED = 2**31 + 17
 
 
-@pytest.mark.parametrize("nc,factors,size,gflops", [
-    (80, S_, 640, 16.434), (80, L_, 640, 108.994), (10, S_, 416, 6.689), (10, L_, 416, 45.541),
-    (10, S_, 640, 15.831),
+def _cfg(name, nc=10):
+    cfg = registry.config(name)
+    return dict(cfg, nc=nc), registry.family(cfg)
+
+
+@pytest.mark.parametrize("nc,config,size,gflops", [
+    (80, "yolov5s", 640, 16.434), (80, "yolov5l", 640, 108.994), (10, "yolov5s", 416, 6.689),
+    (10, "yolov5l", 416, 45.541), (10, "yolov5s", 640, 15.831),
 ])
-def test_conv_flops_of_one_image(nc, factors, size, gflops):
-    assert conv_flops(nc, *factors, size) / 1e9 == pytest.approx(gflops, abs=5e-4)
+def test_conv_flops_of_one_image(nc, config, size, gflops):
+    cfg, fam = _cfg(config, nc)
+    assert fam.conv_flops(cfg, size) / 1e9 == pytest.approx(gflops, abs=5e-4)
 
 
-@pytest.mark.parametrize("factors,published", [(S_, 16.5), (L_, 109.1)])
-def test_flops_within_a_percent_of_ultralytics(factors, published):
-    assert abs(conv_flops(80, *factors, 640) / 1e9 / published - 1) < 0.01
+@pytest.mark.parametrize("config,published", [("yolov5s", 16.5), ("yolov5l", 109.1)])
+def test_flops_within_a_percent_of_ultralytics(config, published):
+    cfg, fam = _cfg(config, 80)
+    assert abs(fam.conv_flops(cfg, 640) / 1e9 / published - 1) < 0.01
 
 
-@pytest.mark.parametrize("nc,factors,count", [(80, S_, 7_235_389), (80, L_, 46_563_709), (10, S_, 7_046_599),
-                                              (10, L_, 46_186_759)])
-def test_parameters(nc, factors, count):
-    assert parameters(nc, *factors) == count
+@pytest.mark.parametrize("nc,config,count", [(80, "yolov5s", 7_235_389), (80, "yolov5l", 46_563_709),
+                                             (10, "yolov5s", 7_046_599), (10, "yolov5l", 46_186_759)])
+def test_parameters(nc, config, count):
+    cfg, fam = _cfg(config, nc)
+    assert fam.parameters(cfg) == count
+
+
+@pytest.mark.parametrize("config,elements,layers", [("yolov5s", 9_993_984, 57), ("yolov5l", 31_063_552, 101)])
+def test_batchnorm_bytes_of_one_image_at_416(config, elements, layers):
+    cfg, fam = _cfg(config)
+    assert fam.bn_elements(cfg, 416) == (elements, layers) and BYTES_PER_ELEMENT == 10
+
+
+@pytest.mark.parametrize("config,leaves,digest", [
+    ("yolov5s", 291, "1063312c3d806eecba28a6fbca4264f28523f8498dd36f672bf21b69de59c748"),
+    ("yolov5l", 511, "eea80d850cfc03a9857be83a2b9583ca7bf88324b54960a4e8efd5f54d912d1c"),
+])
+def test_the_seeds_weights_are_drawn_as_before(config, leaves, digest):
+    """Every leaf, in order, bit for bit: the same generator stream, order
+    and values as the weights drawn before the family modules."""
+    cfg, fam = _cfg(config)
+    state = fam.weights(SEED, cfg, torch.device("cpu"))
+    h = hashlib.sha256()
+    for k, v in state.items():
+        h.update(k.encode())
+        h.update(v.contiguous().numpy().tobytes())
+    assert (len(state), h.hexdigest()) == (leaves, digest)
 
 
 def test_train_step_counts_three_forwards():

@@ -25,7 +25,8 @@ def _modules(sub: str) -> list:
 
 
 def test_every_module_of_the_benchmark_loads_no_jax():
-    imports = "\n".join(f"import {m}" for m in _modules("harness") + _modules("reference") + _modules("counts"))
+    imports = "\n".join(f"import {m}" for m in _modules("harness") + _modules("reference") + _modules("counts")
+                        + _modules("networks"))
     readers = ("from harness import registry\n"
                "[registry.reader(n) for n in registry.names('metrics')]\n"
                "import importlib.util\n"
@@ -38,7 +39,9 @@ def test_every_module_of_the_benchmark_loads_no_jax():
 
 
 def test_the_reference_loads_nothing_of_the_program():
-    loaded = _loaded("\n".join(f"import {m}" for m in _modules("reference") + _modules("counts")))
+    """Nor does a network family until it builds the program's objects."""
+    loaded = _loaded("\n".join(f"import {m}" for m in _modules("reference") + _modules("counts")
+                                + _modules("networks")))
     assert "object_detection_cib_torch" not in loaded
     assert not loaded & FORBIDDEN
 

@@ -4,8 +4,10 @@ a cell, a configuration and a metric can each be added as new files."""
 import json
 import re
 import shutil
+from pathlib import Path
 
 import pytest
+import torch
 
 from harness import registry
 
@@ -14,6 +16,68 @@ SPEC = json.loads((registry.CHECKOUT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}\Z")
 UNIT = re.compile(r"[A-Za-z0-9_/%.\-]{1,16}\Z")
 LINE = re.compile(r"[^\t\n\r]{1,200}\Z")
+# a network family of two convolutions, with every name a family module gives
+STUB_FAMILY = '''"""A two-layer detector: a strided 3x3 conv and a 1x1 head."""
+import torch
+
+from counts.bn_silu import bn_elements as _bn
+from counts.flops import conv_flops as _flops
+
+KEYS = ("nc", "width")
+
+
+class Net(torch.nn.Module):
+    def __init__(self, nc, width):
+        super().__init__()
+        self.stem = torch.nn.Conv2d(3, width, 3, 2, 1)
+        self.head = torch.nn.Conv2d(width, 5 + nc, 1)
+
+    def set_quant(self, on):
+        pass
+
+    def forward(self, images):
+        return (self.head(self.stem(images.permute(0, 3, 1, 2))).permute(0, 2, 3, 1),)
+
+
+def reference(cfg):
+    return Net(cfg["nc"], cfg["width"])
+
+
+def weights(seed, cfg, device):
+    return reference(cfg).to(device).state_dict()
+
+
+def calibrated(cfg, state, images):
+    return state
+
+
+def trainer_keywords(cfg):
+    return {}
+
+
+def eval_network(cfg, device):
+    raise NotImplementedError("the program has no such network")
+
+
+def train_steps(cfg, net, batches, steps_per_epoch, size):
+    raise NotImplementedError
+
+
+def decode(cfg, heads):
+    raise NotImplementedError
+
+
+def conv_flops(cfg, size):
+    return _flops(reference(cfg).to("meta"), size, torch.nn.Conv2d)
+
+
+def bn_elements(cfg, size):
+    return _bn(reference(cfg).to("meta"), size, torch.nn.BatchNorm2d)
+
+
+def parameters(cfg):
+    return sum(p.numel() for p in reference(cfg).parameters())
+'''
 
 
 def test_spec_keys_and_lengths():
@@ -79,11 +143,24 @@ def test_added_files_are_found_without_an_edit(tmp_path):
     cell.update(config="yolov5m", why="a cell added as a file")
     (root / "workloads" / "train.yolov5m.416.b64.json").write_text(json.dumps(cell))
     (root / "metrics" / "steps_traced.py").write_text("def read(record):\n    return None if not record else record['steps']\n")
+    (root / "networks" / "tinynet.py").write_text(STUB_FAMILY)
+    (root / "configs" / "tinydet.json").write_text(json.dumps(dict(
+        source="https://example.org/tinydet", reduced=[], network="tinynet", nc=3, width=8,
+        assumed={"corpus_images": 32, "boxes_per_image": [1, 9], "zipf_a": 1.01, "batchnorm_scale": 1.0})))
+    (root / "workloads" / "train.tinydet.64.b8.json").write_text(json.dumps(dict(cell, config="tinydet")))
     assert "train.yolov5m.416.b64" in registry.names("workloads", root)
-    assert "yolov5m" in registry.names("configs", root)
+    assert {"yolov5m", "tinydet"} <= set(registry.names("configs", root))
     assert "steps_traced" in registry.names("metrics", root)
     w = registry.workload("train.yolov5m.416.b64", root)
-    assert w["model"]["deepen_factor"] == 0.67 and w["kind"] == "train"
+    assert w["model"]["depth_multiple"] == 0.67 and w["kind"] == "train"
+    assert registry.family(w["model"]).conv_flops(w["model"], 416) > 0
+    tiny = registry.workload("train.tinydet.64.b8", root)["model"]
+    net = registry.family(tiny)
+    assert Path(tiny["network_file"]) == root / "networks" / "tinynet.py"
+    assert net.parameters(tiny) == 3 * 8 * 9 + 8 + 8 * (5 + 3) + (5 + 3)
+    assert net.conv_flops(tiny, 64) == 2 * (32 * 32 * 8 * 27 + 32 * 32 * 8 * 8)
+    assert net.bn_elements(tiny, 64) == (0, 0)
+    assert net.reference(tiny)(torch.rand(2, 64, 64, 3))[0].shape == (2, 32, 32, 8)
     assert registry.reader("steps_traced", root)({"steps": 20}) == 20
     spec = dict(SPEC, per_layer=SPEC["per_layer"] + [
         {"name": "steps_traced", "unit": "steps", "better": "higher", "source": "host_clock", "layer": "device",
@@ -94,6 +171,22 @@ def test_added_files_are_found_without_an_edit(tmp_path):
     assert set(registry.metrics_for("train.yolov5m.416.b64", spec, traced=False)) == {"train_img_s", "setup_s"}
     for p, data in before.items():
         assert p.read_bytes() == data, f"{p} changed"
+
+
+def test_a_network_without_its_family_file_is_refused(tmp_path):
+    root = tmp_path / "benchmark"
+    shutil.copytree(BENCH, root, ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    cfg = json.loads((root / "configs" / "yolov5s.json").read_text())
+    (root / "configs" / "yolov8l.json").write_text(json.dumps(dict(cfg, network="yolov8")))
+    with pytest.raises(FileNotFoundError, match=re.escape(str(root / "networks" / "yolov8.py"))):
+        registry.config("yolov8l", root)
+    (root / "configs" / "bad.json").write_text(json.dumps(dict(cfg, network="../yolov5")))
+    with pytest.raises(ValueError, match="not a valid name"):
+        registry.config("bad", root)
+    del cfg["width_multiple"]
+    (root / "configs" / "nowidth.json").write_text(json.dumps(cfg))
+    with pytest.raises(KeyError, match="width_multiple"):
+        registry.config("nowidth", root)
 
 
 def test_a_cell_with_its_own_recipe_and_window_is_added_as_files(tmp_path):

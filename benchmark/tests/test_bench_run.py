@@ -8,11 +8,13 @@ import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
+import pytest
 import torch
 
-from _tiny import infer_cell, train_cell
+from _tiny import infer_cell, train4_cell, train_cell
 from harness import infer_cell as infer, registry, train_cell as train
 
 BENCH = Path(__file__).resolve().parents[1]
@@ -74,3 +76,45 @@ def test_result_line_keys_infer_traced():
     assert {"busy_s", "window_s"} <= set(line["device"])
     assert {"infer_mfu", "enqueue_ms.infer", "idle_share.infer"} <= set(line["metrics"])
     json.dumps(line)
+
+
+def test_result_line_over_ranks_traced(few_threads):
+    """Over two gloo ranks (the four-card cell's window): the global
+    batch's images, the ranks' count, and rank 0's traced record with the
+    global batch's FLOPs and its own rows."""
+    from harness import registry
+
+    cell = train4_cell()
+    out = train.run(cell, 2**31 + 3, 0.2, True, torch.device("cpu"), time.perf_counter())
+    spec = json.loads((registry.CHECKOUT / "BENCHMARK.json").read_text())
+    line = _run_module().result(cell, out, spec, True, "NVIDIA H100 80GB HBM3")
+    assert line["attempted"] == 3 * 4 * 8 and line["device"]["count"] == 2  # three epochs of four steps of 8
+    assert {"idle_share.train"} <= set(line["metrics"]) and out["failed"] == 0
+    record = out["record"]
+    cfg = cell["model"]
+    assert record["chips"] == 2 and record["batch"] == 4
+    assert record["step_flops"] == 3 * registry.family(cfg).conv_flops(cfg, 64) * 8
+    assert len(record["k5_reached"]) == 4 and out["setup_s"] > 0 and out["window_s"] > 0
+    json.dumps(line)
+
+
+def plant_jax_on_rank_1(trainer) -> None:
+    """A hook that leaves a stub ``jax`` among rank 1's modules."""
+    import torch.distributed as dist
+
+    if dist.get_rank() == 1:
+        sys.modules["jax"] = types.ModuleType("jax")
+
+
+@pytest.mark.parametrize("entry", ["run", "readings"])
+def test_a_rank_that_loaded_jax_gives_no_result(few_threads, entry):
+    """Over two gloo ranks, one of which holds ``jax`` once its window (or
+    its readings) ends, the window raises, naming it, and hands back no
+    result."""
+    cell, seed, cpu = train4_cell(), 2**31 + 3, torch.device("cpu")
+    with pytest.raises(RuntimeError, match="rank 1: jax"):
+        if entry == "run":
+            train.run(cell, seed, 0.1, False, cpu, time.perf_counter(), hook=plant_jax_on_rank_1)
+        else:
+            train.readings(cell, [(seed, plant_jax_on_rank_1, "program")], cpu)
+    assert "jax" not in sys.modules
